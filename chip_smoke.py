@@ -48,6 +48,7 @@ from repro_torch.serve import ServeScheduler  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_S = 3.35e12
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # tests/test_kernels.py:70-71
+REL_TOL = 1e-2   # ||kernel - plain|| / ||plain||: a dropped kv tile fails it
 MODEL_TOL = 0.15                                     # tests/test_models.py:117-119
 ARCH = "relic_tiny"
 SERVE_BATCH, PROMPT_LEN, GEN = 8, 128, 64
@@ -58,6 +59,8 @@ KERNEL_SHAPES = [  # (b, s, h, kv, d): tests/test_kernels.py:55-60
     (1, 96, 4, 2, 16),      # ragged S
 ]
 MAIN_SHAPE = (4, 2048, 12, 4, 64)  # relic_tiny's attention in the long forward
+# relic_tiny's attention in the teacher-forced forward of the counted main path
+TEACHER_SHAPE = (SERVE_BATCH, PROMPT_LEN + GEN, 12, 4, 64)
 
 
 def card_line() -> str:
@@ -155,30 +158,45 @@ def _qkv(gen, b, s, h, kv, d, dtype, device):
     return mk(h), mk(kv), mk(kv)
 
 
+def check_kernel(gen, b, s, h, kv, d, dtype, causal, device):
+    """The kernel against its plain version on one seeded input: elementwise
+    at the test tolerance and in relative norm. Returns the inputs and the
+    largest absolute difference."""
+    q, k, v = _qkv(gen, b, s, h, kv, d, dtype, device)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / want.float().norm()).item()
+    print(f"[kernel] b{b} s{s} h{h} kv{kv} d{d} {str(dtype)[6:]} "
+          f"causal={causal}: max|err| {err:.3g} (tol {TOL[dtype]}), "
+          f"relative {rel:.3g} (tol {REL_TOL})")
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    if not rel < REL_TOL:
+        raise AssertionError(f"relative error {rel} >= {REL_TOL}")
+    return (q, k, v), err
+
+
 def phase_kernel(device):
     gen = torch.Generator().manual_seed(0)
     for b, s, h, kv, d in KERNEL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
-                q, k, v = _qkv(gen, b, s, h, kv, d, dtype, device)
-                got = fa.flash_attention_cuda(q, k, v, causal=causal)
-                want = fa.flash_attention_plain(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=TOL[dtype], atol=TOL[dtype])
-                print(f"[kernel] b{b} s{s} h{h} kv{kv} d{d} {str(dtype)[6:]} "
-                      f"causal={causal}: max|err| {err:.3g} (tol {TOL[dtype]})")
+                check_kernel(gen, b, s, h, kv, d, dtype, causal, device)
 
-    b, s, h, kv, d = MAIN_SHAPE
     dtype = torch.bfloat16
-    q, k, v = _qkv(gen, b, s, h, kv, d, dtype, device)
-    got = fa.flash_attention_cuda(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    max_err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    (q, k, v), _ = check_kernel(gen, *TEACHER_SHAPE, dtype, True, device)
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 50)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 50)
+    bound_ms, bound_by, _, _ = attention_bound_ms(q, k, v, True)
+    print(f"[kernel] teacher-forced shape q{list(q.shape)} kv{list(k.shape)} "
+          f"bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by}")
+
+    (q, k, v), max_err = check_kernel(gen, *MAIN_SHAPE, dtype, True, device)
+    b, s, h, kv, d = MAIN_SHAPE
     # The library yardstick: one SDPA call on the same function (kv heads
     # repeated beforehand, outside the timed call). The port never calls it.
     k_rep = torch.repeat_interleave(k, h // kv, dim=1)

@@ -14,7 +14,8 @@ does its math in f32 on the CUDA cores; moving the two products onto wgmma
 is the work that brings it toward the tensor-core bound.
 
 ``flash_attention_bhsd`` launches the kernel for a CUDA tensor and takes the
-plain version, ``flash_attention_plain``, for a CPU tensor.
+plain version, ``flash_attention_plain`` (the oracle ``ref.attention_ref``),
+for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -24,28 +25,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import attention_ref as flash_attention_plain
 
-NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0   # kernel launches since the caller last set this to 0
-
-
-def flash_attention_plain(q, k, v, *, causal: bool = True):
-    """The kernel's function in plain torch: q scaled in f32 before the dot,
-    scores masked at -1e30, f32 softmax and accumulation, out in q's dtype."""
-    b, h, sq, d = q.shape
-    g = h // k.shape[1]
-    kf = torch.repeat_interleave(k.float(), g, dim=1)
-    vf = torch.repeat_interleave(v.float(), g, dim=1)
-    s = (q.float() * d ** -0.5) @ kf.transpose(-1, -2)
-    if causal:
-        sk = k.shape[2]
-        keep = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(sk, device=q.device)[None, :])
-        s = s.masked_fill(~keep, NEG_INF)
-    return (torch.softmax(s, dim=-1) @ vf).to(q.dtype)
 
 
 def _check(q, k, v):
