@@ -6,17 +6,28 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-  2. hold each kernel against its plain-torch version on the card and time
-     the kernel, the plain version and one PyTorch library call;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+     one compiler per source, all started together;
+  2. hold each kernel against its plain-torch version on the card (test
+     shapes, a ragged length, the main paths' shapes and a long one) and
+     time the kernel, the plain version and, where one exists, one PyTorch
+     library call; check that ``ops.flash_attention`` launches the kernel
+     at lengths no multiple of its tile;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve.main`` plus three more requests through one
      ``ServeScheduler``;
   4. run the teacher-forced forward over the served tokens with
      ``use_kernels=True`` and check it against the plain forward and the
-     served tokens (phases 3-4 are the main path whose launches are counted);
-  5. a long forward and loss at [4, 2048] with the kernel against the plain
-     (chunked-attention) path.
+     served tokens;
+  5. serve rwkv6_1p6b (24 layers, d_model 2048) and run its teacher-forced
+     forward through the wkv6 kernel, the same way;
+  6. serve zamba2_1p2b (38 Mamba-2 layers and 6 applications of the shared
+     attention block, d_model 2048) and run its teacher-forced forward
+     through the ssd and flash-attention kernels, the same way;
+  7. a long relic_tiny forward and loss at [4, 2048] with the kernel against
+     the plain (chunked-attention) path.
+Phases 3-4, 5 and 6 are the three main paths: each starts with every
+kernel's launch count at 0 and its counts are read when it ends.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the card's name and power limit and the one before that
@@ -30,6 +41,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,10 +49,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd as ssd_k  # noqa: E402
+from repro_torch.kernels import wkv6 as wkv6_k  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.models import mamba2 as m2  # noqa: E402
+from repro_torch.models import rwkv6 as r6  # noqa: E402
 from repro_torch.models.lm import lm_forward, lm_loss  # noqa: E402
 from repro_torch.serve import ServeScheduler  # noqa: E402
 
@@ -61,6 +77,35 @@ KERNEL_SHAPES = [  # (b, s, h, kv, d): tests/test_kernels.py:55-60
 MAIN_SHAPE = (4, 2048, 12, 4, 64)  # relic_tiny's attention in the long forward
 # relic_tiny's attention in the teacher-forced forward of the counted main path
 TEACHER_SHAPE = (SERVE_BATCH, PROMPT_LEN + GEN, 12, 4, 64)
+# zamba2_1p2b's shared attention in its teacher-forced forward (no GQA)
+ZAMBA_ATTN_SHAPE = (SERVE_BATCH, PROMPT_LEN + 128, 32, 32, 64)
+KERNELS = {"flash_attention": fa, "wkv6": wkv6_k, "ssd": ssd_k}
+# The recurrent kernels: f32 1e-3, bf16 rtol 2e-2 / atol 2e-1
+# (tests/test_kernels.py:88-93,108-111).
+REC_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}
+# wkv6 shapes (b, h, t, k, chunk): tests/test_kernels.py:75-79, a ragged
+# length, the served rwkv6_1p6b forward [8, 192] and a long one.
+WKV6_TEST_SHAPES = [(2, 2, 64, 16, 16), (1, 4, 128, 32, 32), (2, 2, 96, 16, 32),
+                    (2, 4, 96, 64, 64)]
+WKV6_SERVED = (SERVE_BATCH, 32, PROMPT_LEN + 64, 64, 64)
+WKV6_LONG = (4, 32, 2048, 64, 64)
+# ssd shapes (b, h, t, p, n, chunk): tests/test_kernels.py:97-100, a ragged
+# length, the served zamba2_1p2b forward [8, 256] and a long one.
+SSD_TEST_SHAPES = [(2, 2, 64, 16, 8, 16), (1, 4, 128, 32, 16, 32),
+                   (2, 4, 200, 64, 64, 128)]
+SSD_SERVED = (SERVE_BATCH, 64, PROMPT_LEN + 128, 64, 64, 128)
+SSD_LONG = (4, 64, 2048, 64, 64, 128)
+# The main paths: (arch, generated tokens, kernel launches of the path,
+# whether its bf16 forward holds the bars of tests/test_models.py:117-123).
+# The recurrent families with random weights at full depth do not: their
+# forwards amplify rounding differences (on an H100, rwkv6_1p6b's bf16 plain
+# forward lies 0.39 in relative norm from its f32 one and agrees with the
+# served tokens on 62%; zamba2_1p2b's plain forward agrees on 92%), so each
+# is held to its own rounding noise, and each layer's kernel call to the
+# model's plain chunked form on the same inputs (check_layers).
+MAIN_PATHS = [(ARCH, GEN, {"flash_attention": 12}, True),
+              ("rwkv6_1p6b", 64, {"wkv6": 24}, False),
+              ("zamba2_1p2b", 128, {"ssd": 38, "flash_attention": 6}, False)]
 
 
 def card_line() -> str:
@@ -99,6 +144,62 @@ def attention_bound_ms(q, k, v, causal: bool):
     t_bytes = nbytes / PEAK_BYTES_S
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes) * 1e3, bound_by, flops, nbytes
+
+
+def _chunks(t: int, chunk: int):
+    """Lengths of the chunks the chunked algorithm cuts T into."""
+    return [min(chunk, t - t0) for t0 in range(0, t, chunk)]
+
+
+def _bound(flops: float, exps: float, nbytes: float):
+    """max(operations / f32 peak, bytes / memory rate). Both recurrences
+    compute in f32 (the TPU kernels cast every block to f32), so their
+    operations, exponentials included, count against the f32 rate."""
+    t_ops = (flops + exps) / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES_S
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, bound_by
+
+
+def wkv6_bound_ms(r, logw, u, chunk: int):
+    """Least time for wkv6 on these inputs, counting the chunked algorithm's
+    work per (b, h) and chunk of c steps over K channels: the strictly causal
+    pairwise term (c(c-1)/2 * K exponentials, 4 operations each pair and
+    channel), the diagonal bonus, scores @ v, r_dec @ state, the state
+    update and the rescalings; bytes are r, k, v, logw, u read once and out
+    written once. Returns (ms, bound_by, flops, exps, bytes)."""
+    b, h, t, kk = r.shape
+    flops = exps = 0
+    for c in _chunks(t, chunk):
+        pairs = c * (c - 1) // 2
+        exps += pairs * kk + 2 * c * kk + kk
+        flops += (4 * pairs * kk + 3 * c * kk + c * (c + 1) * kk
+                  + 4 * c * kk * kk + 4 * c * kk + 2 * kk * kk)
+    flops, exps = flops * b * h, exps * b * h
+    nbytes = 4 * r.nbytes + logw.nbytes + u.nbytes
+    ms, bound_by = _bound(flops, exps, nbytes)
+    return ms, bound_by, flops, exps, nbytes
+
+
+def ssd_bound_ms(x, a, bmat, chunk: int):
+    """Least time for ssd on these inputs, counting the chunked algorithm's
+    work per chunk of c steps: C B^T once per batch row (the heads share
+    it), and per head the decay of the c(c+1)/2 kept pairs (one
+    exponential each), W @ x, C @ state^T, the state update and the
+    rescalings; bytes are x, a, b, c read once and y written once.
+    Returns (ms, bound_by, flops, exps, bytes)."""
+    bb, h, t, p = x.shape
+    n = bmat.shape[-1]
+    flops = exps = 0
+    for c in _chunks(t, chunk):
+        pairs = c * (c + 1) // 2
+        flops += bb * 2 * pairs * n
+        exps += bb * h * (pairs + 2 * c + 1)
+        flops += bb * h * (2 * pairs + 2 * pairs * p + 4 * c * n * p
+                           + 3 * c * p + 2 * c + 2 * p * n)
+    nbytes = 2 * x.nbytes + a.nbytes + 2 * bmat.nbytes
+    ms, bound_by = _bound(flops, exps, nbytes)
+    return ms, bound_by, flops, exps, nbytes
 
 
 def device_profile(fn, label: str):
@@ -140,15 +241,20 @@ def device_profile(fn, label: str):
 
 
 def phase_build():
+    """Compile every kernel source at once (one nvcc each) and print each
+    compiler's register and spill report."""
+    names = sorted(KERNELS)
     t0 = time.perf_counter()
-    path = _build.build("flash_attention")
-    print(f"[build] flash_attention.cu -> {os.path.relpath(path, ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    log = path.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(_build.build, names)))
+    print(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        print(f"[build] {name}.cu -> {os.path.relpath(path, ROOT)}")
+        log = path.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {line.strip()}")
 
 
 def _qkv(gen, b, s, h, kv, d, dtype, device):
@@ -195,6 +301,29 @@ def phase_kernel(device):
           f"bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
           f"{bound_ms:.4f} ms by {bound_by}")
 
+    (q, k, v), _ = check_kernel(gen, *ZAMBA_ATTN_SHAPE, dtype, True, device)
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 50)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 50)
+    bound_ms, bound_by, _, _ = attention_bound_ms(q, k, v, True)
+    print(f"[kernel] zamba2 shared-attention shape q{list(q.shape)} "
+          f"kv{list(k.shape)} bf16 causal: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+
+    # ops.flash_attention keeps no tile predicate: lengths that are no
+    # multiple of any tile go to the kernel too.
+    for s in (96, 300):
+        q, k, v = _qkv(gen, 1, s, 4, 2, 64, dtype, device)
+        before = fa.launches
+        got = ops.flash_attention(*(x.transpose(1, 2) for x in (q, k, v)),
+                                  causal=True).transpose(1, 2)
+        if fa.launches != before + 1:
+            raise AssertionError(f"ops.flash_attention at S={s} launched the "
+                                 f"kernel {fa.launches - before} times")
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        print(f"[kernel] ops.flash_attention at S={s} launched the kernel")
+
     (q, k, v), max_err = check_kernel(gen, *MAIN_SHAPE, dtype, True, device)
     b, s, h, kv, d = MAIN_SHAPE
     # The library yardstick: one SDPA call on the same function (kv heads
@@ -220,14 +349,118 @@ def phase_kernel(device):
             "shape": f"q{list(q.shape)} kv{list(k.shape)} bf16 causal"}
 
 
-def phase_serve(device):
-    argv = ["--arch", ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
-            str(PROMPT_LEN), "--gen", str(GEN), "--device", device.type]
+def _hold(name, got, want, dtype):
+    """A recurrent kernel's output against its plain version: finite,
+    elementwise at the test tolerance and in relative norm. Returns the
+    largest absolute difference."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / want.float().norm()).item()
+    rtol, atol = REC_TOL[dtype]
+    print(f"[kernel] {name} {str(dtype)[6:]}: max|err| {err:.3g} (rtol {rtol}, "
+          f"atol {atol}), relative {rel:.3g} (tol {REL_TOL})")
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if not rel < REL_TOL:
+        raise AssertionError(f"{name}: relative error {rel} >= {REL_TOL}")
+    return err
+
+
+def _wkv6_inputs(gen, b, h, t, k, dtype, device):
+    """Seeded inputs with the aggressive decays of tests/test_kernels.py:84."""
+    def mk(*shape):
+        return torch.randn(shape, generator=gen)
+    r, kk, v = (mk(b, h, t, k).to(device=device, dtype=dtype) for _ in range(3))
+    logw = (-torch.exp(mk(b, h, t, k))).to(device)
+    return r, kk, v, logw, mk(h, k).to(device)
+
+
+def _ssd_inputs(gen, b, h, t, p, n, dtype, device):
+    def mk(*shape):
+        return torch.randn(shape, generator=gen)
+    x = mk(b, h, t, p).to(device=device, dtype=dtype)
+    a = (-mk(b, h, t).abs() * 0.5).to(device)
+    return x, a, mk(b, t, n).to(device), mk(b, t, n).to(device)
+
+
+def phase_recurrence(name, mod, replaces, make_inputs, bound, test_shapes,
+                     served, long_, main_dtype, seed, device):
+    """Hold a recurrent kernel (``mod``: wkv6 or ssd) against its plain
+    version at the test shapes in f32 and bf16, then at the served path's
+    shape and a long one in ``main_dtype``, timing kernel and plain version
+    there. Shapes end with the chunk length. Returns the kernel's entry of
+    the numbers line (its numbers at the served shape)."""
+    cuda_fn, plain_fn = getattr(mod, f"{name}_cuda"), getattr(mod, f"{name}_plain")
+    gen = torch.Generator().manual_seed(seed)
+    for *shape, chunk in test_shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = make_inputs(gen, *shape, dtype, device)
+            _hold(f"{name} {shape} chunk {chunk}", cuda_fn(*ins, chunk=chunk),
+                  plain_fn(*ins), dtype)
+    timed = {}
+    for label, (*shape, chunk), iters in (("served", served, 20),
+                                          ("long", long_, 3)):
+        ins = make_inputs(gen, *shape, main_dtype, device)
+        err = _hold(f"{name} {shape} chunk {chunk} ({label})",
+                    cuda_fn(*ins, chunk=chunk), plain_fn(*ins), main_dtype)
+        ms = time_ms(lambda: cuda_fn(*ins, chunk=chunk), iters)
+        plain_ms = time_ms(lambda: plain_fn(*ins), iters, warmup=1)
+        bound_ms, bound_by, flops, exps, nbytes = bound(ins, chunk)
+        desc = f"{shape} {str(main_dtype)[6:]} chunk {chunk}"
+        print(f"[kernel] {name} {label} shape {desc}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+        print(f"[kernel]   {name} {label}: {flops / 1e9:.3f} GFLOP of f32 "
+              f"arithmetic, {nbytes / 1e6:.2f} MB; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        print(f"[kernel]   {name} {label}: {exps / 1e9:.4f} G exponentials")
+        timed[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, shape=desc)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": None, **timed["served"],
+            "library_ms": None, "long": timed["long"]}
+
+
+def decode_outside(cfg, model, params, device):
+    """The decode step outside the scheduler: what the served ms/step would
+    be without the runtime's threads, and where the step's time goes."""
+    serve_step = make_serve_step(model)
+    n_steps = 16
+
+    def decode():
+        cache = model.init_cache(SERVE_BATCH, PROMPT_LEN + n_steps)
+        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device=device)
+        for t in range(PROMPT_LEN, PROMPT_LEN + n_steps):
+            tok, _, cache = serve_step(params, cache, tok, t)
+
+    decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: decode step outside the scheduler, batch "
+          f"{SERVE_BATCH}: {(time.perf_counter() - t0) / n_steps * 1e3:.2f} "
+          f"ms/step")
+    device_profile(decode, f"{cfg.name}: {n_steps} decode steps, batch "
+                           f"{SERVE_BATCH}")
+
+
+def serve_main(arch, gen, device):
+    """``serve.main`` as a user runs it, at full width."""
+    argv = ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
+            str(PROMPT_LEN), "--gen", str(gen), "--device", device.type]
     t0 = time.perf_counter()
     gen_toks = serve.main(argv)
     print(f"[serve] main({' '.join(argv)}) took {time.perf_counter() - t0:.1f} s")
-    if tuple(gen_toks.shape) != (SERVE_BATCH, GEN):
+    if tuple(gen_toks.shape) != (SERVE_BATCH, gen):
         raise AssertionError(f"served shape {tuple(gen_toks.shape)}")
+    return gen_toks
+
+
+def phase_serve(device):
+    gen_toks = serve_main(ARCH, GEN, device)
 
     # The served weights again (the same seed), then three more requests
     # through one scheduler, each prefilling inside its work function so its
@@ -257,53 +490,165 @@ def phase_serve(device):
               f"{ttft * 1e3:.1f} ms, {SERVE_BATCH * (ngen - 1) / dt:.1f} tok/s "
               f"({dt / (ngen - 1) * 1e3:.2f} ms/step)")
     print(f"[serve] {1 + n_req} requests served at full width")
-
-    # The same decode step outside the scheduler: what the served ms/step
-    # would be without the runtime's threads, and where the step's time goes.
-    n_steps = 16
-
-    def decode():
-        cache = model.init_cache(SERVE_BATCH, PROMPT_LEN + n_steps)
-        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device=device)
-        for t in range(PROMPT_LEN, PROMPT_LEN + n_steps):
-            tok, _, cache = serve_step(params, cache, tok, t)
-
-    decode()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode()
-    torch.cuda.synchronize()
-    print(f"[serve] decode step outside the scheduler, batch {SERVE_BATCH}: "
-          f"{(time.perf_counter() - t0) / n_steps * 1e3:.2f} ms/step")
-    device_profile(decode, f"{n_steps} decode steps, batch {SERVE_BATCH}")
+    decode_outside(cfg, model, params, device)
     return cfg, params, gen_toks
 
 
-@torch.no_grad()
-def phase_forward(cfg, params, gen_toks, device):
-    prompts = serve.make_prompts(cfg, SERVE_BATCH, PROMPT_LEN, device)
-    tokens = torch.cat([prompts, gen_toks], dim=1)       # [8, 192]
-    before = fa.launches
-    logits_k, _ = lm_forward(cfg.replace(use_kernels=True), params, tokens)
+def _launches():
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def _timed_forward(cfg, params, tokens):
+    """(logits, ms): one warm call, then one timed on the host clock."""
+    lm_forward(cfg, params, tokens)
     torch.cuda.synchronize()
-    n = fa.launches - before
-    if n != cfg.n_layers:
-        raise AssertionError(f"kernel launched {n} times, want {cfg.n_layers}")
+    t0 = time.perf_counter()
+    out, _ = lm_forward(cfg, params, tokens)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _agree(logits_a, logits_b) -> float:
+    return (logits_a.argmax(-1) == logits_b.argmax(-1)).float().mean().item()
+
+
+@torch.no_grad()
+def phase_forward(cfg, params, gen_toks, want, bf16_bar, device):
+    """The teacher-forced forward over prompt plus served tokens with the
+    kernels (bf16, as served): exactly ``want`` launches ({kernel: count});
+    where ``bf16_bar``, logits within MODEL_TOL of the plain forward and
+    greedy agreement with the served tokens above 0.9. Returns (tokens,
+    kernel logits, plain logits)."""
+    gen = gen_toks.shape[1]
+    prompts = serve.make_prompts(cfg, SERVE_BATCH, PROMPT_LEN, device)
+    tokens = torch.cat([prompts, gen_toks], dim=1)
+    cfg_k = cfg.replace(use_kernels=True)
+    before = _launches()
+    logits_k, _ = lm_forward(cfg_k, params, tokens)
+    torch.cuda.synchronize()
+    got = {n: c - before[n] for n, c in _launches().items() if c != before[n]}
+    if got != want:
+        raise AssertionError(f"{cfg.name}: kernel launches {got}, want {want}")
     logits_p, _ = lm_forward(cfg, params, tokens)
+    if not (torch.isfinite(logits_k).all() and torch.isfinite(logits_p).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
     err = (logits_k - logits_p).abs().max().item()
-    torch.testing.assert_close(logits_k, logits_p, rtol=MODEL_TOL, atol=MODEL_TOL)
     # position P-1+j predicts served token j
-    pred = logits_k[:, PROMPT_LEN - 1:PROMPT_LEN - 1 + GEN].argmax(-1)
-    agree = (pred == gen_toks).float().mean().item()
-    print(f"[forward] tokens {list(tokens.shape)}: {n} kernel launches, "
-          f"max|logits kernel - plain| {err:.3g} (tol {MODEL_TOL}), greedy "
-          f"agreement with served tokens {agree:.4f}")
-    if not agree > 0.9:
-        raise AssertionError(f"greedy agreement {agree} <= 0.9")
+    served = slice(PROMPT_LEN - 1, PROMPT_LEN - 1 + gen)
+    agree = (logits_k[:, served].argmax(-1) == gen_toks).float().mean().item()
+    agree_p = (logits_p[:, served].argmax(-1) == gen_toks).float().mean().item()
+    print(f"[forward] {cfg.name} tokens {list(tokens.shape)} bf16: launches "
+          f"{got}, max|logits kernel - plain| {err:.3g}, relative "
+          f"{_rel(logits_k, logits_p):.3g}, greedy agreement with served "
+          f"tokens {agree:.4f} (plain forward: {agree_p:.4f})")
+    if bf16_bar:
+        torch.testing.assert_close(logits_k, logits_p, rtol=MODEL_TOL,
+                                   atol=MODEL_TOL)
+        if not agree > 0.9:
+            raise AssertionError(f"{cfg.name}: greedy agreement {agree} <= 0.9")
+    return tokens, logits_k, logits_p
+
+
+@torch.no_grad()
+def check_noise(cfg, params, tokens, logits_k, logits_p):
+    """The bf16 kernel forward's distance from the plain one, in relative
+    norm, must not exceed the plain forward's own bf16 rounding noise (its
+    distance from the plain forward in f32 compute)."""
+    p32, _ = lm_forward(cfg.replace(compute_dtype="float32"), params, tokens)
+    noise, rel = _rel(logits_p, p32), _rel(logits_k, logits_p)
+    print(f"[forward] {cfg.name} bf16: relative distance kernel-plain "
+          f"{rel:.4g}, plain bf16-f32 (its rounding noise) {noise:.4g}")
+    if not rel <= noise:
+        raise AssertionError(f"{cfg.name}: bf16 kernel forward {rel} from the "
+                             f"plain one, above the rounding noise {noise}")
+
+
+@torch.no_grad()
+def check_layers(cfg, params, tokens):
+    """Each layer's recurrent kernel call on the served forward's own inputs,
+    against the model's plain chunked form on the same inputs (wkv6_chunked
+    / ssd_chunked): elementwise at the kernel tolerance and in relative
+    norm, all finite. Outside the counted main path."""
+    if cfg.family == "ssm":
+        name, plain = "wkv6", lambda r, k, v, w, u, chunk: r6.wkv6_chunked(
+            r, k, v, w, u, r.new_zeros((r.shape[0], r.shape[2], r.shape[3],
+                                        r.shape[3]), dtype=torch.float32),
+            chunk)[0]
+    else:
+        name, plain = "ssd", lambda x, a, b, c, chunk: m2.ssd_chunked(
+            x, a, b, c, x.new_zeros((x.shape[0], x.shape[2], x.shape[3],
+                                     b.shape[2])), chunk)[0]
+    kernel, calls = getattr(ops, name), []
+
+    def capture(*args, chunk):
+        calls.append((args, chunk))
+        return kernel(*args, chunk=chunk)
+
+    setattr(ops, name, capture)
+    try:
+        lm_forward(cfg.replace(use_kernels=True), params, tokens)
+    finally:
+        setattr(ops, name, kernel)
+    worst = (0.0, 0.0)
+    for args, chunk in calls:
+        got, want = kernel(*args, chunk=chunk), plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{cfg.name}: non-finite {name} output")
+        rtol, atol = REC_TOL[got.dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        rel = _rel(got.float(), want.float())
+        if not rel < REL_TOL:
+            raise AssertionError(f"{cfg.name}: {name} relative error {rel}")
+        worst = max(worst, ((got.float() - want.float()).abs().max().item(), rel))
+    print(f"[forward] {cfg.name}: {len(calls)} {name} calls of the served "
+          f"forward against the model's chunked form on the same inputs: "
+          f"worst max|err| {worst[0]:.3g}, relative {worst[1]:.3g}")
+
+
+@torch.no_grad()
+def time_forwards(cfg, params, tokens):
+    """The teacher-forced forward with the kernels and the plain one, timed
+    outside the counted main path."""
+    _, ms_k = _timed_forward(cfg.replace(use_kernels=True), params, tokens)
+    _, ms_p = _timed_forward(cfg, params, tokens)
+    print(f"[forward] {cfg.name} tokens {list(tokens.shape)}: forward with "
+          f"kernels {ms_k:.2f} ms, plain {ms_p:.2f} ms")
+
+
+def phase_recurrent(arch, gen, device):
+    """Serve a recurrent family at full width; returns (cfg, params, served
+    tokens)."""
+    gen_toks = serve_main(arch, gen, device)
+    cfg, model, params = serve.load_model(arch, smoke=False, device=device)
+    n_params = sum(p.numel() for p in params.parameters())
+    cache = model.init_cache(SERVE_BATCH, PROMPT_LEN + gen)
+    state_bytes = sum(t.nbytes for t in _tensors(cache))
+    print(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters "
+          f"({n_params * 2 / 1e9:.2f} GB in bf16), decode cache at batch "
+          f"{SERVE_BATCH} {state_bytes / 1e9:.3f} GB")
+    del cache
+    decode_outside(cfg, model, params, device)
+    return cfg, params, gen_toks
+
+
+def _tensors(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 @torch.no_grad()
 def phase_long(cfg, params, device):
+    """relic_tiny forward and loss at [4, 2048], kernel against plain."""
     b, s = MAIN_SHAPE[0], MAIN_SHAPE[1]
     rng = np.random.default_rng(1)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s + 1)),
@@ -349,19 +694,50 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, cuda {torch.version.cuda}")
 
     phase_build()
-    entry = phase_kernel(device)
+    entries = {
+        "flash_attention": phase_kernel(device),
+        "wkv6": phase_recurrence(
+            "wkv6", wkv6_k, "src/repro/kernels/wkv6.py:21", _wkv6_inputs,
+            lambda ins, chunk: wkv6_bound_ms(ins[0], ins[3], ins[4], chunk),
+            WKV6_TEST_SHAPES, WKV6_SERVED, WKV6_LONG, torch.bfloat16, 1, device),
+        "ssd": phase_recurrence(
+            "ssd", ssd_k, "src/repro/kernels/ssd.py:19", _ssd_inputs,
+            lambda ins, chunk: ssd_bound_ms(ins[0], ins[1], ins[2], chunk),
+            SSD_TEST_SHAPES, SSD_SERVED, SSD_LONG, torch.float32, 2, device),
+    }
+    for e in entries.values():
+        e["launches"] = 0
 
-    fa.launches = 0                       # the main path: serve + forward
-    cfg, params, gen_toks = phase_serve(device)
-    phase_forward(cfg, params, gen_toks, device)
-    entry["launches"] = fa.launches
-    if entry["launches"] != cfg.n_layers:
-        raise AssertionError(f"main path launched the kernel "
-                             f"{entry['launches']} times, want {cfg.n_layers}")
+    # The three main paths, each from launch counts of 0.
+    for arch, gen, want, bf16_bar in MAIN_PATHS:
+        for mod in KERNELS.values():
+            mod.launches = 0
+        if arch == ARCH:
+            cfg, params, gen_toks = phase_serve(device)
+        else:
+            cfg, params, gen_toks = phase_recurrent(arch, gen, device)
+        tokens, logits_k, logits_p = phase_forward(cfg, params, gen_toks, want,
+                                                   bf16_bar, device)
+        got = {n: c for n, c in _launches().items() if c}
+        print(f"[main] {arch}: kernel launches {got}")
+        if got != want:
+            raise AssertionError(f"{arch} main path launched {got}, want {want}")
+        for name, count in got.items():
+            entries[name]["launches"] += count
+        if not bf16_bar:
+            check_noise(cfg, params, tokens, logits_k, logits_p)
+        del logits_k, logits_p
+        if cfg.family in ("ssm", "hybrid"):
+            check_layers(cfg, params, tokens)
+        time_forwards(cfg, params, tokens)
+        if arch == ARCH:
+            relic = (cfg, params)
+        del params
+        torch.cuda.empty_cache()
 
-    phase_long(cfg, params, device)
+    phase_long(*relic, device)
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": list(entries.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,8 @@ from repro_torch.configs.base import (  # noqa: F401
 
 ARCH_IDS = [
     "relic_tiny",      # paper-scale end-to-end example config
+    "rwkv6_1p6b",      # ssm family: RWKV-6, wkv6 kernel
+    "zamba2_1p2b",     # hybrid family: Mamba-2 + shared attention, ssd kernel
 ]
 
 _ALIASES = {

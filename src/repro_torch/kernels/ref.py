@@ -24,3 +24,35 @@ def attention_ref(q, k, v, *, causal=True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return o.to(q.dtype)
+
+
+def wkv6_ref(r, k, v, logw, u):
+    """Naive per-step RWKV-6 recurrence in f32. r/k/v/logw [B,H,T,K]; u
+    [H,K]; out in r's dtype."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, logw))
+    uf = u.float()
+    b, h, t, kk = rf.shape
+    state = torch.zeros((b, h, kk, kk), dtype=torch.float32, device=r.device)
+    outs = []
+    for i in range(t):
+        rt, kt, vt, lwt = rf[:, :, i], kf[:, :, i], vf[:, :, i], wf[:, :, i]
+        kv = torch.einsum("bhi,bhj->bhij", kt, vt)
+        outs.append(torch.einsum("bhi,bhij->bhj", rt,
+                                 state + uf[None, :, :, None] * kv))
+        state = state * torch.exp(lwt)[..., None] + kv
+    return torch.stack(outs, dim=2).to(r.dtype)
+
+
+def ssd_ref(x, a, b, c):
+    """Naive per-step Mamba-2 SSD in f32. x [B,H,T,P]; a [B,H,T]; b/c
+    [B,T,N] shared across heads; out in x's dtype."""
+    xf, af, bf, cf = (t.float() for t in (x, a, b, c))
+    bb, h, t, p = xf.shape
+    n = bf.shape[-1]
+    state = torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(t):
+        state = state * torch.exp(af[:, :, i])[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", xf[:, :, i], bf[:, i])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, i]))
+    return torch.stack(ys, dim=2).to(x.dtype)

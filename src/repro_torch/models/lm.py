@@ -1,8 +1,10 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly: dense / RWKV-6 / Zamba2-hybrid families.
 
 The blocks are an ``nn.ModuleList`` run in a Python loop (PyTorch runs
-eagerly, so the JAX package's layer scan has no counterpart here). The other
-families (MoE, RWKV-6, Zamba2 hybrid, VLM prefix) are queued in ROADMAP.md.
+eagerly, so the JAX package's layer scan has no counterpart here); the
+hybrid runs groups of ``attn_every`` Mamba-2 layers, each followed by the
+one shared attention block, then the tail layers. The other families (MoE,
+VLM prefix) are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as r6
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig):
@@ -25,10 +29,10 @@ def _check_family(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Blocks and their decode twins
+# Per-family blocks and their decode twins
 # ---------------------------------------------------------------------------
 
-def init_block(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
+def _attn_block(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
     hd = cfg.resolved_head_dim
     return nn.ModuleDict({
         "ln1": L.init_norm(cfg, cfg.d_model, device),
@@ -39,20 +43,106 @@ def init_block(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
     })
 
 
+def init_block(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
+    if cfg.family == "dense":
+        return _attn_block(cfg, gen, device)
+    if cfg.family == "ssm":  # rwkv6
+        return nn.ModuleDict({
+            "ln1": L.init_norm(cfg, cfg.d_model, device),
+            "rwkv": r6.init_rwkv_time_mix(cfg, gen, device),
+            "ln2": L.init_norm(cfg, cfg.d_model, device),
+            "cmix": r6.init_rwkv_channel_mix(cfg, gen, device),
+        })
+    if cfg.family == "hybrid":  # zamba2 mamba layer
+        return nn.ModuleDict({
+            "ln": L.init_norm(cfg, cfg.d_model, device),
+            "ssm": m2.init_mamba2(cfg, gen, device),
+        })
+    raise ValueError(cfg.family)
+
+
+def init_shared_attn(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
+    """Zamba2's shared transformer block (one param set, applied periodically)."""
+    return _attn_block(cfg, gen, device)
+
+
 def block_fwd(cfg: ModelConfig, p, x):
+    if cfg.family == "dense":  # the same layout as zamba2's shared block
+        x = shared_attn_fwd(cfg, p, x)
+    elif cfg.family == "ssm":
+        x = x + r6.rwkv_time_mix(cfg, p["rwkv"], L.norm(cfg, p["ln1"], x))
+        x = x + r6.rwkv_channel_mix(cfg, p["cmix"], L.norm(cfg, p["ln2"], x))
+    elif cfg.family == "hybrid":
+        x = x + m2.mamba2_block(cfg, p["ssm"], L.norm(cfg, p["ln"], x))
+    else:
+        raise ValueError(cfg.family)
+    return x
+
+
+def shared_attn_fwd(cfg: ModelConfig, p, x):
     x = x + attn.self_attention(cfg, p["attn"], L.norm(cfg, p["ln1"], x),
                                 causal=True)
     return x + L.mlp(cfg, p["mlp"], L.norm(cfg, p["ln2"], x))
 
 
 def block_decode(cfg: ModelConfig, p, x, cache, pos: int):
-    """Returns (x, cache)."""
-    y, c = attn.decode_self_attention(cfg, p["attn"],
-                                      L.norm(cfg, p["ln1"], x), cache["cache"],
-                                      pos)
+    """Returns (x, cache): the layer's cache tensors, new or updated."""
+    c = cache["cache"]
+    if cfg.family == "dense":
+        x, c = shared_attn_decode(cfg, p, x, c, pos)
+    elif cfg.family == "ssm":
+        xn = L.norm(cfg, p["ln1"], x)
+        y, tc = r6.rwkv_time_mix_decode(cfg, p["rwkv"], xn,
+                                        {"shift_state": c["shift_state"],
+                                         "wkv_state": c["wkv_state"]})
+        x = x + y
+        xn2 = L.norm(cfg, p["ln2"], x)
+        x = x + r6.rwkv_channel_mix(cfg, p["cmix"], xn2,
+                                    shift_state=c["cmix_shift_state"])
+        c = {"shift_state": tc["shift_state"], "wkv_state": tc["wkv_state"],
+             "cmix_shift_state": xn2[:, 0]}
+    elif cfg.family == "hybrid":
+        y, c = m2.mamba2_block_decode(cfg, p["ssm"], L.norm(cfg, p["ln"], x), c)
+        x = x + y
+    else:
+        raise ValueError(cfg.family)
+    return x, {"cache": c}
+
+
+def shared_attn_decode(cfg: ModelConfig, p, x, kv_cache, pos: int):
+    y, kv_cache = attn.decode_self_attention(cfg, p["attn"],
+                                             L.norm(cfg, p["ln1"], x),
+                                             kv_cache, pos)
     x = x + y
     x = x + L.mlp(cfg, p["mlp"], L.norm(cfg, p["ln2"], x))
-    return x, {"cache": c}
+    return x, kv_cache
+
+
+def init_block_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
+    """One layer's decode cache, as the JAX package lays it out."""
+    cd = L.dt(cfg.compute_dtype)
+    if cfg.family == "dense":
+        return {"cache": attn.init_decode_cache(
+            cfg, batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+            device=device)}
+    if cfg.family == "ssm":
+        h = cfg.d_model // cfg.ssm.head_dim
+        k = cfg.ssm.head_dim
+        return {"cache": {
+            "shift_state": torch.zeros((batch, cfg.d_model), dtype=cd, device=device),
+            "cmix_shift_state": torch.zeros((batch, cfg.d_model), dtype=cd,
+                                            device=device),
+            "wkv_state": torch.zeros((batch, h, k, k), device=device),
+        }}
+    if cfg.family == "hybrid":
+        _, n_heads, conv_dim = m2._dims(cfg)
+        return {"cache": {
+            "conv_state": torch.zeros((batch, cfg.ssm.conv_kernel - 1, conv_dim),
+                                      dtype=cd, device=device),
+            "ssm_state": torch.zeros((batch, n_heads, cfg.ssm.head_dim,
+                                      cfg.ssm.state_dim), device=device),
+        }}
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +162,32 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> nn.ModuleDict:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_unembed(cfg, gen, cfg.d_model,
                                            cfg.vocab_size, device)
+    if cfg.family == "hybrid" and cfg.attn_every:
+        params["shared_attn"] = init_shared_attn(cfg, gen, device)
     return params
+
+
+def _hybrid_groups(cfg: ModelConfig):
+    """(full groups of ``attn_every`` layers, tail layers) of the hybrid."""
+    k = cfg.attn_every
+    full = cfg.n_layers // k if k else 0
+    tail = cfg.n_layers - full * k if k else cfg.n_layers
+    return full, tail
+
+
+def _hybrid_fwd(cfg: ModelConfig, params, x):
+    """Zamba2: groups of `attn_every` mamba layers + shared attention block,
+    then the tail layers."""
+    full, _ = _hybrid_groups(cfg)
+    k = cfg.attn_every
+    layers = params["layers"]
+    for g in range(full):
+        for lp in layers[g * k:(g + 1) * k]:
+            x = block_fwd(cfg, lp, x)
+        x = shared_attn_fwd(cfg, params["shared_attn"], x)
+    for lp in layers[full * k:]:
+        x = block_fwd(cfg, lp, x)
+    return x
 
 
 def _head(cfg: ModelConfig, params, x):
@@ -85,8 +200,11 @@ def _head(cfg: ModelConfig, params, x):
 def lm_forward(cfg: ModelConfig, params, tokens: torch.Tensor):
     """tokens: [B,S] -> (logits [B,S,V] f32, aux_loss)."""
     x = L.embed(cfg, params["embed"], tokens)
-    for lp in params["layers"]:
-        x = block_fwd(cfg, lp, x)
+    if cfg.family == "hybrid":
+        x = _hybrid_fwd(cfg, params, x)
+    else:
+        for lp in params["layers"]:
+            x = block_fwd(cfg, lp, x)
     aux = torch.zeros((), device=x.device)
     return _head(cfg, params, x), aux
 
@@ -107,14 +225,37 @@ def lm_loss(cfg: ModelConfig, params, batch: dict):
     return loss, metrics
 
 
+def _stacked(one: dict, n: int) -> dict:
+    return {name: t.new_zeros((n, *t.shape)) for name, t in one.items()}
+
+
 def init_lm_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """KV caches stacked over layers, as the JAX package lays them out:
-    {"layers": {"cache": {"k": [L,B,T,Kv,Dh], "v": ...}}}."""
+    """Decode caches stacked over layers, as the JAX package lays them out:
+    {"layers": {"cache": {name: [L, ...]}}} (dense: k/v [L,B,T,Kv,Dh]; ssm:
+    shift_state, cmix_shift_state, wkv_state; hybrid: conv_state, ssm_state)
+    and, for the hybrid, {"shared_attn": {"k"/"v": [G,B,T,Kv,Dh]}} over its
+    G full groups."""
     _check_family(cfg)
-    one = attn.init_decode_cache(cfg, batch, cache_len, cfg.n_kv_heads,
-                                 cfg.resolved_head_dim, device=device)
-    return {"layers": {"cache": {
-        name: t.new_zeros((cfg.n_layers, *t.shape)) for name, t in one.items()}}}
+    one = init_block_cache(cfg, batch, cache_len, device)["cache"]
+    out = {"layers": {"cache": _stacked(one, cfg.n_layers)}}
+    if cfg.family == "hybrid" and cfg.attn_every:
+        full, _ = _hybrid_groups(cfg)
+        kv = attn.init_decode_cache(cfg, batch, cache_len, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim, device=device)
+        out["shared_attn"] = _stacked(kv, full)
+    return out
+
+
+def _decode_layer(cfg: ModelConfig, lp, x, stacked: dict, i: int, pos: int):
+    """One layer's decode step against slice ``i`` of the stacked cache; the
+    slice is updated in place (attention writes its slice itself, the
+    recurrent families return new states that are copied in)."""
+    c = {name: t[i] for name, t in stacked.items()}
+    x, new = block_decode(cfg, lp, x, {"cache": c}, pos)
+    for name, t in new["cache"].items():
+        if t is not c[name]:
+            c[name].copy_(t)
+    return x
 
 
 def lm_decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
@@ -122,8 +263,19 @@ def lm_decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
     """One decode step. tokens: [B,1]; pos: int -> (logits [B,1,V], cache).
     Each layer's slice of the stacked cache is updated in place."""
     x = L.embed(cfg, params["embed"], tokens)
-    kc = cache["layers"]["cache"]
-    for i, lp in enumerate(params["layers"]):
-        x, _ = block_decode(cfg, lp, x,
-                            {"cache": {"k": kc["k"][i], "v": kc["v"][i]}}, pos)
+    stacked = cache["layers"]["cache"]
+    if cfg.family == "hybrid":
+        full, _ = _hybrid_groups(cfg)
+        k = cfg.attn_every
+        sa = cache.get("shared_attn")
+        for g in range(full):
+            for i in range(g * k, (g + 1) * k):
+                x = _decode_layer(cfg, params["layers"][i], x, stacked, i, pos)
+            x, _ = shared_attn_decode(cfg, params["shared_attn"], x,
+                                      {"k": sa["k"][g], "v": sa["v"][g]}, pos)
+        for i in range(full * k, cfg.n_layers):
+            x = _decode_layer(cfg, params["layers"][i], x, stacked, i, pos)
+    else:
+        for i, lp in enumerate(params["layers"]):
+            x = _decode_layer(cfg, lp, x, stacked, i, pos)
     return _head(cfg, params, x), cache

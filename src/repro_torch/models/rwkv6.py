@@ -1,0 +1,212 @@
+"""RWKV-6 "Finch" time-mix and channel-mix blocks (data-dependent decay).
+
+Training/prefill uses the **chunked-parallel form**: within a chunk the
+recurrence is expanded into products against cumulative-decay-rescaled r/k,
+and the chunk-to-chunk state is carried by a Python loop over chunks. On the
+card the CUDA kernel (``repro_torch.kernels.wkv6``) runs the whole
+recurrence; ``rwkv_time_mix`` dispatches between them as the JAX package
+does.
+
+Numerics: decays are computed in log space; the chunk length
+(``cfg.ssm.chunk``, 64 for rwkv6) bounds the growth of ``exp(-la)``. The
+naive per-step loop ``repro_torch.kernels.ref.wkv6_ref`` is the test oracle.
+
+Decode carries (shift_state [B,D], wkv_state [B,H,Dh,Dh]): O(1) in context.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import _const, _normal, dt
+
+LORA_RANK = 64
+
+
+def init_rwkv_time_mix(cfg: ModelConfig, gen, device) -> nn.ParameterDict:
+    pd = dt(cfg.param_dtype)
+    d = cfg.d_model
+    da = cfg.ssm.head_dim * (d // cfg.ssm.head_dim)  # attn dim == d_model here
+    return nn.ParameterDict({
+        "w_r": _normal(gen, (d, da), d ** -0.5, pd, device),
+        "w_k": _normal(gen, (d, da), d ** -0.5, pd, device),
+        "w_v": _normal(gen, (d, da), d ** -0.5, pd, device),
+        "w_g": _normal(gen, (d, da), d ** -0.5, pd, device),
+        "w_o": _normal(gen, (da, d), da ** -0.5, pd, device),
+        # data-dependent decay LoRA:  w_t = exp(-exp(w0 + tanh(x A) B))
+        "decay_A": _normal(gen, (d, LORA_RANK), d ** -0.5, pd, device),
+        "decay_B": _normal(gen, (LORA_RANK, da), LORA_RANK ** -0.5, pd, device),
+        "w0": _const(-0.6, (da,), pd, device),   # decay ~ exp(-exp(-0.6))
+        "u": _normal(gen, (da,), 0.3, pd, device),  # per-channel bonus
+        # token-shift interpolation coefficients (one per stream: r,k,v,g,w)
+        "mu": _const(0.5, (5, d), pd, device),
+        "ln_scale": _const(1.0, (da,), pd, device),  # per-head groupnorm scale
+    })
+
+
+def _token_shift(x: torch.Tensor, shift_state=None) -> torch.Tensor:
+    """Previous-token stream: [B,S,D] -> [B,S,D] shifted by one."""
+    if shift_state is None:
+        first = torch.zeros_like(x[:, :1])
+    else:
+        first = shift_state[:, None, :].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _mix(x, prev, mu):
+    return x + (prev - x) * mu
+
+
+def wkv6_chunked(
+    r: torch.Tensor,       # [B,T,H,K]
+    k: torch.Tensor,       # [B,T,H,K]
+    v: torch.Tensor,       # [B,T,H,K]
+    logw: torch.Tensor,    # [B,T,H,K]  log decay, <= 0
+    u: torch.Tensor,       # [H,K]
+    state0: torch.Tensor,  # [B,H,K,K]
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV6. Returns (out [B,T,H,K] in r's dtype, state [B,H,K,K])."""
+    b, t, h, kk = r.shape
+    chunk = min(chunk, t)
+    assert t % chunk == 0, (t, chunk)
+    n = t // chunk
+
+    rs = r.reshape(b, n, chunk, h, kk).float()
+    ks = k.reshape(b, n, chunk, h, kk).float()
+    vs = v.reshape(b, n, chunk, h, kk).float()
+    lw = logw.reshape(b, n, chunk, h, kk).float()
+    uf = u.float()
+
+    causal = torch.tril(torch.ones((chunk, chunk), device=r.device), -1)  # strict
+    eye = torch.eye(chunk, device=r.device)
+
+    state = state0.float()
+    outs = []
+    for i in range(n):
+        rc, kc, vc, lwc = rs[:, i], ks[:, i], vs[:, i], lw[:, i]  # [B,C,H,K]
+        la = torch.cumsum(lwc, dim=1)        # inclusive cumulative log decay
+        la_prev = la - lwc                   # decay up to t-1
+        r_dec = rc * torch.exp(la_prev)      # rescaled receptance (<= |r|)
+        # intra-chunk pairwise scores, numerically exact: for kept (strictly
+        # causal) pairs the exponent la_prev_t - la_tau <= 0, so clamping at
+        # 0 before exp changes nothing; it only keeps the masked upper
+        # triangle finite. [B,C,C,H,K] is bounded by the chunk size.
+        diff = torch.clamp(la_prev[:, :, None] - la[:, None, :], max=0.0)
+        scores = torch.einsum("bthk,bshk,btshk->bhts", rc, kc, torch.exp(diff))
+        scores = scores * causal[None, None]
+        diag = torch.einsum("bthk,hk,bthk->bht", rc, uf, kc)
+        scores = scores + diag[..., None] * eye[None, None]
+        out = torch.einsum("bhts,bshk->bthk", scores, vc)
+        # inter-chunk: contribution from the carried state
+        out = out + torch.einsum("bthk,bhkj->bthj", r_dec, state)
+        # state update to the chunk end
+        total = la[:, -1]                    # [B,H,K]
+        k_fut = kc * torch.exp(total[:, None] - la)
+        state = state * torch.exp(total)[..., None] + torch.einsum(
+            "bthk,bthj->bhkj", k_fut, vc)
+        outs.append(out)
+    out = torch.stack(outs, dim=1).reshape(b, t, h, kk)
+    return out.to(r.dtype), state
+
+
+def wkv6_step(r, k, v, logw, u, state):
+    """Single-token recurrence (decode). r/k/v/logw: [B,H,K]; state [B,H,K,K]."""
+    rf, kf, vf = r.float(), k.float(), v.float()
+    w = torch.exp(logw.float())
+    kv = torch.einsum("bhk,bhj->bhkj", kf, vf)
+    out = torch.einsum("bhk,bhkj->bhj", rf,
+                       state + u.float()[None, :, :, None] * kv)
+    state = state * w[..., None] + kv
+    return out.to(r.dtype), state
+
+
+def _project_streams(cfg: ModelConfig, p, x, prev):
+    cd = dt(cfg.compute_dtype)
+    h = cfg.d_model // cfg.ssm.head_dim
+    k_dim = cfg.ssm.head_dim
+
+    def heads(y):
+        return y.reshape(*y.shape[:-1], h, k_dim)
+
+    mu = p["mu"].float()
+    xs = [_mix(x, prev, mu[i]).to(cd) for i in range(5)]
+    r = heads(xs[0] @ p["w_r"].to(cd))
+    k = heads(xs[1] @ p["w_k"].to(cd))
+    v = heads(xs[2] @ p["w_v"].to(cd))
+    g = F.silu(xs[3] @ p["w_g"].to(cd))
+    lora = torch.tanh(xs[4].float() @ p["decay_A"].float())
+    logw = -torch.exp(p["w0"].float() + lora @ p["decay_B"].float())
+    return r, k, v, g, heads(logw)
+
+
+def _group_norm(o: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-head RMS normalization of wkv output. o: [B,T,H,K] -> [B,T,H*K] f32."""
+    of = o.float()
+    ms = (of * of).mean(-1, keepdim=True)
+    of = of * torch.rsqrt(ms + 1e-5)
+    return of.reshape(*o.shape[:-2], -1) * scale.float()
+
+
+def rwkv_time_mix(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Train/prefill path. x: [B,S,D]."""
+    cd = dt(cfg.compute_dtype)
+    h = cfg.d_model // cfg.ssm.head_dim
+    prev = _token_shift(x)
+    r, k, v, g, logw = _project_streams(cfg, p, x, prev)
+    u = p["u"].float().reshape(h, cfg.ssm.head_dim)
+    if cfg.use_kernels:
+        from repro_torch.kernels import ops  # deferred: kernels are optional
+
+        out = ops.wkv6(r, k, v, logw, u, chunk=cfg.ssm.chunk)
+    else:
+        state0 = torch.zeros((x.shape[0], h, cfg.ssm.head_dim,
+                              cfg.ssm.head_dim), device=x.device)
+        out, _ = wkv6_chunked(r, k, v, logw, u, state0, cfg.ssm.chunk)
+    out = _group_norm(out, p["ln_scale"]).to(cd) * g
+    return out @ p["w_o"].to(cd)
+
+
+def rwkv_time_mix_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: dict):
+    """Decode path. x: [B,1,D]; cache: {shift_state [B,D], wkv_state [B,H,K,K]}."""
+    cd = dt(cfg.compute_dtype)
+    h = cfg.d_model // cfg.ssm.head_dim
+    prev = cache["shift_state"][:, None, :].to(x.dtype)
+    r, k, v, g, logw = _project_streams(cfg, p, x, prev)
+    u = p["u"].float().reshape(h, cfg.ssm.head_dim)
+    out, state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u,
+                           cache["wkv_state"].float())
+    out = _group_norm(out[:, None], p["ln_scale"]).to(cd) * g
+    y = out @ p["w_o"].to(cd)
+    return y, {"shift_state": x[:, 0], "wkv_state": state}
+
+
+# ---------------------------------------------------------------------------
+# Channel mix (RWKV FFN)
+# ---------------------------------------------------------------------------
+
+def init_rwkv_channel_mix(cfg: ModelConfig, gen, device) -> nn.ParameterDict:
+    pd = dt(cfg.param_dtype)
+    d, f = cfg.d_model, cfg.d_ff
+    return nn.ParameterDict({
+        "w_k": _normal(gen, (d, f), d ** -0.5, pd, device),
+        "w_v": _normal(gen, (f, d), f ** -0.5, pd, device),
+        "w_r": _normal(gen, (d, d), d ** -0.5, pd, device),
+        "mu": _const(0.5, (2, d), pd, device),  # k, r
+    })
+
+
+def rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor, shift_state=None):
+    cd = dt(cfg.compute_dtype)
+    prev = _token_shift(x, shift_state)
+    mu = p["mu"].float()
+    xk = _mix(x, prev, mu[0]).to(cd)
+    xr = _mix(x, prev, mu[1]).to(cd)
+    k = torch.square(F.relu(xk @ p["w_k"].to(cd)))
+    r = torch.sigmoid(xr @ p["w_r"].to(cd))
+    return r * (k @ p["w_v"].to(cd))

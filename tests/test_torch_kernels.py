@@ -19,8 +19,8 @@ SHAPES = [  # (b, s, h, kv, d, bq, bk): tests/test_kernels.py:55-60
     (2, 128, 4, 4, 32, 64, 64),     # MHA
     (1, 256, 8, 2, 64, 128, 64),    # GQA 4:1
     (2, 128, 8, 1, 32, 64, 128),    # MQA
-    (1, 96, 4, 2, 16, 64, 64),      # unaligned S -> reference path
-]
+    (1, 96, 4, 2, 16, 64, 64),      # unaligned S (the JAX side takes its
+]                                   # reference path; the port has no tiles)
 
 
 def _pair(rng, shape, dtype):
@@ -45,7 +45,7 @@ def test_flash_attention_matches_jax(rng, causal, dtype, b, s, h, kv, d, bq, bk)
     kj, kt = _pair(rng, (b, s, kv, d), dtype)
     vj, vt = _pair(rng, (b, s, kv, d), dtype)
     before = fa.launches
-    got = ops.flash_attention(qt, kt, vt, causal=causal, bq=bq, bk=bk)
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
     assert fa.launches == before  # the CPU path launches no kernel
     assert got.shape == (b, s, h, d) and got.dtype == qt.dtype
     pallas = jops.flash_attention(qj, kj, vj, causal=causal, bq=bq, bk=bk)

@@ -30,7 +30,8 @@ from repro_torch.models.convert import params_from_numpy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 COPIED = [
-    "configs/base.py", "configs/relic_tiny.py",
+    "configs/base.py", "configs/relic_tiny.py", "configs/rwkv6_1p6b.py",
+    "configs/zamba2_1p2b.py",
     "core/spsc.py", "core/relic.py", "core/relic_pool.py", "core/schedulers.py",
     "runtime/__init__.py", "runtime/config.py", "runtime/fault.py",
     "runtime/metrics.py", "runtime/chaos.py",
@@ -50,7 +51,9 @@ def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.models, "
-        "repro_torch.kernels.ops, repro_torch.core, repro_torch.runtime\n"
+        "repro_torch.kernels.ops, repro_torch.kernels.wkv6, "
+        "repro_torch.kernels.ssd, repro_torch.models.rwkv6, "
+        "repro_torch.models.mamba2, repro_torch.core, repro_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
         "m.startswith(('jax.', 'repro.')))\n"
         "assert not bad, bad\n"
@@ -117,6 +120,14 @@ def test_serve_cli_returns_batch_by_gen_tokens():
     assert int(toks.min()) >= 0 and int(toks.max()) < 512
 
 
+@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "zamba2_1p2b"])
+def test_serve_cli_serves_the_recurrent_families(arch):
+    toks = serve.main(["--arch", arch, "--smoke", "--batch", "2",
+                       "--prompt-len", "4", "--gen", "6", "--device", "cpu"])
+    assert toks.shape == (2, 6)
+    assert int(toks.min()) >= 0 and int(toks.max()) < 512
+
+
 def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
@@ -125,7 +136,7 @@ def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("rwkv6-1.6b", smoke=True)
+        get_config("arctic-480b", smoke=True)
 
 
 # ---------------------------------------------------------------------------
