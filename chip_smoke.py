@@ -11,8 +11,8 @@ Phases (any failure exits non-zero):
   2. hold each kernel against its plain-torch version on the card (test
      shapes, a ragged length, the main paths' shapes and a long one) and
      time the kernel, the plain version and, where one exists, one PyTorch
-     library call; check that ``ops.flash_attention`` launches the kernel
-     at lengths no multiple of its tile;
+     library call; check that ``ops.flash_attention`` and ``ops.matmul``
+     launch their kernels at shapes no multiple of the TPU tiles;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve.main`` plus three more requests through one
      ``ServeScheduler``;
@@ -24,10 +24,18 @@ Phases (any failure exits non-zero):
   6. serve zamba2_1p2b (38 Mamba-2 layers and 6 applications of the shared
      attention block, d_model 2048) and run its teacher-forced forward
      through the ssd and flash-attention kernels, the same way;
-  7. a long relic_tiny forward and loss at [4, 2048] with the kernel against
+  7. the quickstart path, ``repro_torch.quickstart.main`` at full width: the
+     tasking façade, one train step, eight decode steps and one
+     ``ops.matmul`` through the relic_matmul kernel;
+  8. training relic_tiny at full width (f32 parameters, bf16 compute):
+     grad_accum 2 against 1, then 20 steps on one batch with the loss
+     falling; then one f32 train step at SMOKE size on the card against the
+     same step on the CPU;
+  9. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
-Phases 3-4, 5 and 6 are the three main paths: each starts with every
-kernel's launch count at 0 and its counts are read when it ends.
+Phases 3-4, 5, 6 and 7 are the main paths: each starts with every kernel's
+launch count at 0 and its counts are read when it ends; phase 8 must launch
+no kernel (training runs the plain paths, as the reference's does).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the card's name and power limit and the one before that
@@ -36,6 +44,9 @@ the kernels' numbers. Without a card it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -49,15 +60,23 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import quickstart  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import relic_matmul as rm  # noqa: E402
 from repro_torch.kernels import ssd as ssd_k  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv6_k  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step, make_serve_step,  # noqa: E402
+                                      make_train_state, make_train_step)
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import mamba2 as m2  # noqa: E402
 from repro_torch.models import rwkv6 as r6  # noqa: E402
+from repro_torch.models.convert import (train_state_from_numpy,  # noqa: E402
+                                        train_state_to_numpy)
 from repro_torch.models.lm import lm_forward, lm_loss  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
 from repro_torch.serve import ServeScheduler  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 rate.
@@ -79,7 +98,11 @@ MAIN_SHAPE = (4, 2048, 12, 4, 64)  # relic_tiny's attention in the long forward
 TEACHER_SHAPE = (SERVE_BATCH, PROMPT_LEN + GEN, 12, 4, 64)
 # zamba2_1p2b's shared attention in its teacher-forced forward (no GQA)
 ZAMBA_ATTN_SHAPE = (SERVE_BATCH, PROMPT_LEN + 128, 32, 32, 64)
-KERNELS = {"flash_attention": fa, "wkv6": wkv6_k, "ssd": ssd_k}
+# Each kernel's launch counter: name -> (module, attribute).
+COUNTERS = {"flash_attention": (fa, "launches"), "wkv6": (wkv6_k, "launches"),
+            "ssd": (ssd_k, "launches"), "relic_matmul": (rm, "launches"),
+            "relic_matmul_gated": (rm, "gated_launches")}
+SOURCES = ["flash_attention", "relic_matmul", "ssd", "wkv6"]   # csrc/<name>.cu
 # The recurrent kernels: f32 1e-3, bf16 rtol 2e-2 / atol 2e-1
 # (tests/test_kernels.py:88-93,108-111).
 REC_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}
@@ -106,6 +129,28 @@ SSD_LONG = (4, 64, 2048, 64, 64, 128)
 MAIN_PATHS = [(ARCH, GEN, {"flash_attention": 12}, True),
               ("rwkv6_1p6b", 64, {"wkv6": 24}, False),
               ("zamba2_1p2b", 128, {"ssd": 38, "flash_attention": 6}, False)]
+QUICKSTART_LAUNCHES = {"relic_matmul": 1}   # its ops.matmul (quickstart.py)
+# relic_matmul: f32 rtol 2e-4 / atol 1e-2 (tests/test_kernels.py:35-37); bf16
+# rtol 2e-2 / atol 2e-1, tighter than the tests' 2e-1 / 10. The gated form:
+# rtol 2e-2, atol 2e-2 in f32 and 2.0 in bf16 (tests/test_kernels.py:48-50).
+MM_TOL = {torch.float32: (2e-4, 1e-2), torch.bfloat16: (2e-2, 2e-1)}
+GATED_TOL = {torch.float32: (2e-2, 2e-2), torch.bfloat16: (2e-2, 2.0)}
+# (m, n, k) of x [m, k] @ w [k, n]: tests/test_kernels.py:24-29, the last ragged.
+MM_TEST_SHAPES = [(128, 128, 128), (256, 384, 512), (512, 256, 1024), (100, 60, 36)]
+# Timed: (label, m, n, k, dtype, iterations). The quickstart's product (its
+# main path, examples/quickstart.py:64-66), relic_tiny's MLP products at the
+# train phase's 2048 tokens, and a square one.
+MM_TIMED = [("quickstart", 128, 128, 256, torch.float32, 50),
+            ("relic_tiny mlp gate/up", 2048, 2048, 768, torch.bfloat16, 50),
+            ("relic_tiny mlp down", 2048, 768, 2048, torch.bfloat16, 50),
+            ("square", 4096, 4096, 4096, torch.bfloat16, 20),
+            ("square", 4096, 4096, 4096, torch.float32, 5)]
+GATED_TEST = (256, 128, 256)    # tests/test_kernels.py:42-46
+GATED_MLP = (2048, 2048, 768)   # relic_tiny's act(x@Wg)*(x@Wu) at 2048 tokens
+# Training (launch/train.py:35-36,54-55): batch 8 x 256 tokens, 20 steps.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 20
+TRAIN_OC = OptConfig(peak_lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 5),
+                     total_steps=TRAIN_STEPS)
 
 
 def card_line() -> str:
@@ -243,7 +288,7 @@ def device_profile(fn, label: str):
 def phase_build():
     """Compile every kernel source at once (one nvcc each) and print each
     compiler's register and spill report."""
-    names = sorted(KERNELS)
+    names = SOURCES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -349,19 +394,18 @@ def phase_kernel(device):
             "shape": f"q{list(q.shape)} kv{list(k.shape)} bf16 causal"}
 
 
-def _hold(name, got, want, dtype):
-    """A recurrent kernel's output against its plain version: finite,
-    elementwise at the test tolerance and in relative norm. Returns the
-    largest absolute difference."""
+def _hold(name, got, want, rtol, atol):
+    """A kernel's output against its plain version: finite, elementwise at
+    the test tolerance and in relative norm. Returns the largest absolute
+    difference."""
     torch.cuda.synchronize()
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite output")
     diff = got.float() - want.float()
     err = diff.abs().max().item()
     rel = (diff.norm() / want.float().norm()).item()
-    rtol, atol = REC_TOL[dtype]
-    print(f"[kernel] {name} {str(dtype)[6:]}: max|err| {err:.3g} (rtol {rtol}, "
-          f"atol {atol}), relative {rel:.3g} (tol {REL_TOL})")
+    print(f"[kernel] {name} {str(got.dtype)[6:]}: max|err| {err:.3g} (rtol "
+          f"{rtol}, atol {atol}), relative {rel:.3g} (tol {REL_TOL})")
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
     if not rel < REL_TOL:
         raise AssertionError(f"{name}: relative error {rel} >= {REL_TOL}")
@@ -398,13 +442,14 @@ def phase_recurrence(name, mod, replaces, make_inputs, bound, test_shapes,
         for dtype in (torch.float32, torch.bfloat16):
             ins = make_inputs(gen, *shape, dtype, device)
             _hold(f"{name} {shape} chunk {chunk}", cuda_fn(*ins, chunk=chunk),
-                  plain_fn(*ins), dtype)
+                  plain_fn(*ins), *REC_TOL[dtype])
     timed = {}
     for label, (*shape, chunk), iters in (("served", served, 20),
                                           ("long", long_, 3)):
         ins = make_inputs(gen, *shape, main_dtype, device)
         err = _hold(f"{name} {shape} chunk {chunk} ({label})",
-                    cuda_fn(*ins, chunk=chunk), plain_fn(*ins), main_dtype)
+                    cuda_fn(*ins, chunk=chunk), plain_fn(*ins),
+                    *REC_TOL[main_dtype])
         ms = time_ms(lambda: cuda_fn(*ins, chunk=chunk), iters)
         plain_ms = time_ms(lambda: plain_fn(*ins), iters, warmup=1)
         bound_ms, bound_by, flops, exps, nbytes = bound(ins, chunk)
@@ -421,6 +466,109 @@ def phase_recurrence(name, mod, replaces, make_inputs, bound, test_shapes,
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": None, **timed["served"],
             "library_ms": None, "long": timed["long"]}
+
+
+def matmul_bound_ms(m, n, k, dtype, n_weights=1):
+    """Least time for x [m, k] times ``n_weights`` weights [k, n] (the gated
+    form has two): the larger of 2mnk operations per weight over the peak
+    rate for the input type and the bytes of x, the weights and the output
+    (each read or written once) over the memory rate. Returns (ms,
+    bound_by, flops, bytes)."""
+    size = torch.finfo(dtype).bits // 8
+    flops = 2 * m * n * k * n_weights
+    nbytes = size * (m * k + n_weights * k * n + m * n)
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_S
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, bound_by, flops, nbytes
+
+
+def _mm_inputs(gen, m, n, k, dtype, n_weights, device):
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    return mk(m, k), [mk(k, n) for _ in range(n_weights)]
+
+
+def _mm_label(name, m, n, k, act=None):
+    return f"{name} [{m}, {k}] @ [{k}, {n}]" + (f" act={act}" if act else "")
+
+
+def phase_matmul(device):
+    """relic_matmul and relic_matmul_gated against their plain versions on
+    the card: the test shapes in f32 and bf16 (one ragged), the gated form
+    with silu, gelu and an unknown name (no activation), then timing at the
+    quickstart's shape, relic_tiny's MLP shapes and a square one beside the
+    bound, the plain version and torch.matmul. Returns the two kernels'
+    entries of the numbers line (relic_matmul's at the quickstart's shape,
+    the gated form's at relic_tiny's MLP shape)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    for m, n, k in MM_TEST_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, (w,) = _mm_inputs(gen, m, n, k, dtype, 1, device)
+            _hold(_mm_label("relic_matmul", m, n, k),
+                  rm.relic_matmul_cuda(x, w), rm.relic_matmul_plain(x, w),
+                  *MM_TOL[dtype])
+    m, n, k = GATED_TEST
+    for act in ("silu", "gelu", "none"):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, (wg, wu) = _mm_inputs(gen, m, n, k, dtype, 2, device)
+            _hold(_mm_label("relic_matmul_gated", m, n, k, act),
+                  rm.relic_matmul_gated_cuda(x, wg, wu, act=act),
+                  rm.relic_matmul_gated_plain(x, wg, wu, act), *GATED_TOL[dtype])
+
+    # ops.matmul keeps no tile predicate: a ragged shape goes to the kernel.
+    x, (w,) = _mm_inputs(gen, 100, 60, 36, torch.float32, 1, device)
+    before = rm.launches
+    got = ops.matmul(x, w, bm=128, bn=128, bk=128)
+    if rm.launches != before + 1:
+        raise AssertionError(f"ops.matmul at [100, 36] @ [36, 60] launched the "
+                             f"kernel {rm.launches - before} times")
+    _hold("ops.matmul [100, 36] @ [36, 60]", got, rm.relic_matmul_plain(x, w),
+          *MM_TOL[torch.float32])
+
+    timed = []
+    for label, m, n, k, dtype, iters in MM_TIMED:
+        x, (w,) = _mm_inputs(gen, m, n, k, dtype, 1, device)
+        desc = f"{_mm_label(label, m, n, k)} {str(dtype)[6:]}"
+        err = _hold(_mm_label(label, m, n, k), rm.relic_matmul_cuda(x, w),
+                    rm.relic_matmul_plain(x, w), *MM_TOL[dtype])
+        ms = time_ms(lambda: rm.relic_matmul_cuda(x, w), iters)
+        plain_ms = time_ms(lambda: rm.relic_matmul_plain(x, w), iters)
+        # The library yardstick: torch.matmul in the input type (cuBLAS; TF32
+        # is off, so f32 stays f32). The port never calls it.
+        library_ms = time_ms(lambda: torch.matmul(x, w), iters)
+        bound_ms, bound_by, flops, nbytes = matmul_bound_ms(m, n, k, dtype)
+        print(f"[kernel] {desc}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.matmul {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        timed.append(dict(shape=desc, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms))
+
+    m, n, k = GATED_MLP
+    dtype = torch.bfloat16
+    x, (wg, wu) = _mm_inputs(gen, m, n, k, dtype, 2, device)
+    desc = f"{_mm_label('relic_matmul_gated', m, n, k, 'silu')} {str(dtype)[6:]}"
+    err = _hold(_mm_label("relic_matmul_gated", m, n, k, "silu"),
+                rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"),
+                rm.relic_matmul_gated_plain(x, wg, wu, "silu"), *GATED_TOL[dtype])
+    ms = time_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"), 50)
+    plain_ms = time_ms(lambda: rm.relic_matmul_gated_plain(x, wg, wu, "silu"), 50)
+    bound_ms, bound_by, flops, nbytes = matmul_bound_ms(m, n, k, dtype, 2)
+    print(f"[kernel] {desc}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB); {flops / ms / 1e9:.1f} TFLOP/s achieved")
+    source = "src/repro_torch/kernels/csrc/relic_matmul.cu"
+    return (
+        {"name": "relic_matmul", "route": "cuda", "source": source,
+         "replaces": "src/repro/kernels/relic_matmul.py:28", "launches": None,
+         **timed[0], "other_shapes": timed[1:]},
+        {"name": "relic_matmul_gated", "route": "cuda", "source": source,
+         "replaces": "src/repro/kernels/relic_matmul.py:73", "launches": None,
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+         "shape": desc})
 
 
 def decode_outside(cfg, model, params, device):
@@ -495,7 +643,23 @@ def phase_serve(device):
 
 
 def _launches():
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def _reset_launches():
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def _count_path(label, want, entries):
+    """The launches since the last reset must be exactly ``want`` ({kernel:
+    count}); they are added to the kernels' entries of the numbers line."""
+    got = {n: c for n, c in _launches().items() if c}
+    print(f"[main] {label}: kernel launches {got}")
+    if got != want:
+        raise AssertionError(f"{label} launched {got}, want {want}")
+    for name, count in got.items():
+        entries[name]["launches"] += count
 
 
 def _timed_forward(cfg, params, tokens):
@@ -682,6 +846,119 @@ def phase_long(cfg, params, device):
                    f"forward [{b}, {s}] with the kernel")
 
 
+def phase_quickstart(device):
+    """``repro_torch.quickstart.main`` as a user runs it, at full width on the
+    card; its output must end with ``quickstart OK``."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        quickstart.main(["--device", device.type])
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"[quickstart] {line}")
+    print(f"[quickstart] main(--device {device.type}) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    if lines[-1] != "quickstart OK":
+        raise AssertionError(f"quickstart ended with {lines[-1]!r}")
+
+
+def _train_batch(cfg, batch, seq, seed, device):
+    """Next-token batch of ``batch`` rows of ``seq`` tokens from a seeded
+    numpy generator."""
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq + 1)), device=device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            "mask": torch.ones((batch, seq), device=device)}
+
+
+def phase_train(device):
+    """relic_tiny at full width with f32 parameters and bf16 compute, as the
+    reference trains: one step with grad_accum 2 against 1 (grad_norm within
+    2%, tests/test_properties.py:93-112), then TRAIN_STEPS steps on one
+    batch, every loss finite and the last below the first."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device)
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, device)
+    gnorms = {}
+    for ga in (1, 2):
+        state = make_train_state(model, torch.Generator().manual_seed(0))
+        step = make_train_step(model, dataclasses.replace(TRAIN_OC, grad_accum=ga))
+        _, metrics = step(state, batch)
+        gnorms[ga] = float(metrics["grad_norm"])
+        del state
+    ratio = abs(gnorms[2] - gnorms[1]) / gnorms[1]
+    print(f"[train] grad_norm with grad_accum 1: {gnorms[1]:.6g}, 2: "
+          f"{gnorms[2]:.6g} (relative difference {ratio:.3g}, tol 0.02)")
+    if not ratio < 0.02:
+        raise AssertionError(f"grad_accum 2 against 1: {ratio}")
+
+    state = make_train_state(model, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    step = make_train_step(model, TRAIN_OC)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch)   # the first step, outside the clock
+    losses = [metrics["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS - 1):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {cfg.name}: {n_params / 1e6:.1f} M parameters (f32), bf16 "
+          f"compute, batch [{TRAIN_BATCH}, {TRAIN_SEQ}]: {ms:.2f} ms/step over "
+          f"steps 2-{TRAIN_STEPS}, {tokens / ms * 1e3:.0f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB")
+    print(f"[train] losses {' '.join(f'{x:.4f}' for x in losses)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    device_profile(lambda: step(state, batch),
+                   f"train step [{TRAIN_BATCH}, {TRAIN_SEQ}]")
+
+
+def phase_card_vs_cpu(device):
+    """One train step of relic_tiny SMOKE in f32 compute on the card and on
+    the CPU from the same weights and batch: loss, grad_norm and lr within
+    1e-4 relative; the parameter updates within 1e-3 in relative norm (an
+    AdamW update is lr * m / (sqrt(v) + eps), so a gradient entry near eps
+    moves its update by a share of lr when its last bits differ)."""
+    cfg = get_config(ARCH, smoke=True).replace(compute_dtype="float32")
+    oc = OptConfig(warmup_steps=2, total_steps=10)
+    cpu = torch.device("cpu")
+    tree = train_state_to_numpy(make_train_state(
+        build_model(cfg, cpu), torch.Generator().manual_seed(0)))
+    out = {}
+    for dev in (cpu, device):
+        model = build_model(cfg, dev)
+        state = train_state_from_numpy(cfg, tree, dev)
+        before = {n: p.detach().clone() for n, p in state["params"].named_parameters()}
+        state, metrics = make_train_step(model, oc)(
+            state, _train_batch(cfg, 4, 64, 2, dev))
+        delta = torch.cat([(p.detach() - before[n]).flatten().cpu()
+                           for n, p in state["params"].named_parameters()])
+        out[dev.type] = ({k: float(metrics[k]) for k in ("loss", "grad_norm", "lr")},
+                         delta)
+    (m_cpu, d_cpu), (m_card, d_card) = out["cpu"], out[device.type]
+    rels = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    rel_delta = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
+    print(f"[train] SMOKE f32 step, card against CPU: "
+          + ", ".join(f"{k} {m_card[k]:.7g} / {m_cpu[k]:.7g} (relative "
+                      f"{rels[k]:.3g})" for k in m_cpu)
+          + f"; parameter updates relative {rel_delta:.3g} (tol 1e-3), max "
+          f"{(d_card - d_cpu).abs().max().item():.3g} against lr "
+          f"{m_cpu['lr']:.3g}")
+    if not all(r < 1e-4 for r in rels.values()):
+        raise AssertionError(f"card against CPU: {rels}")
+    if not rel_delta < 1e-3:
+        raise AssertionError(f"parameter updates differ by {rel_delta}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -694,6 +971,7 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, cuda {torch.version.cuda}")
 
     phase_build()
+    mm_entry, gated_entry = phase_matmul(device)
     entries = {
         "flash_attention": phase_kernel(device),
         "wkv6": phase_recurrence(
@@ -704,26 +982,22 @@ def main() -> int:
             "ssd", ssd_k, "src/repro/kernels/ssd.py:19", _ssd_inputs,
             lambda ins, chunk: ssd_bound_ms(ins[0], ins[1], ins[2], chunk),
             SSD_TEST_SHAPES, SSD_SERVED, SSD_LONG, torch.float32, 2, device),
+        "relic_matmul": mm_entry,
+        "relic_matmul_gated": gated_entry,
     }
     for e in entries.values():
         e["launches"] = 0
 
     # The three main paths, each from launch counts of 0.
     for arch, gen, want, bf16_bar in MAIN_PATHS:
-        for mod in KERNELS.values():
-            mod.launches = 0
+        _reset_launches()
         if arch == ARCH:
             cfg, params, gen_toks = phase_serve(device)
         else:
             cfg, params, gen_toks = phase_recurrent(arch, gen, device)
         tokens, logits_k, logits_p = phase_forward(cfg, params, gen_toks, want,
                                                    bf16_bar, device)
-        got = {n: c for n, c in _launches().items() if c}
-        print(f"[main] {arch}: kernel launches {got}")
-        if got != want:
-            raise AssertionError(f"{arch} main path launched {got}, want {want}")
-        for name, count in got.items():
-            entries[name]["launches"] += count
+        _count_path(arch, want, entries)
         if not bf16_bar:
             check_noise(cfg, params, tokens, logits_k, logits_p)
         del logits_k, logits_p
@@ -734,6 +1008,18 @@ def main() -> int:
             relic = (cfg, params)
         del params
         torch.cuda.empty_cache()
+
+    # The quickstart path, from launch counts of 0.
+    _reset_launches()
+    phase_quickstart(device)
+    _count_path("quickstart", QUICKSTART_LAUNCHES, entries)
+
+    # Training runs the plain paths: no kernel launch.
+    _reset_launches()
+    phase_train(device)
+    phase_card_vs_cpu(device)
+    _count_path("training", {}, entries)
+    torch.cuda.empty_cache()
 
     phase_long(*relic, device)
 

@@ -1,5 +1,6 @@
 """Build the port's CUDA kernels with nvcc at first use and load them with
-ctypes (a plain C interface; no PyTorch headers, so a build takes seconds).
+ctypes (a plain C interface; no PyTorch headers, so a build takes seconds),
+and the check every kernel wrapper shares: no gradient through a kernel.
 
 Each source under ``csrc/`` becomes one shared library in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of its
@@ -16,6 +17,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -23,6 +26,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def refuse_grad(name: str, *tensors):
+    """Raise if autograd would record this call. The kernels have no
+    backward (the CUDA ones return tensors without a ``grad_fn``), and the
+    JAX package refuses ``jax.grad`` through its kernels too, so a kernel
+    wrapper refuses on every device, the CPU's plain version included."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad(); the "
+            f"reference trains with use_kernels=False")
 
 
 def _nvcc() -> str:

@@ -34,6 +34,7 @@ launches = 0   # kernel launches since the caller last set this to 0
 
 
 def _check(q, k, v):
+    _build.refuse_grad("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "

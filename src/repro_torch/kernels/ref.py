@@ -4,6 +4,26 @@ no code shared with the kernels or the model fast paths)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def matmul_ref(x, y, out_dtype=None):
+    """x [M,K] @ y [K,N] with both cast to f32; out in ``out_dtype`` or x's
+    dtype."""
+    return (x.float() @ y.float()).to(out_dtype or x.dtype)
+
+
+def matmul_gated_ref(x, w_gate, w_up, act: str = "silu", out_dtype=None):
+    """act(x @ w_gate) * (x @ w_up) in f32. ``silu``, or ``gelu`` in its tanh
+    form (jax.nn.gelu's default); any other name leaves the gate
+    unactivated, as the reference does."""
+    xf = x.float()
+    g = xf @ w_gate.float()
+    if act == "silu":
+        g = g * torch.sigmoid(g)
+    elif act == "gelu":
+        g = F.gelu(g, approximate="tanh")
+    return (g * (xf @ w_up.float())).to(out_dtype or x.dtype)
 
 
 def attention_ref(q, k, v, *, causal=True):

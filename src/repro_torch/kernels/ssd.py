@@ -35,6 +35,7 @@ launches = 0   # kernel launches since the caller last set this to 0
 
 
 def _check(x, a, b, c):
+    _build.refuse_grad("ssd", x, a, b, c)
     if x.dim() != 4:
         raise ValueError(f"x{tuple(x.shape)} is not [B, H, T, P]")
     bb, h, t, p = x.shape

@@ -34,6 +34,7 @@ launches = 0   # kernel launches since the caller last set this to 0
 
 
 def _check(r, k, v, logw, u):
+    _build.refuse_grad("wkv6", r, k, v, logw, u)
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"bad shapes r{tuple(r.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} logw{tuple(logw.shape)}")

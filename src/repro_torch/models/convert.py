@@ -1,10 +1,13 @@
-"""Carry parameters between the JAX package's pytree and the port's modules.
+"""Carry parameters and train states between the JAX package's pytrees and
+the port's modules.
 
 The JAX package stacks every leaf under ``layers`` on a leading ``n_layers``
 axis (one ``lax.scan`` over the blocks); the port keeps one module per layer.
 Both sides use the same nested key paths, e.g. ``layers/attn/wq`` is
 ``[L, D, H, Dh]`` in the tree and ``layers[i]["attn"]["wq"]`` ``[D, H, Dh]``
-in the port, so the conversion is a copy and an unstack, never a reshape.
+in the port (parameter name ``layers.i.attn.wq``), so the conversion is a
+copy and an unstack, never a reshape. The optimizer's ``mu``/``nu`` follow
+the parameters' key paths on both sides (``repro_torch.optim``).
 """
 
 from __future__ import annotations
@@ -39,15 +42,34 @@ def _module_leaves(mod, prefix=()):
             yield from _module_leaves(val, prefix + (key,))
 
 
-def _set(mod, path, arr, device, dtype):
-    holder = mod
-    for key in path[:-1]:
-        holder = holder[key]
-    want = tuple(holder[path[-1]].shape)
-    if tuple(arr.shape) != want:
-        raise ValueError(f"{'/'.join(path)}: shape {tuple(arr.shape)} != {want}")
-    t = torch.tensor(np.asarray(arr, np.float32))  # a copy, never a view
-    holder[path[-1]] = nn.Parameter(t.to(device=device, dtype=dtype))
+def _leaf_names(params):
+    """(key path in the JAX tree, the port's parameter names) of every leaf:
+    one name per layer for a path under ``layers``."""
+    for path, _ in _module_leaves(params):
+        if path[0] == "layers":
+            yield path, [".".join(("layers", str(i)) + path[1:])
+                         for i in range(len(params["layers"]))]
+        else:
+            yield path, [".".join(path)]
+
+
+def _arrays_by_name(params, tree: dict, what: str):
+    """(parameter name, numpy array) of every leaf of ``tree``, a tree with
+    the parameters' key paths, ``layers`` leaves unstacked. Raises if its
+    paths or shapes are not the parameters'."""
+    got = dict(_tree_leaves(tree))
+    want = dict(_leaf_names(params))
+    if set(got) != set(want):
+        raise ValueError(f"{what} tree mismatch: missing "
+                         f"{sorted(set(want) - set(got))}, unexpected "
+                         f"{sorted(set(got) - set(want))}")
+    for path, names in want.items():
+        for i, name in enumerate(names):
+            arr = got[path][i] if path[0] == "layers" else got[path]
+            shape = tuple(params.get_parameter(name).shape)
+            if tuple(arr.shape) != shape:
+                raise ValueError(f"{name}: shape {tuple(arr.shape)} != {shape}")
+            yield name, arr
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> nn.ModuleDict:
@@ -55,42 +77,51 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> nn.ModuleDi
     nested dicts of numpy arrays (bfloat16 leaves may be ml_dtypes arrays;
     they widen to float32 exactly on the way)."""
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), "meta")
-    want = {path for path, _ in _module_leaves(params)}
-    got = dict(_tree_leaves(tree))
-    if set(got) != want:
-        raise ValueError(f"parameter tree mismatch: missing "
-                         f"{sorted(want - set(got))}, unexpected "
-                         f"{sorted(set(got) - want)}")
     pd = dt(cfg.param_dtype)
-    for path, arr in got.items():
-        if path[0] == "layers":
-            for i, layer in enumerate(params["layers"]):
-                _set(layer, path[1:], arr[i], device, pd)
-        else:
-            _set(params, path, arr, device, pd)
+    for name, arr in list(_arrays_by_name(params, tree, "parameter")):
+        holder, _, key = name.rpartition(".")
+        t = torch.tensor(np.asarray(arr, np.float32))  # a copy, never a view
+        params.get_submodule(holder)[key] = nn.Parameter(t.to(device=device, dtype=pd))
     return params
+
+
+def named_to_numpy(params, named: dict) -> dict:
+    """Tensors keyed by the port's parameter names (parameters, gradients,
+    the optimizer's mu or nu) as nested dicts of float32 numpy arrays with
+    the JAX tree's key paths, ``layers`` leaves stacked on axis 0."""
+    out: dict = {}
+    for path, names in _leaf_names(params):
+        arrs = [named[n].detach().float().cpu().numpy() for n in names]
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrs) if path[0] == "layers" else arrs[0]
+    return out
 
 
 def params_to_numpy(params: nn.ModuleDict) -> dict:
     """Inverse of ``params_from_numpy``: nested dicts of float32 numpy arrays
     (bf16 parameters widen exactly), ``layers`` leaves stacked on axis 0."""
-    out: dict = {}
-    for path, _ in _module_leaves(params):
-        if path[0] == "layers":
-            per_layer = []
-            for layer in params["layers"]:
-                t = layer
-                for key in path[1:]:
-                    t = t[key]
-                per_layer.append(t.detach().float().cpu().numpy())
-            arr = np.stack(per_layer)
-        else:
-            t = params
-            for key in path:
-                t = t[key]
-            arr = t.detach().float().cpu().numpy()
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = arr
-    return out
+    return named_to_numpy(params, dict(params.named_parameters()))
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: dict, device="cpu") -> dict:
+    """The port's train state (``launch.steps.make_train_state``'s layout)
+    from the JAX package's, given as nested dicts of numpy arrays:
+    params, opt.mu, opt.nu (f32) and step."""
+    params = params_from_numpy(cfg, state["params"], device)
+    opt = {k: {name: torch.tensor(np.asarray(arr, np.float32), device=device)
+               for name, arr in _arrays_by_name(params, state["opt"][k],
+                                                f"optimizer {k}")}
+           for k in ("mu", "nu")}
+    return {"params": params, "opt": opt, "step": int(np.asarray(state["step"]))}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """Inverse of ``train_state_from_numpy``: the JAX package's layout, with
+    ``step`` as an int32 scalar."""
+    params = state["params"]
+    return {"params": params_to_numpy(params),
+            "opt": {k: named_to_numpy(params, state["opt"][k])
+                    for k in ("mu", "nu")},
+            "step": np.asarray(state["step"], np.int32)}

@@ -37,6 +37,7 @@ COPIED = [
     "runtime/metrics.py", "runtime/chaos.py",
     "serve/__init__.py", "serve/request.py", "serve/metrics.py",
     "serve/ingest.py", "serve/retry.py", "serve/scheduler.py", "serve/loadgen.py",
+    "tasks/api.py",
 ]
 
 
@@ -53,7 +54,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.launch.serve, repro_torch.models, "
         "repro_torch.kernels.ops, repro_torch.kernels.wkv6, "
         "repro_torch.kernels.ssd, repro_torch.models.rwkv6, "
-        "repro_torch.models.mamba2, repro_torch.core, repro_torch.runtime\n"
+        "repro_torch.models.mamba2, repro_torch.core, repro_torch.runtime, "
+        "repro_torch.quickstart, repro_torch.optim, repro_torch.tasks, "
+        "repro_torch.kernels.relic_matmul\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
         "m.startswith(('jax.', 'repro.')))\n"
         "assert not bad, bad\n"
