@@ -12,7 +12,13 @@ Phases (any failure exits non-zero):
      shapes, a ragged length, the main paths' shapes and a long one) and
      time the kernel, the plain version and, where one exists, one PyTorch
      library call; check that ``ops.flash_attention`` and ``ops.matmul``
-     launch their kernels at shapes no multiple of the TPU tiles;
+     launch their kernels at shapes no multiple of the TPU tiles. Flash
+     attention has two designs, chosen by ``fa.wgmma_eligible``: the wgmma
+     one (bf16, head_dim 64, TMA-describable layouts) is held on MHA, GQA
+     and MQA at ragged lengths, Sq != Sk and the model layout, and one
+     ``ops.flash_attention`` call at [4, 2048] must run exactly one device
+     kernel and no copy; the CUDA-core kernel is held on f32 and small
+     head dims;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve.main`` plus three more requests through one
      ``ServeScheduler``;
@@ -34,7 +40,8 @@ Phases (any failure exits non-zero):
   9. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6 and 7 are the main paths: each starts with every kernel's
-launch count at 0 and its counts are read when it ends; phase 8 must launch
+launch count at 0 and its counts are read when it ends; every flash launch
+there and in phase 9 must go through the wgmma design; phase 8 must launch
 no kernel (training runs the plain paths, as the reference's does).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -93,6 +100,11 @@ KERNEL_SHAPES = [  # (b, s, h, kv, d): tests/test_kernels.py:55-60
     (2, 128, 8, 1, 32),     # MQA
     (1, 96, 4, 2, 16),      # ragged S
 ]
+# The wgmma design (bf16, D=64): (h, kv) for MHA, GQA 3:1, GQA 4:1 and MQA,
+# at lengths that are no multiple of its 128-row tiles, batch 2.
+WGMMA_HEADS = [(4, 4), (12, 4), (8, 2), (8, 1)]
+WGMMA_LENGTHS = (96, 300, 1000)
+WGMMA_CROSS = (2, 128, 12, 4, 64, 320)   # (b, sq, h, kv, d, sk), non-causal
 MAIN_SHAPE = (4, 2048, 12, 4, 64)  # relic_tiny's attention in the long forward
 # relic_tiny's attention in the teacher-forced forward of the counted main path
 TEACHER_SHAPE = (SERVE_BATCH, PROMPT_LEN + GEN, 12, 4, 64)
@@ -102,7 +114,8 @@ ZAMBA_ATTN_SHAPE = (SERVE_BATCH, PROMPT_LEN + 128, 32, 32, 64)
 COUNTERS = {"flash_attention": (fa, "launches"), "wkv6": (wkv6_k, "launches"),
             "ssd": (ssd_k, "launches"), "relic_matmul": (rm, "launches"),
             "relic_matmul_gated": (rm, "gated_launches")}
-SOURCES = ["flash_attention", "relic_matmul", "ssd", "wkv6"]   # csrc/<name>.cu
+SOURCES = ["flash_attention", "flash_attention_wgmma", "relic_matmul", "ssd",
+           "wkv6"]   # csrc/<name>.cu
 # The recurrent kernels: f32 1e-3, bf16 rtol 2e-2 / atol 2e-1
 # (tests/test_kernels.py:88-93,108-111).
 REC_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}
@@ -247,40 +260,62 @@ def ssd_bound_ms(x, a, bmat, chunk: int):
     return ms, bound_by, flops, exps, nbytes
 
 
-def device_profile(fn, label: str):
-    """Run ``fn`` once under torch.profiler and print its wall time, the
-    card's busy time (the union of its kernel and copy intervals) and the
-    costliest kernels. The profiler's own cost inflates the wall time."""
+def device_events(fn, attempts: int = 3):
+    """Run ``fn`` under torch.profiler; returns its wall time in ms and the
+    card's kernel, copy and memset events of the trace. The profiler now
+    and then records no device event at all (seen on the H100), so an
+    empty trace is taken again, up to ``attempts`` runs of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     trace = os.path.join(ROOT, "build", "chip_smoke_trace.json")
     os.makedirs(os.path.dirname(trace), exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    device_events = [e for e in events if "dur" in e and e.get("cat") in (
-        "kernel", "gpu_memcpy", "gpu_memset")]
-    if not device_events:
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"] if "dur" in e
+                      and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if events:
+            break
+    return wall_ms, events
+
+
+def kernel_ms(fn, n: int = 20):
+    """Mean device time of the kernels one call of ``fn`` runs, from the
+    profiler's trace of ``n`` calls: what the card spends, without the gaps
+    that the host's issue rate leaves between back-to-back calls. None when
+    the profiler recorded no kernel (not measured)."""
+    fn()
+    _, events = device_events(lambda: [fn() for _ in range(n)])
+    us = sum(e["dur"] for e in events if e.get("cat") == "kernel")
+    return us / n / 1e3 if us else None
+
+
+def device_profile(fn, label: str):
+    """Run ``fn`` once under torch.profiler and print its wall time, the
+    card's busy time (the union of its kernel and copy intervals) and the
+    costliest kernels. The profiler's own cost inflates the wall time."""
+    wall_ms, events = device_events(fn)
+    if not events:
         print(f"[profile] {label}: wall {wall_ms:.2f} ms; device time not "
               f"measured (the profiler recorded no kernels)")
         return
     busy, end = 0.0, float("-inf")
-    for ts, te in sorted((e["ts"], e["ts"] + e["dur"]) for e in device_events):
+    for ts, te in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         busy += max(0.0, te - max(ts, end))
         end = max(end, te)
     by_name: dict[str, float] = {}
-    for e in device_events:
+    for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     print(f"[profile] {label}: wall {wall_ms:.2f} ms under the profiler, card "
           f"busy {busy / 1e3:.2f} ms ({busy / 1e3 / wall_ms:.1%}, idle "
-          f"{1 - busy / 1e3 / wall_ms:.1%}), {len(device_events)} device ops")
+          f"{1 - busy / 1e3 / wall_ms:.1%}), {len(events)} device ops")
     for name, us in top:
         print(f"[profile]   {us / 1e3:8.3f} ms  {name[:90]}")
 
@@ -302,96 +337,156 @@ def phase_build():
                     print(f"[build] {line.strip()}")
 
 
-def _qkv(gen, b, s, h, kv, d, dtype, device):
-    def mk(heads):
-        x = torch.randn((b, heads, s, d), generator=gen, dtype=torch.float32)
+def _qkv(gen, b, s, h, kv, d, dtype, device, sk=None):
+    """Seeded q [b, h, s, d] and k, v [b, kv, sk (default s), d]."""
+    def mk(heads, length):
+        x = torch.randn((b, heads, length, d), generator=gen, dtype=torch.float32)
         return x.to(device=device, dtype=dtype)
-    return mk(h), mk(kv), mk(kv)
+    return mk(h, s), mk(kv, sk or s), mk(kv, sk or s)
 
 
-def check_kernel(gen, b, s, h, kv, d, dtype, causal, device):
-    """The kernel against its plain version on one seeded input: elementwise
-    at the test tolerance and in relative norm. Returns the inputs and the
-    largest absolute difference."""
-    q, k, v = _qkv(gen, b, s, h, kv, d, dtype, device)
-    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+def check_kernel(fn, gen, shape, dtype, causal, device, sk=None):
+    """One flash design (``fn``: ``flash_attention_wgmma`` or
+    ``flash_attention_fma``) against the plain version on one seeded input
+    of ``shape`` (b, s, h, kv, d), kv length ``sk`` (default s): finite,
+    elementwise at the test tolerance and in relative norm. Returns the
+    inputs and the largest absolute difference."""
+    b, s, h, kv, d = shape
+    q, k, v = _qkv(gen, b, s, h, kv, d, dtype, device, sk)
+    got = fn(q, k, v, causal=causal)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    diff = got.float() - want.float()
-    err = diff.abs().max().item()
-    rel = (diff.norm() / want.float().norm()).item()
-    print(f"[kernel] b{b} s{s} h{h} kv{kv} d{d} {str(dtype)[6:]} "
-          f"causal={causal}: max|err| {err:.3g} (tol {TOL[dtype]}), "
-          f"relative {rel:.3g} (tol {REL_TOL})")
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
-    if not rel < REL_TOL:
-        raise AssertionError(f"relative error {rel} >= {REL_TOL}")
+    err = _hold(f"{fn.__name__} b{b} s{s}{f' sk{sk}' if sk else ''} h{h} "
+                f"kv{kv} d{d} causal={causal}", got, want, TOL[dtype],
+                TOL[dtype])
     return (q, k, v), err
+
+
+def _launched(counter: str, n: int, fn, label: str):
+    """Run ``fn``; ``fa.<counter>`` must rise by exactly ``n``."""
+    before = getattr(fa, counter)
+    out = fn()
+    if getattr(fa, counter) - before != n:
+        raise AssertionError(f"{label}: {getattr(fa, counter) - before} "
+                             f"{counter}, want {n}")
+    return out
+
+
+def time_flash(label, q, k, v, iters):
+    """The wgmma design at one causal bf16 shape beside the CUDA-core
+    kernel, the plain version, SDPA (the library yardstick, kv heads
+    repeated outside the timed call; the port never calls it) and the
+    bound: CUDA-event times of back-to-back calls (at small shapes the
+    host's issue rate) and the profiler's device times. Returns the numbers
+    as one dict."""
+    h, kv = q.shape[1], k.shape[1]
+    k_rep = torch.repeat_interleave(k, h // kv, dim=1)
+    v_rep = torch.repeat_interleave(v, h // kv, dim=1)
+    ms = time_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=True), iters)
+    fma_ms = time_ms(lambda: fa.flash_attention_fma(q, k, v, causal=True),
+                     max(iters // 4, 3))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                       max(iters // 4, 3))
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_rep, v_rep, is_causal=True), iters)
+    device_ms = kernel_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=True))
+    library_device_ms = kernel_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True))
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, True)
+    shape = f"q{list(q.shape)} kv{list(k.shape)} bf16 causal"
+    tflops = flops / (device_ms or ms) / 1e9
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+    print(f"[kernel] {label} {shape}: wgmma {ms:.4f} ms (device "
+          f"{fmt(device_ms)}, {tflops:.1f} TFLOP/s), CUDA-core kernel "
+          f"{fma_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
+          f"(device {fmt(library_device_ms)}); bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)")
+    return dict(shape=shape, ms=ms, device_ms=device_ms, fma_ms=fma_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device_ms, bound_ms=bound_ms,
+                bound_by=bound_by, tflops=tflops)
 
 
 def phase_kernel(device):
     gen = torch.Generator().manual_seed(0)
-    for b, s, h, kv, d in KERNEL_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (True, False):
-                check_kernel(gen, b, s, h, kv, d, dtype, causal, device)
-
     dtype = torch.bfloat16
-    (q, k, v), _ = check_kernel(gen, *TEACHER_SHAPE, dtype, True, device)
-    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 50)
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 50)
-    bound_ms, bound_by, _, _ = attention_bound_ms(q, k, v, True)
-    print(f"[kernel] teacher-forced shape q{list(q.shape)} kv{list(k.shape)} "
-          f"bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms by {bound_by}")
+    # The CUDA-core kernel keeps f32, head_dims 16/32/128 and layouts TMA
+    # cannot describe: held on the test shapes in both dtypes.
+    for shape in KERNEL_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                check_kernel(fa.flash_attention_fma, gen, shape, dt, causal, device)
 
-    (q, k, v), _ = check_kernel(gen, *ZAMBA_ATTN_SHAPE, dtype, True, device)
-    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 50)
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 50)
-    bound_ms, bound_by, _, _ = attention_bound_ms(q, k, v, True)
-    print(f"[kernel] zamba2 shared-attention shape q{list(q.shape)} "
-          f"kv{list(k.shape)} bf16 causal: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+    # The wgmma design: MHA, GQA 3:1 and 4:1, MQA at ragged lengths, Sq != Sk.
+    for h, kv in WGMMA_HEADS:
+        for s in WGMMA_LENGTHS:
+            for causal in (True, False):
+                check_kernel(fa.flash_attention_wgmma, gen, (2, s, h, kv, 64),
+                             dtype, causal, device)
+    b, sq, h, kv, d, sk = WGMMA_CROSS
+    check_kernel(fa.flash_attention_wgmma, gen, (b, sq, h, kv, d), dtype, False,
+                 device, sk=sk)
 
-    # ops.flash_attention keeps no tile predicate: lengths that are no
-    # multiple of any tile go to the kernel too.
+    # The dispatch: bf16 D=64 goes to the wgmma design, f32 and D=32 do not.
+    for dt, d, n in ((torch.bfloat16, 64, 1), (torch.float32, 64, 0),
+                     (torch.bfloat16, 32, 0)):
+        q, k, v = _qkv(gen, 1, 96, 4, 2, d, dt, device)
+        got = _launched("wgmma_launches", n, lambda: _launched(
+            "launches", 1, lambda: fa.flash_attention_cuda(q, k, v),
+            "flash_attention_cuda"), f"flash_attention_cuda {dt} d{d}")
+        _hold(f"flash_attention_cuda d{d}", got,
+              fa.flash_attention_plain(q, k, v), TOL[dt], TOL[dt])
+
+    # ops.flash_attention hands the model layout [B, S, H, D] to the wgmma
+    # design as it is, at lengths no multiple of its tiles.
     for s in (96, 300):
-        q, k, v = _qkv(gen, 1, s, 4, 2, 64, dtype, device)
-        before = fa.launches
-        got = ops.flash_attention(*(x.transpose(1, 2) for x in (q, k, v)),
-                                  causal=True).transpose(1, 2)
-        if fa.launches != before + 1:
-            raise AssertionError(f"ops.flash_attention at S={s} launched the "
-                                 f"kernel {fa.launches - before} times")
-        want = fa.flash_attention_plain(q, k, v, causal=True)
-        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                                   atol=TOL[dtype])
-        print(f"[kernel] ops.flash_attention at S={s} launched the kernel")
+        q, k, v = (x.transpose(1, 2).contiguous()
+                   for x in _qkv(gen, 1, s, 4, 2, 64, dtype, device))
+        got = _launched("wgmma_launches", 1, lambda: ops.flash_attention(
+            q, k, v, causal=True), f"ops.flash_attention at S={s}")
+        want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2)).transpose(1, 2)
+        _hold(f"ops.flash_attention model layout S={s}", got, want,
+              TOL[dtype], TOL[dtype])
 
-    (q, k, v), max_err = check_kernel(gen, *MAIN_SHAPE, dtype, True, device)
-    b, s, h, kv, d = MAIN_SHAPE
-    # The library yardstick: one SDPA call on the same function (kv heads
-    # repeated beforehand, outside the timed call). The port never calls it.
-    k_rep = torch.repeat_interleave(k, h // kv, dim=1)
-    v_rep = torch.repeat_interleave(v, h // kv, dim=1)
-    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 20)
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 10)
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k_rep, v_rep, is_causal=True), 20)
-    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, True)
-    print(f"[kernel] main shape q{list(q.shape)} kv{list(k.shape)} bf16 causal: "
-          f"max|err| {max_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-          f" sdpa {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+    (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, TEACHER_SHAPE,
+                                  dtype, True, device)
+    teacher = {**time_flash("teacher-forced shape", q, k, v, 50),
+               "max_abs_err": err}
+    (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen,
+                                  ZAMBA_ATTN_SHAPE, dtype, True, device)
+    zamba = {**time_flash("zamba2 shared-attention shape", q, k, v, 50),
+             "max_abs_err": err}
+    (q, k, v), max_err = check_kernel(fa.flash_attention_wgmma, gen, MAIN_SHAPE,
+                                      dtype, True, device)
+    main = time_flash("main shape", q, k, v, 20)
+
+    # One ops.flash_attention call in the model layout at [4, 2048]: exactly
+    # one device operation, the wgmma kernel (no layout copy, no cast).
+    qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ops.flash_attention(qm, km, vm, causal=True)   # built and warm
+    _, events = device_events(lambda: ops.flash_attention(qm, km, vm, causal=True))
+    names = [e["name"] for e in events]
+    print(f"[kernel] one ops.flash_attention call at q{list(qm.shape)} (model "
+          f"layout) ran {len(names)} device operation(s): {names}")
+    if len(names) != 1 or "fa_wgmma_kernel" not in names[0]:
+        raise AssertionError(f"ops.flash_attention ran {names}, want the one "
+                             f"wgmma kernel")
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention.py:27",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "shape": f"q{list(q.shape)} kv{list(k.shape)} bf16 causal"}
+            "design": ("persistent, one CTA per SM over 128-row q tiles "
+                       "heaviest first; wgmma for both products (P from "
+                       "registers); K/V by TMA into a 2-stage mbarrier ring "
+                       "fed by one producer thread; 4-D tensor maps over the "
+                       "caller's strides; bf16 D=64. f32, D 16/32/128 and "
+                       "non-TMA layouts: "
+                       "src/repro_torch/kernels/csrc/flash_attention.cu"),
+            "launches": None, "max_abs_err": max_err, **main,
+            "other_shapes": [teacher, zamba]}
 
 
 def _hold(name, got, want, rtol, atol):
@@ -649,15 +744,21 @@ def _launches():
 def _reset_launches():
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    fa.wgmma_launches = 0
 
 
 def _count_path(label, want, entries):
     """The launches since the last reset must be exactly ``want`` ({kernel:
     count}); they are added to the kernels' entries of the numbers line."""
     got = {n: c for n, c in _launches().items() if c}
-    print(f"[main] {label}: kernel launches {got}")
+    print(f"[main] {label}: kernel launches {got}, of which flash through "
+          f"the wgmma design {fa.wgmma_launches}")
     if got != want:
         raise AssertionError(f"{label} launched {got}, want {want}")
+    if fa.wgmma_launches != got.get("flash_attention", 0):
+        raise AssertionError(f"{label}: {fa.wgmma_launches} of "
+                             f"{got.get('flash_attention', 0)} flash launches "
+                             f"went through the wgmma design")
     for name, count in got.items():
         entries[name]["launches"] += count
 
@@ -820,12 +921,16 @@ def phase_long(cfg, params, device):
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
              "mask": torch.ones((b, s), device=device)}
     cfg_k = cfg.replace(use_kernels=True)
-    before = fa.launches
+    before, before_wgmma = fa.launches, fa.wgmma_launches
     loss, _ = lm_loss(cfg_k, params, batch)
     if not torch.isfinite(loss):
         raise AssertionError(f"loss {loss.item()}")
-    if fa.launches - before != cfg.n_layers:
-        raise AssertionError(f"{fa.launches - before} launches in the loss")
+    launched = (fa.launches - before, fa.wgmma_launches - before_wgmma)
+    print(f"[long] flash launches in the loss {launched[0]}, of which through "
+          f"the wgmma design {launched[1]}")
+    if launched != (cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"{launched} launches in the loss, want "
+                             f"{cfg.n_layers} through the wgmma design")
 
     def timed(c):
         lm_forward(c, params, batch["tokens"])  # warm

@@ -3,7 +3,8 @@ a plain-torch version beside it and an independent oracle in ``ref``:
 
   relic_matmul       — the paper's pipeline as a tiled matmul (CUDA C++, sm_90a)
   relic_matmul_gated — its fused act(x@Wg)*(x@Wu) form (same source)
-  flash_attention    — GQA causal/full streaming attention (CUDA C++, sm_90a)
+  flash_attention    — GQA causal/full streaming attention (CUDA C++, sm_90a:
+                       wgmma + TMA for bf16 head_dim 64, CUDA-core f32 else)
   wkv6               — RWKV-6 chunked WKV recurrence (CUDA C++, sm_90a)
   ssd                — Mamba-2 chunked SSD recurrence (CUDA C++, sm_90a)
 

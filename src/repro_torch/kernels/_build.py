@@ -4,7 +4,8 @@ and the check every kernel wrapper shares: no gradient through a kernel.
 
 Each source under ``csrc/`` becomes one shared library in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of its
-source and flags, so an edited source is rebuilt and an unchanged one is not.
+source, the shared headers under ``csrc/`` (``*.cuh``, ``*.h``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is not.
 """
 
 from __future__ import annotations
@@ -51,10 +52,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: named by a hash
+    of the source, every header under ``csrc/`` (by name and bytes) and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

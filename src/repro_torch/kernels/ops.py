@@ -27,7 +27,9 @@ def matmul_gated(x, w_gate, w_up, *, act="silu", bm=256, bn=256, bk=512):
 
 
 def flash_attention(q, k, v, *, causal=True):
-    """Model layout [B,S,H,D] in/out; GQA via kv-head grouping."""
+    """Model layout [B,S,H,D] in/out; GQA via kv-head grouping. The
+    transposes are views: the wgmma design reads and writes the model's
+    layout through its tensor maps, with no copy."""
     o = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal)
     return o.transpose(1, 2)

@@ -95,3 +95,23 @@ def test_unsupported_inputs_raise(dtype, d):
     k = torch.zeros((1, 1, 8, d), dtype=dtype)
     with pytest.raises(ValueError):
         fa.flash_attention_bhsd(q, k, k, causal=True)
+
+
+def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "k.cu").write_text('#include "hopper.cuh"\n')
+    header = tmp_path / "csrc" / "hopper.cuh"
+    header.write_text("// v1\n")
+    first = _build.library_path("k")
+    assert first.parent == tmp_path / "build" and first.name.startswith("k_")
+    assert _build.library_path("k") == first          # unchanged: no rebuild
+    header.write_text("// v2\n")
+    assert _build.library_path("k") != first          # edited header: rebuild
+    header.write_text("// v1\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "csrc" / "extra.h").write_text("#pragma once\n")
+    assert _build.library_path("k") != first          # a new header counts too
