@@ -18,7 +18,14 @@ Phases (any failure exits non-zero):
      and MQA at ragged lengths, Sq != Sk and the model layout, and one
      ``ops.flash_attention`` call at [4, 2048] must run exactly one device
      kernel and no copy; the CUDA-core kernel is held on f32 and small
-     head dims;
+     head dims. relic_matmul has three designs (``rm.wgmma_eligible``,
+     ``rm.f32_tile``): the wgmma one (bf16 that TMA can describe) is held
+     on the test shapes and ragged ones, and one call at 4096^3 must run
+     one device kernel; ragged K goes to the mma.sync kernel; f32 to the
+     FMA kernel with a tile by shape. ssd has two (``ssd_k.tc_eligible``):
+     the tensor-core one (f32, P = N = 64) at ragged T and odd H, the first
+     one at the small test shapes and in bf16. Device times come from the
+     profiler beside the CUDA-event times;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve.main`` plus three more requests through one
      ``ServeScheduler``;
@@ -41,8 +48,10 @@ Phases (any failure exits non-zero):
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6 and 7 are the main paths: each starts with every kernel's
 launch count at 0 and its counts are read when it ends; every flash launch
-there and in phase 9 must go through the wgmma design; phase 8 must launch
-no kernel (training runs the plain paths, as the reference's does).
+there and in phase 9 must go through the wgmma design and every ssd launch
+through the tensor-core one, and the quickstart's one relic_matmul launch
+through the f32 design; phase 8 must launch no kernel (training runs the
+plain paths, as the reference's does).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the card's name and power limit and the one before that
@@ -86,8 +95,10 @@ from repro_torch.models.lm import lm_forward, lm_loss  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
 from repro_torch.serve import ServeScheduler  # noqa: E402
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3 rate.
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores and
+# HBM3 rate.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12   # dense TF32 tensor cores
 PEAK_BYTES_S = 3.35e12
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # tests/test_kernels.py:70-71
 REL_TOL = 1e-2   # ||kernel - plain|| / ||plain||: a dropped kv tile fails it
@@ -114,8 +125,13 @@ ZAMBA_ATTN_SHAPE = (SERVE_BATCH, PROMPT_LEN + 128, 32, 32, 64)
 COUNTERS = {"flash_attention": (fa, "launches"), "wkv6": (wkv6_k, "launches"),
             "ssd": (ssd_k, "launches"), "relic_matmul": (rm, "launches"),
             "relic_matmul_gated": (rm, "gated_launches")}
-SOURCES = ["flash_attention", "flash_attention_wgmma", "relic_matmul", "ssd",
-           "wkv6"]   # csrc/<name>.cu
+# The redesigned designs' counters: name -> (module, attribute), beside the
+# kernel's own count in COUNTERS.
+REDESIGNS = {"flash_attention": (fa, "wgmma_launches"),
+             "relic_matmul": (rm, "wgmma_launches"),
+             "ssd": (ssd_k, "tc_launches")}
+SOURCES = ["flash_attention", "flash_attention_wgmma", "relic_matmul",
+           "relic_matmul_wgmma", "ssd", "wkv6"]   # csrc/<name>.cu
 # The recurrent kernels: f32 1e-3, bf16 rtol 2e-2 / atol 2e-1
 # (tests/test_kernels.py:88-93,108-111).
 REC_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}
@@ -128,7 +144,10 @@ WKV6_LONG = (4, 32, 2048, 64, 64)
 # ssd shapes (b, h, t, p, n, chunk): tests/test_kernels.py:97-100, a ragged
 # length, the served zamba2_1p2b forward [8, 256] and a long one.
 SSD_TEST_SHAPES = [(2, 2, 64, 16, 8, 16), (1, 4, 128, 32, 16, 32),
-                   (2, 4, 200, 64, 64, 128)]
+                   (2, 4, 200, 64, 64, 128),
+                   # P = N = 64 (the tensor-core design) with H no multiple
+                   # of its head group of 2 and T no multiple of a chunk
+                   (1, 3, 45, 64, 64, 32), (2, 5, 77, 64, 64, 128)]
 SSD_SERVED = (SERVE_BATCH, 64, PROMPT_LEN + 128, 64, 64, 128)
 SSD_LONG = (4, 64, 2048, 64, 64, 128)
 # The main paths: (arch, generated tokens, kernel launches of the path,
@@ -150,6 +169,10 @@ MM_TOL = {torch.float32: (2e-4, 1e-2), torch.bfloat16: (2e-2, 2e-1)}
 GATED_TOL = {torch.float32: (2e-2, 2e-2), torch.bfloat16: (2e-2, 2.0)}
 # (m, n, k) of x [m, k] @ w [k, n]: tests/test_kernels.py:24-29, the last ragged.
 MM_TEST_SHAPES = [(128, 128, 128), (256, 384, 512), (512, 256, 1024), (100, 60, 36)]
+# Ragged bf16 shapes the wgmma design takes (M, N or K no multiple of its
+# 128 x 128/256 x 64 tiles, K and N multiples of 8), and relic_tiny's down
+# product.
+MM_WGMMA_RAGGED = [(300, 264, 200), (2048, 768, 2048), (130, 136, 72)]
 # Timed: (label, m, n, k, dtype, iterations). The quickstart's product (its
 # main path, examples/quickstart.py:64-66), relic_tiny's MLP products at the
 # train phase's 2048 tokens, and a square one.
@@ -239,25 +262,42 @@ def wkv6_bound_ms(r, logw, u, chunk: int):
     return ms, bound_by, flops, exps, nbytes
 
 
-def ssd_bound_ms(x, a, bmat, chunk: int):
-    """Least time for ssd on these inputs, counting the chunked algorithm's
-    work per chunk of c steps: C B^T once per batch row (the heads share
-    it), and per head the decay of the c(c+1)/2 kept pairs (one
-    exponential each), W @ x, C @ state^T, the state update and the
-    rescalings; bytes are x, a, b, c read once and y written once.
-    Returns (ms, bound_by, flops, exps, bytes)."""
+def _ssd_work(x, a, bmat, chunk: int):
+    """The chunked ssd's arithmetic on these inputs, per chunk of c steps:
+    C B^T once per batch row (the heads share it), and per head W @ x,
+    C @ state^T and the state update (the four products), the decay of the
+    c(c+1)/2 kept pairs (one exponential each) and the rescalings.
+    Returns (product flops, other flops, exponentials, bytes): x, a, b, c
+    read once and y written once."""
     bb, h, t, p = x.shape
     n = bmat.shape[-1]
-    flops = exps = 0
+    prods = rest = exps = 0
     for c in _chunks(t, chunk):
         pairs = c * (c + 1) // 2
-        flops += bb * 2 * pairs * n
+        prods += bb * 2 * pairs * n + bb * h * (2 * pairs * p + 4 * c * n * p)
+        rest += bb * h * (2 * pairs + 3 * c * p + 2 * c + 2 * p * n)
         exps += bb * h * (pairs + 2 * c + 1)
-        flops += bb * h * (2 * pairs + 2 * pairs * p + 4 * c * n * p
-                           + 3 * c * p + 2 * c + 2 * p * n)
     nbytes = 2 * x.nbytes + a.nbytes + 2 * bmat.nbytes
-    ms, bound_by = _bound(flops, exps, nbytes)
-    return ms, bound_by, flops, exps, nbytes
+    return prods, rest, exps, nbytes
+
+
+def ssd_bound_ms(x, a, bmat, chunk: int):
+    """Least time for ssd on these inputs with all of its arithmetic at the
+    f32 CUDA-core rate (``_ssd_work``). Returns (ms, bound_by, flops, exps,
+    bytes)."""
+    prods, rest, exps, nbytes = _ssd_work(x, a, bmat, chunk)
+    ms, bound_by = _bound(prods + rest, exps, nbytes)
+    return ms, bound_by, prods + rest, exps, nbytes
+
+
+def ssd_tc_bound_ms(x, a, bmat, chunk: int):
+    """Least time for ssd on these inputs with the four products on the
+    tensor cores in 3xTF32 (three TF32 products each, 495 TFLOP/s / 3) and
+    the rest of its arithmetic at the f32 rate. Returns (ms, bound_by)."""
+    prods, rest, exps, nbytes = _ssd_work(x, a, bmat, chunk)
+    t_ops = prods / (PEAK_TF32 / 3) + (rest + exps) / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def device_events(fn, attempts: int = 3):
@@ -285,15 +325,19 @@ def device_events(fn, attempts: int = 3):
     return wall_ms, events
 
 
-def kernel_ms(fn, n: int = 20):
+def kernel_ms(fn, n: int = 20, attempts: int = 3):
     """Mean device time of the kernels one call of ``fn`` runs, from the
     profiler's trace of ``n`` calls: what the card spends, without the gaps
-    that the host's issue rate leaves between back-to-back calls. None when
-    the profiler recorded no kernel (not measured)."""
+    that the host's issue rate leaves between back-to-back calls. A trace
+    whose kernel count is no multiple of ``n`` is incomplete and is taken
+    again; None when no run gives a whole trace (not measured)."""
     fn()
-    _, events = device_events(lambda: [fn() for _ in range(n)])
-    us = sum(e["dur"] for e in events if e.get("cat") == "kernel")
-    return us / n / 1e3 if us else None
+    for _ in range(attempts):
+        _, events = device_events(lambda: [fn() for _ in range(n)])
+        kernels = [e["dur"] for e in events if e.get("cat") == "kernel"]
+        if kernels and len(kernels) % n == 0:
+            return sum(kernels) / n / 1e3
+    return None
 
 
 def device_profile(fn, label: str):
@@ -333,8 +377,9 @@ def phase_build():
         log = path.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {line.strip()}")
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry function" in line):
+                    print(f"[build] {line.strip()[:160]}")
 
 
 def _qkv(gen, b, s, h, kv, d, dtype, device, sk=None):
@@ -467,14 +512,9 @@ def phase_kernel(device):
     # One ops.flash_attention call in the model layout at [4, 2048]: exactly
     # one device operation, the wgmma kernel (no layout copy, no cast).
     qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ops.flash_attention(qm, km, vm, causal=True)   # built and warm
-    _, events = device_events(lambda: ops.flash_attention(qm, km, vm, causal=True))
-    names = [e["name"] for e in events]
-    print(f"[kernel] one ops.flash_attention call at q{list(qm.shape)} (model "
-          f"layout) ran {len(names)} device operation(s): {names}")
-    if len(names) != 1 or "fa_wgmma_kernel" not in names[0]:
-        raise AssertionError(f"ops.flash_attention ran {names}, want the one "
-                             f"wgmma kernel")
+    _one_kernel(lambda: ops.flash_attention(qm, km, vm, causal=True),
+                f"ops.flash_attention at q{list(qm.shape)} (model layout)",
+                "fa_wgmma_kernel")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention.py:27",
@@ -525,38 +565,64 @@ def _ssd_inputs(gen, b, h, t, p, n, dtype, device):
 
 
 def phase_recurrence(name, mod, replaces, make_inputs, bound, test_shapes,
-                     served, long_, main_dtype, seed, device):
+                     served, long_, main_dtype, seed, device, redesign=None,
+                     tc_bound=None):
     """Hold a recurrent kernel (``mod``: wkv6 or ssd) against its plain
     version at the test shapes in f32 and bf16, then at the served path's
     shape and a long one in ``main_dtype``, timing kernel and plain version
-    there. Shapes end with the chunk length. Returns the kernel's entry of
-    the numbers line (its numbers at the served shape)."""
+    there (CUDA events, and the profiler's device time for the kernel).
+    Shapes end with the chunk length. ``redesign``: (counter, predicate) of
+    a kernel with two designs; every call must go through the redesigned
+    one exactly when the predicate holds on its inputs. ``tc_bound``: a
+    second bound, with the products at the tensor cores' rate. Returns the
+    kernel's entry of the numbers line (its numbers at the served shape)."""
     cuda_fn, plain_fn = getattr(mod, f"{name}_cuda"), getattr(mod, f"{name}_plain")
     gen = torch.Generator().manual_seed(seed)
+
+    def call(ins, chunk, label):
+        before = getattr(mod, redesign[0]) if redesign else 0
+        out = cuda_fn(*ins, chunk=chunk)
+        if redesign:
+            want = int(redesign[1](*ins))
+            if getattr(mod, redesign[0]) - before != want:
+                raise AssertionError(f"{label}: {redesign[0]} rose by "
+                                     f"{getattr(mod, redesign[0]) - before}, "
+                                     f"want {want}")
+        return out
+
     for *shape, chunk in test_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             ins = make_inputs(gen, *shape, dtype, device)
-            _hold(f"{name} {shape} chunk {chunk}", cuda_fn(*ins, chunk=chunk),
-                  plain_fn(*ins), *REC_TOL[dtype])
+            label = f"{name} {shape} chunk {chunk}"
+            _hold(label, call(ins, chunk, label), plain_fn(*ins), *REC_TOL[dtype])
     timed = {}
     for label, (*shape, chunk), iters in (("served", served, 20),
                                           ("long", long_, 3)):
         ins = make_inputs(gen, *shape, main_dtype, device)
         err = _hold(f"{name} {shape} chunk {chunk} ({label})",
-                    cuda_fn(*ins, chunk=chunk), plain_fn(*ins),
+                    call(ins, chunk, label), plain_fn(*ins),
                     *REC_TOL[main_dtype])
         ms = time_ms(lambda: cuda_fn(*ins, chunk=chunk), iters)
+        device_ms = kernel_ms(lambda: cuda_fn(*ins, chunk=chunk), iters)
         plain_ms = time_ms(lambda: plain_fn(*ins), iters, warmup=1)
         bound_ms, bound_by, flops, exps, nbytes = bound(ins, chunk)
         desc = f"{shape} {str(main_dtype)[6:]} chunk {chunk}"
-        print(f"[kernel] {name} {label} shape {desc}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+        dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+        print(f"[kernel] {name} {label} shape {desc}: kernel {ms:.4f} ms "
+              f"(device {dev}), plain {plain_ms:.4f} ms; bound {bound_ms:.4f} "
+              f"ms by {bound_by}")
         print(f"[kernel]   {name} {label}: {flops / 1e9:.3f} GFLOP of f32 "
               f"arithmetic, {nbytes / 1e6:.2f} MB; "
-              f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+              f"{flops / (device_ms or ms) / 1e9:.1f} TFLOP/s achieved")
         print(f"[kernel]   {name} {label}: {exps / 1e9:.4f} G exponentials")
-        timed[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by, shape=desc)
+        timed[label] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, shape=desc)
+        if tc_bound:
+            tc_ms, tc_by = tc_bound(ins, chunk)
+            print(f"[kernel]   {name} {label}: bound with the products on the "
+                  f"tensor cores in 3xTF32 {tc_ms:.4f} ms by {tc_by}")
+            timed[label].update(tc_bound_ms=tc_ms, tc_bound_by=tc_by)
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": None, **timed["served"],
@@ -588,21 +654,61 @@ def _mm_label(name, m, n, k, act=None):
     return f"{name} [{m}, {k}] @ [{k}, {n}]" + (f" act={act}" if act else "")
 
 
+def _mm_call(x, w, out_dtype=None):
+    """relic_matmul_cuda; returns (out, the design that ran)."""
+    before = rm.wgmma_launches
+    out = rm.relic_matmul_cuda(x, w, out_dtype=out_dtype)
+    (m, _), n, n_sm = x.shape, w.shape[1], rm.sm_count(x.device)
+    if rm.wgmma_launches - before:
+        design = f"wgmma, 128 x {rm.wgmma_tile_n(m, n, n_sm)} tiles"
+    elif x.dtype == torch.float32:
+        bm, bn = rm.F32_TILES[rm.f32_tile(m, n, n_sm)]
+        design = f"f32 FMA, {bm} x {bn} tiles"
+    else:
+        design = "mma.sync"
+    return out, design
+
+
+def _one_kernel(fn, label, name):
+    """One call of ``fn`` must run exactly one device operation, the kernel
+    ``name``: no copy, no memset, no second kernel."""
+    fn()   # built and warm
+    _, events = device_events(fn)
+    names = [e["name"] for e in events]
+    print(f"[kernel] one {label} call ran {len(names)} device operation(s): "
+          f"{names}")
+    if len(names) != 1 or name not in names[0]:
+        raise AssertionError(f"{label} ran {names}, want the one {name}")
+
+
 def phase_matmul(device):
     """relic_matmul and relic_matmul_gated against their plain versions on
-    the card: the test shapes in f32 and bf16 (one ragged), the gated form
-    with silu, gelu and an unknown name (no activation), then timing at the
-    quickstart's shape, relic_tiny's MLP shapes and a square one beside the
-    bound, the plain version and torch.matmul. Returns the two kernels'
-    entries of the numbers line (relic_matmul's at the quickstart's shape,
-    the gated form's at relic_tiny's MLP shape)."""
+    the card: the test shapes in f32 and bf16 (the ragged one takes the
+    mma.sync kernel, the others in bf16 the wgmma design), ragged bf16 shapes
+    the wgmma design takes, an f32 output of bf16 inputs and the reverse,
+    the gated form with silu, gelu and an unknown name (no activation), then
+    timing at the quickstart's shape, relic_tiny's MLP shapes and a square
+    one beside the bound, the plain version and torch.matmul (CUDA events
+    and the profiler's device times). One call at 4096^3 bf16 must run one
+    device kernel, the wgmma design's. Returns the two kernels' entries of
+    the numbers line (relic_matmul's at the quickstart's shape, the gated
+    form's at relic_tiny's MLP shape)."""
     gen = torch.Generator(device=device).manual_seed(3)
-    for m, n, k in MM_TEST_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            x, (w,) = _mm_inputs(gen, m, n, k, dtype, 1, device)
-            _hold(_mm_label("relic_matmul", m, n, k),
-                  rm.relic_matmul_cuda(x, w), rm.relic_matmul_plain(x, w),
-                  *MM_TOL[dtype])
+    shapes = [(m, n, k, dt) for m, n, k in MM_TEST_SHAPES
+              for dt in (torch.float32, torch.bfloat16)]
+    shapes += [(m, n, k, torch.bfloat16) for m, n, k in MM_WGMMA_RAGGED]
+    for m, n, k, dtype in shapes:
+        x, (w,) = _mm_inputs(gen, m, n, k, dtype, 1, device)
+        want_wgmma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+        for od in (None, torch.float32 if dtype == torch.bfloat16 else torch.bfloat16):
+            got, design = _mm_call(x, w, od)
+            if design.startswith("wgmma") != want_wgmma:
+                raise AssertionError(f"relic_matmul [{m}, {k}] @ [{k}, {n}] "
+                                     f"{dtype} ran {design}")
+            tol = MM_TOL[od or dtype]
+            _hold(f"{_mm_label('relic_matmul', m, n, k)} ({design}, out "
+                  f"{str(od or dtype)[6:]})", got,
+                  rm.relic_matmul_plain(x, w, od), *tol)
     m, n, k = GATED_TEST
     for act in ("silu", "gelu", "none"):
         for dtype in (torch.float32, torch.bfloat16):
@@ -621,25 +727,39 @@ def phase_matmul(device):
     _hold("ops.matmul [100, 36] @ [36, 60]", got, rm.relic_matmul_plain(x, w),
           *MM_TOL[torch.float32])
 
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
     timed = []
     for label, m, n, k, dtype, iters in MM_TIMED:
         x, (w,) = _mm_inputs(gen, m, n, k, dtype, 1, device)
         desc = f"{_mm_label(label, m, n, k)} {str(dtype)[6:]}"
-        err = _hold(_mm_label(label, m, n, k), rm.relic_matmul_cuda(x, w),
+        got, design = _mm_call(x, w)
+        err = _hold(f"{_mm_label(label, m, n, k)} ({design})", got,
                     rm.relic_matmul_plain(x, w), *MM_TOL[dtype])
         ms = time_ms(lambda: rm.relic_matmul_cuda(x, w), iters)
+        device_ms = kernel_ms(lambda: rm.relic_matmul_cuda(x, w), iters)
         plain_ms = time_ms(lambda: rm.relic_matmul_plain(x, w), iters)
         # The library yardstick: torch.matmul in the input type (cuBLAS; TF32
         # is off, so f32 stays f32). The port never calls it.
         library_ms = time_ms(lambda: torch.matmul(x, w), iters)
+        library_device_ms = kernel_ms(lambda: torch.matmul(x, w), iters)
         bound_ms, bound_by, flops, nbytes = matmul_bound_ms(m, n, k, dtype)
-        print(f"[kernel] {desc}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.matmul {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
-              f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
-        timed.append(dict(shape=desc, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        print(f"[kernel] {desc}: kernel ({design}) {ms:.4f} ms (device "
+              f"{fmt(device_ms)}), plain {plain_ms:.4f} ms, torch.matmul "
+              f"{library_ms:.4f} ms (device {fmt(library_device_ms)}); bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB); {flops / (device_ms or ms) / 1e9:.1f} "
+              f"TFLOP/s achieved")
+        timed.append(dict(shape=desc, design=design, max_abs_err=err, ms=ms,
+                          device_ms=device_ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms))
+                          library_ms=library_ms,
+                          library_device_ms=library_device_ms))
+
+    x, (w,) = _mm_inputs(gen, 4096, 4096, 4096, torch.bfloat16, 1, device)
+    _one_kernel(lambda: rm.relic_matmul_cuda(x, w), "relic_matmul_cuda at "
+                "4096^3 bf16", "mm_wgmma_kernel")
 
     m, n, k = GATED_MLP
     dtype = torch.bfloat16
@@ -649,21 +769,32 @@ def phase_matmul(device):
                 rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"),
                 rm.relic_matmul_gated_plain(x, wg, wu, "silu"), *GATED_TOL[dtype])
     ms = time_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"), 50)
+    device_ms = kernel_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"))
     plain_ms = time_ms(lambda: rm.relic_matmul_gated_plain(x, wg, wu, "silu"), 50)
     bound_ms, bound_by, flops, nbytes = matmul_bound_ms(m, n, k, dtype, 2)
-    print(f"[kernel] {desc}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB); {flops / ms / 1e9:.1f} TFLOP/s achieved")
-    source = "src/repro_torch/kernels/csrc/relic_matmul.cu"
+    print(f"[kernel] {desc}: kernel {ms:.4f} ms (device {fmt(device_ms)}), "
+          f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+          f"{flops / (device_ms or ms) / 1e9:.1f} TFLOP/s achieved")
     return (
-        {"name": "relic_matmul", "route": "cuda", "source": source,
+        {"name": "relic_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/relic_matmul.cu",
          "replaces": "src/repro/kernels/relic_matmul.py:28", "launches": None,
-         **timed[0], "other_shapes": timed[1:]},
-        {"name": "relic_matmul_gated", "route": "cuda", "source": source,
+         **timed[0],
+         "design": ("f32: IEEE FMA, tile by shape (128 x 128 to 16 x 32), "
+                    "3-stage cp.async ring over K; bf16 that TMA can describe: "
+                    "src/repro_torch/kernels/csrc/relic_matmul_wgmma.cu "
+                    "(persistent, one TMA producer thread, 4-stage mbarrier "
+                    "ring, two wgmma consumer warpgroups, w MN-major through "
+                    "the transpose bit, 128 x 128/256 tiles by shape); other "
+                    "bf16: mma.sync"),
+         "other_shapes": timed[1:]},
+        {"name": "relic_matmul_gated", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/relic_matmul.cu",
          "replaces": "src/repro/kernels/relic_matmul.py:73", "launches": None,
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-         "shape": desc})
+         "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": None, "shape": desc})
 
 
 def decode_outside(cfg, model, params, device):
@@ -742,23 +873,27 @@ def _launches():
 
 
 def _reset_launches():
-    for mod, attr in COUNTERS.values():
+    for mod, attr in (*COUNTERS.values(), *REDESIGNS.values()):
         setattr(mod, attr, 0)
-    fa.wgmma_launches = 0
 
 
 def _count_path(label, want, entries):
     """The launches since the last reset must be exactly ``want`` ({kernel:
-    count}); they are added to the kernels' entries of the numbers line."""
+    count}); every flash attention and ssd launch must take its redesigned
+    design (wgmma; tensor cores), and no relic_matmul launch the wgmma one
+    (the only product on a main path, the quickstart's, is f32). The counts
+    are added to the kernels' entries of the numbers line."""
     got = {n: c for n, c in _launches().items() if c}
-    print(f"[main] {label}: kernel launches {got}, of which flash through "
-          f"the wgmma design {fa.wgmma_launches}")
+    redesigned = {n: getattr(mod, attr) for n, (mod, attr) in REDESIGNS.items()}
+    print(f"[main] {label}: kernel launches {got}; through the redesigned "
+          f"designs {redesigned}")
     if got != want:
         raise AssertionError(f"{label} launched {got}, want {want}")
-    if fa.wgmma_launches != got.get("flash_attention", 0):
-        raise AssertionError(f"{label}: {fa.wgmma_launches} of "
-                             f"{got.get('flash_attention', 0)} flash launches "
-                             f"went through the wgmma design")
+    expect = {"flash_attention": got.get("flash_attention", 0),
+              "ssd": got.get("ssd", 0), "relic_matmul": 0}
+    if redesigned != expect:
+        raise AssertionError(f"{label}: launches through the redesigned "
+                             f"designs {redesigned}, want {expect}")
     for name, count in got.items():
         entries[name]["launches"] += count
 
@@ -879,11 +1014,15 @@ def check_layers(cfg, params, tokens):
 @torch.no_grad()
 def time_forwards(cfg, params, tokens):
     """The teacher-forced forward with the kernels and the plain one, timed
-    outside the counted main path."""
-    _, ms_k = _timed_forward(cfg.replace(use_kernels=True), params, tokens)
+    outside the counted main path, and the kernel forward's device time
+    under the profiler."""
+    cfg_k = cfg.replace(use_kernels=True)
+    _, ms_k = _timed_forward(cfg_k, params, tokens)
     _, ms_p = _timed_forward(cfg, params, tokens)
     print(f"[forward] {cfg.name} tokens {list(tokens.shape)}: forward with "
           f"kernels {ms_k:.2f} ms, plain {ms_p:.2f} ms")
+    device_profile(lambda: lm_forward(cfg_k, params, tokens),
+                   f"{cfg.name} forward {list(tokens.shape)} with the kernels")
 
 
 def phase_recurrent(arch, gen, device):
@@ -1086,10 +1225,19 @@ def main() -> int:
         "ssd": phase_recurrence(
             "ssd", ssd_k, "src/repro/kernels/ssd.py:19", _ssd_inputs,
             lambda ins, chunk: ssd_bound_ms(ins[0], ins[1], ins[2], chunk),
-            SSD_TEST_SHAPES, SSD_SERVED, SSD_LONG, torch.float32, 2, device),
+            SSD_TEST_SHAPES, SSD_SERVED, SSD_LONG, torch.float32, 2, device,
+            redesign=("tc_launches", lambda x, a, b, c: ssd_k.tc_eligible(x, b)),
+            tc_bound=lambda ins, chunk: ssd_tc_bound_ms(ins[0], ins[1], ins[2],
+                                                        chunk)),
         "relic_matmul": mm_entry,
         "relic_matmul_gated": gated_entry,
     }
+    entries["ssd"]["design"] = (
+        "f32, P = N = 64 (every zamba2 call): tensor cores, 3xTF32 mma.sync; "
+        "one CTA per batch row and pair of heads sharing each chunk's C B^T; "
+        "chunks of 32 loaded by cp.async into a second buffer while the last "
+        "computes; the state in f32 registers; the caller's layout, no copy. "
+        "Other P, N and bf16: one CTA per (b, h), f32 on the CUDA cores")
     for e in entries.values():
         e["launches"] = 0
 

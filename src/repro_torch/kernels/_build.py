@@ -1,6 +1,8 @@
 """Build the port's CUDA kernels with nvcc at first use and load them with
 ctypes (a plain C interface; no PyTorch headers, so a build takes seconds),
-and the check every kernel wrapper shares: no gradient through a kernel.
+and what every kernel wrapper shares: its C entries typed once, the launch
+on the tensor's device and stream, and the check that no gradient goes
+through a kernel.
 
 Each source under ``csrc/`` becomes one shared library in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of its
@@ -10,6 +12,7 @@ flags, so an edited source or header is rebuilt and an unchanged one is not.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -88,3 +91,26 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def entry(source: str, name: str, argtypes):
+    """The C entry ``name`` of ``csrc/<source>.cu``, built, loaded and typed
+    once (ctypes keeps the types on the function object)."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def on_device(t: torch.Tensor):
+    """A context in which ``t``'s card is the current one: a no-op when it
+    already is, as on a one-card machine."""
+    if t.device.index is None or t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s card, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

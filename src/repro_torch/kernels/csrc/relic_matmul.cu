@@ -15,26 +15,34 @@
 // byte it must move, above the card's 295 FLOP/byte ridge, so it is bound by
 // the tensor cores (989 TFLOP/s bf16); in f32 by the CUDA cores' 67 TFLOP/s.
 //
-// Design (simple and right first). The TPU kernel's grid walks K innermost
-// with an f32 scratch tile that is zeroed at k = 0 and flushed at the last k;
-// here one CTA owns one output tile and loops over K itself, with the
-// accumulator in registers. Ragged M, N and K are masked in the kernel (loads
-// outside the matrices read zero, stores outside are skipped), so every shape
-// launches.
-//   * bf16: 8 warps, a 128 x BN tile (BN = 128, gated 64 per weight), K in
-//     steps of 32. Each step's tiles are loaded into registers while the
-//     previous step computes, then stored to shared memory: x row-major, w
-//     transposed to [n][k], rows padded to 40 elements so the fragment reads
-//     hit distinct banks. The products are mma.sync.m16n8k16 (bf16 in, f32
+// Design. The TPU kernel's grid walks K innermost with an f32 scratch tile
+// that is zeroed at k = 0 and flushed at the last k; here one CTA owns one
+// output tile and loops over K itself, with the accumulator in registers.
+// Ragged M, N and K are masked in the kernel (loads outside the matrices
+// read zero, stores outside are skipped), so every shape launches.
+//   * bf16 (relic_matmul takes it only for inputs that a TMA map cannot
+//     describe, see relic_matmul_wgmma.cu; the gated form always):
+//     8 warps, a 128 x BN tile (BN = 128, gated 64 per weight), K in steps
+//     of 32. Each step's tiles are loaded into registers while the previous
+//     step computes, then stored to shared memory: x row-major, w transposed
+//     to [n][k], rows padded to 40 elements so the fragment reads hit
+//     distinct banks. The products are mma.sync.m16n8k16 (bf16 in, f32
 //     accumulate); each warp owns a 32 x (BN / 2) share of the tile.
-//   * f32: IEEE f32 FMA on the CUDA cores, never TF32 (the f32 path is held
-//     at rtol 2e-4). 16 x 16 threads, each with an 8 x TN register tile
-//     (TN = 8, gated 4 per weight), K in steps of 16 through shared memory.
-// Neither uses TMA, a multi-stage ring or wgmma yet; that warp-specialised
-// form is later work (ROADMAP.md). See PERF.md for the measured times.
+//   * f32, relic_matmul: IEEE f32 FMA on the CUDA cores, never TF32 (the f32
+//     path is held at rtol 2e-4). The tile is chosen by the caller from the
+//     shape (128 x 128 down to 16 x 32), so that a small product still
+//     spreads over many SMs: the quickstart's [128, 256] @ [256, 128] runs
+//     on 32 CTAs. K runs through a 3-stage cp.async ring (steps of 16 for
+//     the largest tile, up to 64 for the smallest), so the loads of step
+//     k + 2 are in flight while step k computes. No split of K: the sums do
+//     not depend on an order of arrival.
+//   * f32, the gated form: 16 x 16 threads, each with an 8 x 4
+//     register tile per weight, K in steps of 16 through shared memory.
+// See PERF.md for the measured times.
 //
 // C interface (bound with ctypes): each entry returns cudaGetLastError()
-// after the launch, or -1 for a dtype it has no instance for.
+// after the launch, -1 for a dtype it has no instance for, -2 for an f32
+// tile it has no instance for.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -132,6 +140,160 @@ mm_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
       store_out(out, out_bf16, (size_t)gm * N + gn, y);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// f32, relic_matmul: tiles chosen by shape, a cp.async ring over K
+// ---------------------------------------------------------------------------
+
+
+// 16 bytes (vec) or four single floats from row `row`, cols col .. col + 3
+// of a rows x cols row-major matrix into shared memory at `dst`; entries
+// outside the matrix are written as zeros (the copy's source size is 0).
+__device__ __forceinline__ void copy4_async(float* dst, const float* __restrict__ src,
+                                            int row, int rows, int col, int cols,
+                                            int vec) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (vec) {   // cols % 4 == 0: the four are all in or all out
+    const bool in = row < rows && col < cols;
+    const float* g = in ? src + (size_t)row * cols + col : src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(g), "r"(in ? 16 : 0) : "memory");
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const bool in = row < rows && col + e < cols;
+    const float* g = in ? src + (size_t)row * cols + col + e : src;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d + 4 * e), "l"(g), "r"(in ? 4 : 0) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A BM x BN output tile per CTA of (BM / TM) x (BN / TN) threads; each thread
+// owns TM rows strided by BM / TM and TN columns in float4 groups strided by
+// 4 (BN / TN), so the float4 reads of x (along K, rows padded to BK + 4) and
+// of w (along N) hit distinct banks. K goes BK at a time through a ring of
+// STAGES stages: stage kt + STAGES - 1 loads while stage kt computes. Small
+// tiles take a deeper BK, so a short K is a few long steps.
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+struct F32Tile {
+  static constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
+  static constexpr int XS = BK + 4, WS = BN + 4;   // smem row strides (floats)
+  static constexpr int STAGE = BM * XS + BK * WS;
+  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE;
+};
+
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+__global__ void __launch_bounds__(F32Tile<BM, BN, TM, TN, BK, STAGES>::THREADS)
+mm_f32_async_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    void* __restrict__ out, int out_bf16, int M, int N, int K, int vec) {
+  using T = F32Tile<BM, BN, TM, TN, BK, STAGES>;
+  constexpr int TX = T::TX, TY = T::TY, XS = T::XS, WS = T::WS;
+  constexpr int F32_STAGES = STAGES;
+  extern __shared__ __align__(16) float f32_smem[];
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+
+  auto load = [&](int kt) {
+    float* xs = f32_smem + (kt % F32_STAGES) * T::STAGE;
+    float* ws = xs + BM * XS;
+    const int k0 = kt * BK;
+    for (int q = tid; q < BM * BK / 4; q += T::THREADS) {
+      const int r = q / (BK / 4), c = q % (BK / 4) * 4;
+      copy4_async(xs + r * XS + c, x, m0 + r, M, k0 + c, K, vec);
+    }
+    for (int q = tid; q < BK * BN / 4; q += T::THREADS) {
+      const int r = q / (BN / 4), c = q % (BN / 4) * 4;
+      copy4_async(ws + r * WS + c, w, k0 + r, K, n0 + c, N, vec);
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<F32_STAGES - 2>();   // stage kt has landed
+    __syncthreads();                   // ... for every thread; stage kt - 1 is consumed
+    if (kt + F32_STAGES - 1 < nk) load(kt + F32_STAGES - 1);
+    cp_async_commit();
+    const float* xs = f32_smem + (kt % F32_STAGES) * T::STAGE;
+    const float* ws = xs + BM * XS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float a[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        *reinterpret_cast<float4*>(a[i]) =
+            *reinterpret_cast<const float4*>(xs + (ty + i * TY) * XS + kk);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        float b[TN];
+#pragma unroll
+        for (int j = 0; j < TN; j += 4)
+          *reinterpret_cast<float4*>(b + j) = *reinterpret_cast<const float4*>(
+              ws + (kk + k4) * WS + tx * 4 + j * TX);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i][k4], b[j], acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty + i * TY;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const int gn = n0 + tx * 4 + j * TX;
+      const size_t off = (size_t)gm * N + gn;
+      if (vec && !out_bf16 && gn < N) {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + off) =
+            make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (gn + e < N) store_out(out, out_bf16, off + e, acc[i][j + e]);
+    }
+  }
+}
+
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+int launch_f32(const float* x, const float* w, void* out, int out_bf16, int M, int N,
+               int K, int vec, cudaStream_t stream) {
+  using T = F32Tile<BM, BN, TM, TN, BK, STAGES>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(mm_f32_async_kernel<BM, BN, TM, TN, BK, STAGES>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  mm_f32_async_kernel<BM, BN, TM, TN, BK, STAGES><<<grid, T::THREADS, T::SMEM, stream>>>(
+      x, w, out, out_bf16, M, N, K, vec);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -283,7 +445,8 @@ mm_bf16_kernel(const unsigned short* __restrict__ x, const unsigned short* __res
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 int launch(const void* x, const void* wg, const void* wu, void* out, int dtype,
-           int out_bf16, int M, int N, int K, int act, bool gated, cudaStream_t stream) {
+           int out_bf16, int M, int N, int K, int act, int tile, bool gated,
+           cudaStream_t stream) {
   if (dtype == 0) {
     const float* xf = static_cast<const float*>(x);
     const float* gf = static_cast<const float*>(wg);
@@ -292,12 +455,19 @@ int launch(const void* x, const void* wg, const void* wu, void* out, int dtype,
       dim3 grid((N + 63) / 64, (M + 127) / 128);
       mm_f32_kernel<4, true><<<grid, THREADS, 0, stream>>>(xf, gf, uf, out, out_bf16, M, N,
                                                            K, act);
-    } else {
-      dim3 grid((N + 127) / 128, (M + 127) / 128);
-      mm_f32_kernel<8, false><<<grid, THREADS, 0, stream>>>(xf, gf, gf, out, out_bf16, M, N,
-                                                            K, act);
+      return (int)cudaGetLastError();
     }
-    return (int)cudaGetLastError();
+    // The tile, chosen by the caller from the shape (F32_TILES in
+    // kernels/relic_matmul.py, in this order).
+    const int vec = K % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(wg) &&
+                    aligned16(out);
+    switch (tile) {
+      case 0: return launch_f32<128, 128, 8, 8, 16, 3>(xf, gf, out, out_bf16, M, N, K, vec, stream);
+      case 1: return launch_f32<64, 128, 4, 8, 32, 3>(xf, gf, out, out_bf16, M, N, K, vec, stream);
+      case 2: return launch_f32<32, 32, 2, 4, 64, 3>(xf, gf, out, out_bf16, M, N, K, vec, stream);
+      case 3: return launch_f32<16, 32, 1, 4, 64, 3>(xf, gf, out, out_bf16, M, N, K, vec, stream);
+      default: return -2;
+    }
   }
   if (dtype == 1) {
     const unsigned short* xb = static_cast<const unsigned short*>(x);
@@ -322,10 +492,13 @@ int launch(const void* x, const void* wg, const void* wu, void* out, int dtype,
 }  // namespace
 
 // dtype (of x and w): 0 = float32, 1 = bfloat16; out_bf16: the output is
-// bfloat16 (else float32). All tensors contiguous and row-major.
+// bfloat16 (else float32); tile: the f32 tile (0: 128 x 128, 1: 64 x 64,
+// 2: 32 x 32, 3: 16 x 32; -2 for another), unused for bf16. All tensors
+// contiguous and row-major.
 extern "C" int relic_matmul_forward(const void* x, const void* w, void* out, int dtype,
-                                    int out_bf16, int M, int N, int K, void* stream) {
-  return launch(x, w, w, out, dtype, out_bf16, M, N, K, 0, false,
+                                    int out_bf16, int M, int N, int K, int tile,
+                                    void* stream) {
+  return launch(x, w, w, out, dtype, out_bf16, M, N, K, 0, tile, false,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -334,6 +507,6 @@ extern "C" int relic_matmul_gated_forward(const void* x, const void* w_gate,
                                           const void* w_up, void* out, int dtype,
                                           int out_bf16, int M, int N, int K, int act,
                                           void* stream) {
-  return launch(x, w_gate, w_up, out, dtype, out_bf16, M, N, K, act, true,
+  return launch(x, w_gate, w_up, out, dtype, out_bf16, M, N, K, act, 0, true,
                 static_cast<cudaStream_t>(stream));
 }

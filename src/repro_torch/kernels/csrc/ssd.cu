@@ -11,27 +11,56 @@
 // whole [C, C] difference and hides the overflow above the diagonal with a
 // select, which a mask applied by multiplying would turn into NaN.
 //
-// Design (simple and right first): one CTA per (b, h), 256 threads, the
-// chunk axis a loop inside the CTA with the [P, N] f32 state in shared
-// memory (16 KB at P = N = 64), stored transposed ([N][P]). C and B are
-// stored transposed ([N][C + 4], t contiguous) and the masked weights as
-// W^T ([s][t]), so every product is a loop of 4x4 register tiles fed by
-// float4 reads. A ragged last chunk is zero-padded: a = 0 there keeps la at
-// its last valid value, and x = b = 0 adds nothing to the state.
+// Two designs; kernels/ssd.py chooses by a predicate on the inputs
+// (tc_eligible): the tensor-core design for f32 with P = N = 64 (every call
+// of zamba2), the first design for everything else.
 //
-// What bounds it: the four f32 products per chunk (C B^T, W @ x, C @
-// state^T, the state update), on the CUDA cores; the operations bound at
-// the model's shapes. Each CTA recomputes C B^T, which the heads of one
-// batch row share. Moving the products to wgmma and sharing C B^T across
-// heads is later work. See PERF.md for measured times.
+// What bounds it: the four products per chunk (C B^T, W @ x, C @ state^T,
+// the state update); the operations bound at the model's shapes.
 //
-// C interface (bound with ctypes): ssd_forward returns cudaGetLastError()
-// after the launch, -1 for a dtype it has no instance for, -2 for a shape
-// it does not take. The chunk length is a runtime argument.
+// The tensor-core design (namespace tc):
+//  - A CTA is one batch row and a group of HG = 2 heads, four warps per
+//    head. C B^T is computed once per chunk for the group (the heads share
+//    B and C) into shared memory, and each head applies its own decay mask
+//    to it as it reads it.
+//  - The chunk axis is a loop inside the CTA, over chunks of L = 32 steps of
+//    its own (the function does not depend on the chunk length, so the
+//    `chunk` argument selects nothing here; the inter-chunk products cost
+//    the same per step at any length, and the short chunk halves the
+//    intra-chunk work and the shared memory of the long one). The next
+//    chunk's C, B, x and a load by cp.async into a second buffer while this
+//    chunk computes; the cumulative sum of a is a warp-wide shuffle scan.
+//  - Each warp owns 16 of the head's 64 columns of P: its rows of the [P, N]
+//    state stay in registers in f32 for the whole sequence, in the layout
+//    in which the state update's mma leaves them and C @ state^T's mma reads
+//    them, so the state never goes through shared memory.
+//  - The products run on the tensor cores as mma.sync.m16n8k8 in 3xTF32:
+//    every f32 operand is split into a TF32 high part and a TF32 remainder,
+//    and hi*hi + hi*lo + lo*hi are summed in f32 (a few parts in 10^6 per
+//    product; the path is held at 1e-3, and single-pass TF32 is never
+//    used).
+//  - 79,616 bytes of shared memory and at most 128 registers a thread, so
+//    two CTAs fit an SM.
+//
+// The first design (one CTA per (b, h), 256 threads, any P and N that are
+// multiples of 4, f32 or bf16 x): the chunk axis a loop inside the CTA with
+// the [P, N] f32 state in shared memory (16 KB at P = N = 64), stored
+// transposed ([N][P]). C and B are stored transposed ([N][C + 4], t
+// contiguous) and the masked weights as W^T ([s][t]), so every product is a
+// loop of 4x4 register tiles fed by float4 reads on the CUDA cores. A
+// ragged last chunk is zero-padded: a = 0 there keeps la at its last valid
+// value, and x = b = 0 adds nothing to the state; the tensor-core design
+// pads the same way. See PERF.md for measured times.
+//
+// C interface (bound with ctypes): ssd_forward (the first design) and
+// ssd_tc_forward return cudaGetLastError() after the launch, -1 for a dtype
+// there is no instance for, -2 for a shape they do not take. ssd_forward
+// takes the chunk length as a runtime argument.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -259,6 +288,325 @@ int launch(const void* x, const float* a, const float* b, const float* c, void* 
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The tensor-core design (P = N = 64, f32): heads share C B^T, the next
+// chunk loads while this one computes, 3xTF32 mma.sync for the products.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int L = 32;            // steps per chunk of the kernel's own loop
+constexpr int P = 64, N = 64;    // head size, state size
+constexpr int HG = 2;            // heads per CTA: they share C B^T
+constexpr int WARPS = 4 * HG;    // four warps per head, 16 columns of P each
+constexpr int THREADS = 32 * WARPS;
+constexpr int RS = 72;           // row stride (floats) of the C, B and x tiles
+constexpr int GS = L + 4;        // row stride of C B^T
+// One buffer of a chunk's inputs, in floats: C [L][RS], B [L][RS], x of
+// each head [L][RS], a of each head [L].
+constexpr int BUF = (2 + HG) * L * RS + HG * L;
+constexpr int SMEM_FLOATS = 2 * BUF /* double-buffered */ + L * GS /* C B^T */ +
+                            3 * HG * L /* la, exp(la_end - la), exp(la) */;
+constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS;
+constexpr int G_TILES = 6;       // the 16 x 8 tiles of C B^T on or below the diagonal
+
+static_assert(G_TILES <= WARPS - HG, "the scan warps are free of C B^T tiles");
+
+struct Strides {
+  long long xb, xh, xt;   // x [B, H, T, P], P contiguous
+  long long yb, yh, yt;   // y likewise
+  long long ab, ah, at;   // a [B, H, T]
+};
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
+                  "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
+                  "r"(in ? 4 : 0) : "memory");
+}
+
+// An f32 fragment of K values split into TF32 high parts and TF32
+// remainders: hi keeps the sign, exponent and top 10 mantissa bits of v,
+// lo = v - hi exactly, and the tensor core reads lo's top 19 bits as TF32,
+// so hi + lo is v to about 2^-20. Two instructions a value where rounding
+// hi with cvt.rna.tf32.f32 takes three (0.093 against 0.072 ms at zamba2's
+// served shape on an H100).
+template <int K>
+struct TF {
+  uint32_t hi[K], lo[K];
+};
+__device__ __forceinline__ void split_into(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+__device__ __forceinline__ TF<4> split4(float v0, float v1, float v2, float v3) {
+  TF<4> f;
+  split_into(v0, f.hi[0], f.lo[0]);
+  split_into(v1, f.hi[1], f.lo[1]);
+  split_into(v2, f.hi[2], f.lo[2]);
+  split_into(v3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ TF<2> split2(float v0, float v1) {
+  TF<2> f;
+  split_into(v0, f.hi[0], f.lo[0]);
+  split_into(v1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A B in 3xTF32, f32 sums: hi*hi into d, and lo*hi + hi*lo into c, a second
+// accumulator (a chain of its own, added to d at the end) or d itself. The
+// lo*lo term, below 2^-20 of the product, is dropped.
+__device__ __forceinline__ void mma3(float (&d)[4], float (&c)[4], const TF<4>& a,
+                                     const TF<2>& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// Fragments of mma.m16n8k8 (lane = 4g + t): A a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, col g), b1 (k t + 4, col g);
+// D d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1). Where a
+// product sums over n, the k slots t and t + 4 carry n = 8i + 2t and
+// 8i + 2t + 1 instead: the sum is the same, an operand read from shared
+// memory comes as one float2, and the state, held in registers in D's
+// layout, is B's fragment as it lies.
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_tc_kernel(const float* __restrict__ x, const float* __restrict__ a,
+              const float* __restrict__ bm, const float* __restrict__ cm,
+              float* __restrict__ y, Strides s, int H, int T) {
+  extern __shared__ __align__(16) float sm[];
+  float* G = sm + 2 * BUF;
+  float* LA = G + L * GS;        // [HG][L] inclusive cumulative sum of a
+  float* DEC = LA + HG * L;      // exp(la_end - la)
+  float* EL = DEC + HG * L;      // exp(la)
+
+  const int n_groups = (H + HG - 1) / HG;
+  const int bi = blockIdx.x / n_groups, h0 = blockIdx.x % n_groups * HG;
+  const int heads = min(HG, H - h0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int j = warp / 4;              // this warp's head in the group
+  const int w = warp % 4;              // ... and its 16 columns of P
+  const bool active = j < heads;
+  const int n_chunks = (T + L - 1) / L;
+
+  // Chunk ch's C, B, x and a into buffer ch % 2; steps past T and absent
+  // heads read zeros.
+  auto issue = [&](int ch) {
+    float* buf = sm + (ch & 1) * BUF;
+    const int t0 = ch * L;
+    for (int q = tid; q < 2 * L * 16; q += THREADS) {
+      const int which = q / (L * 16), r = q / 16 % L, c4 = q % 16;
+      const float* src = which ? bm : cm;
+      const bool in = t0 + r < T;
+      cp16(buf + which * L * RS + r * RS + 4 * c4,
+           in ? src + ((long long)bi * T + t0 + r) * N + 4 * c4 : src, in);
+    }
+    for (int q = tid; q < HG * L * 16; q += THREADS) {
+      const int jj = q / (L * 16), r = q / 16 % L, c4 = q % 16;
+      const bool in = jj < heads && t0 + r < T;
+      cp16(buf + (2 + jj) * L * RS + r * RS + 4 * c4,
+           in ? x + bi * s.xb + (h0 + jj) * s.xh + (t0 + r) * s.xt + 4 * c4 : x, in);
+    }
+    for (int q = tid; q < HG * L; q += THREADS) {
+      const int jj = q / L, r = q % L;
+      const bool in = jj < heads && t0 + r < T;
+      cp4(buf + (2 + HG) * L * RS + jj * L + r,
+          in ? a + bi * s.ab + (h0 + jj) * s.ah + (t0 + r) * s.at : a, in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // This warp's rows of the state, [16 of P] x [N], in D's layout: tile i
+  // holds columns 8i .. 8i + 7 of N. f32 throughout.
+  float st[N / 8][4];
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[i][e] = 0.f;
+
+  issue(0);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int t0 = ch * L, nvalid = min(L, T - t0);
+    if (ch + 1 < n_chunks)
+      issue(ch + 1);   // in flight while this chunk computes
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");   // chunk ch has landed
+    __syncthreads();
+    const float* buf = sm + (ch & 1) * BUF;
+    const float* Cs = buf;
+    const float* Bs = buf + L * RS;
+    const float* As = buf + (2 + HG) * L * RS;
+
+    // ---- C B^T once for the group's heads: tile (m, jt) is rows 16m ..,
+    // columns 8jt .. of G[t][s] = sum_n C[t][n] B[s][n].
+    if (warp < G_TILES) {
+      const int m = warp < 2 ? 0 : 1, jt = warp < 2 ? warp : warp - 2;
+      float d[4] = {0.f, 0.f, 0.f, 0.f}, dc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < N / 8; ++k) {
+        const float2 c0 = *reinterpret_cast<const float2*>(Cs + (16 * m + g) * RS + 8 * k + 2 * t);
+        const float2 c1 = *reinterpret_cast<const float2*>(Cs + (16 * m + g + 8) * RS + 8 * k + 2 * t);
+        const float2 bb = *reinterpret_cast<const float2*>(Bs + (8 * jt + g) * RS + 8 * k + 2 * t);
+        mma3(d, dc, split4(c0.x, c1.x, c0.y, c1.y), split2(bb.x, bb.y));
+      }
+      *reinterpret_cast<float2*>(G + (16 * m + g) * GS + 8 * jt + 2 * t) =
+          make_float2(d[0] + dc[0], d[1] + dc[1]);
+      *reinterpret_cast<float2*>(G + (16 * m + g + 8) * GS + 8 * jt + 2 * t) =
+          make_float2(d[2] + dc[2], d[3] + dc[3]);
+    } else if (warp >= WARPS - HG) {
+      // The inclusive cumulative sum of a over the chunk, one warp per head
+      // (zeros past T keep la at its last value).
+      const int jj = WARPS - 1 - warp;
+      const float v = As[jj * L + lane];
+      float incl = v;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += o;
+      }
+      const float end = __shfl_sync(0xffffffffu, incl, 31);
+      LA[jj * L + lane] = incl;
+      DEC[jj * L + lane] = __expf(end - incl);   // exponent <= 0
+      EL[jj * L + lane] = __expf(incl);          // exponent <= 0
+    }
+    __syncthreads();
+
+    if (active) {
+      const float* Xs = buf + (2 + j) * L * RS;
+      const float* la = LA + j * L;
+      const float* el = EL + j * L;
+      const float* dec = DEC + j * L;
+
+      // y = exp(la_t) (C @ state^T): rows t in strips m of 16, columns p in
+      // tiles q of 8 (p = 16w + 8q ..), summed over n.
+      // acc holds the hi*hi terms, accc the corrections (two chains).
+      float acc[2][2][4], accc[2][2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][q][e] = accc[m][q][e] = 0.f;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i) {
+        const TF<2> sb0 = split2(st[i][0], st[i][1]), sb1 = split2(st[i][2], st[i][3]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const float2 c0 = *reinterpret_cast<const float2*>(Cs + (16 * m + g) * RS + 8 * i + 2 * t);
+          const float2 c1 = *reinterpret_cast<const float2*>(Cs + (16 * m + g + 8) * RS + 8 * i + 2 * t);
+          const TF<4> af = split4(c0.x, c1.x, c0.y, c1.y);
+          mma3(acc[m][0], accc[m][0], af, sb0);
+          mma3(acc[m][1], accc[m][1], af, sb1);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float e0 = el[16 * m + g], e1 = el[16 * m + g + 8];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[m][q][e] *= e < 2 ? e0 : e1;
+            accc[m][q][e] *= e < 2 ? e0 : e1;
+          }
+        }
+      }
+
+      // y += W @ x, W[t][s] = G[t][s] exp(la_t - la_s) for s <= t, else 0;
+      // the exponent is taken only for s <= t, where it is <= 0 (and clamped
+      // at 0 besides), so no overflow reaches a select or a product.
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r0 = 16 * m + g, r1 = r0 + 8;
+        const float la0 = la[r0], la1 = la[r1];
+#pragma unroll
+        for (int kk = 0; kk < 2 * m + 2; ++kk) {
+          const int s0 = 8 * kk + t, s1 = s0 + 4;
+          const float ls0 = la[s0], ls1 = la[s1];
+          const TF<4> af = split4(
+              s0 <= r0 ? G[r0 * GS + s0] * __expf(fminf(la0 - ls0, 0.f)) : 0.f,
+              s0 <= r1 ? G[r1 * GS + s0] * __expf(fminf(la1 - ls0, 0.f)) : 0.f,
+              s1 <= r0 ? G[r0 * GS + s1] * __expf(fminf(la0 - ls1, 0.f)) : 0.f,
+              s1 <= r1 ? G[r1 * GS + s1] * __expf(fminf(la1 - ls1, 0.f)) : 0.f);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int p = 16 * w + 8 * q + g;
+            mma3(acc[m][q], accc[m][q], af, split2(Xs[s0 * RS + p], Xs[s1 * RS + p]));
+          }
+        }
+      }
+
+      const int h = h0 + j;
+      float* yb = y + bi * s.yb + h * s.yh;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = 16 * m + g + 8 * half;
+          if (row >= nvalid) continue;
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            *reinterpret_cast<float2*>(yb + (t0 + row) * s.yt + 16 * w + 8 * q + 2 * t) =
+                make_float2(acc[m][q][2 * half] + accc[m][q][2 * half],
+                            acc[m][q][2 * half + 1] + accc[m][q][2 * half + 1]);
+        }
+
+      // state <- state exp(la_end) + (x exp(la_end - la))^T @ B: rows p of
+      // this warp's 16, columns n in tiles i, summed over the chunk's steps.
+      const float eend = el[L - 1];
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[i][e] *= eend;
+#pragma unroll
+      for (int k = 0; k < L / 8; ++k) {
+        const int s0 = 8 * k + t, s1 = s0 + 4;
+        const float d0 = dec[s0], d1 = dec[s1];
+        const int p = 16 * w + g;
+        const TF<4> af = split4(Xs[s0 * RS + p] * d0, Xs[s0 * RS + p + 8] * d0,
+                                Xs[s1 * RS + p] * d1, Xs[s1 * RS + p + 8] * d1);
+#pragma unroll
+        for (int i = 0; i < N / 8; ++i)
+          mma3(st[i], st[i], af, split2(Bs[s0 * RS + 8 * i + g], Bs[s1 * RS + 8 * i + g]));
+      }
+    }
+    __syncthreads();   // this chunk's buffer and C B^T are consumed
+  }
+}
+
+int launch(const float* x, const float* a, const float* b, const float* c, float* y,
+           const long long* strides, int B, int H, int T, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const Strides s{strides[0], strides[1], strides[2], strides[3], strides[4],
+                  strides[5], strides[6], strides[7], strides[8]};
+  ssd_tc_kernel<<<B * ((H + HG - 1) / HG), THREADS, SMEM_BYTES, stream>>>(x, a, b, c, y,
+                                                                         s, H, T);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 // dtype of x and y: 0 = float32, 1 = bfloat16; a, b and c are float32. All
 // tensors contiguous: x/y [B, H, T, P], a [B, H, T], b/c [B, T, N].
 extern "C" int ssd_forward(const void* x, const void* a, const void* b,
@@ -274,4 +622,20 @@ extern "C" int ssd_forward(const void* x, const void* a, const void* b,
   if (dtype == 0) return launch<float>(x, af, bf, cf, y, B, H, T, P, N, chunk, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, af, bf, cf, y, B, H, T, P, N, chunk, s);
   return -1;
+}
+
+// The tensor-core design: x and y f32 with P = 64, a, b, c f32 with N = 64;
+// b and c contiguous [B, T, N]; strides (in elements) of x (b, h, t), y
+// (b, h, t) and a (b, h, t); P contiguous in x and y, their other strides
+// multiples of 4 and their bases 16-byte aligned (kernels/ssd.py checks
+// this). Returns cudaGetLastError() after the launch, -2 for a shape it
+// does not take.
+extern "C" int ssd_tc_forward(const void* x, const void* a, const void* b, const void* c,
+                              void* y, const long long* strides, int B, int H, int T,
+                              int P, int N, void* stream) {
+  if (P != tc::P || N != tc::N || B <= 0 || H <= 0 || T <= 0) return -2;
+  return tc::launch(static_cast<const float*>(x), static_cast<const float*>(a),
+                    static_cast<const float*>(b), static_cast<const float*>(c),
+                    static_cast<float*>(y), strides, B, H, T,
+                    static_cast<cudaStream_t>(stream));
 }

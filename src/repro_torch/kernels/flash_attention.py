@@ -102,15 +102,6 @@ def tma_geometry(t: torch.Tensor) -> list[int]:
                           for n, st in ((h, sh), (s, ss), (b, sb)))]
 
 
-def _entry(source: str, name: str, argtypes):
-    """The C entry ``name`` of ``csrc/<source>.cu``, built and typed once."""
-    fn = getattr(_build.load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch_wgmma(q, k, v, causal):
     global launches, wgmma_launches
     out = torch.empty_like(q)
@@ -118,11 +109,11 @@ def _launch_wgmma(q, k, v, causal):
     hkv, sk = k.shape[1], k.shape[2]
     geom = (ctypes.c_int64 * 28)(*tma_geometry(q), *tma_geometry(k),
                                  *tma_geometry(v), *tma_geometry(out))
-    fn = _entry("flash_attention_wgmma", "fa_wgmma_forward",
+    fn = _build.entry("flash_attention_wgmma", "fa_wgmma_forward",
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _build.on_device(q):
+        stream = _build.stream(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  ctypes.addressof(geom), b, h, hkv, sq, sk, d ** -0.5,
                  int(causal), stream)
@@ -151,11 +142,11 @@ def _launch_fma(q, k, v, causal):
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    fn = _entry("flash_attention", "fa_forward", [ctypes.c_void_p] * 4
+    fn = _build.entry("flash_attention", "fa_forward", [ctypes.c_void_p] * 4
                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                         ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _build.on_device(q):
+        stream = _build.stream(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _DTYPES[q.dtype], b, h, hkv, sq, sk, d, d ** -0.5,
                  int(causal), stream)

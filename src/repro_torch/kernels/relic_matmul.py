@@ -12,22 +12,32 @@ On the H100 the function is bound by operations at relic_tiny's MLP shape:
 read once, the output written once), 0.0065 ms on the tensor cores at 989
 TFLOP/s against 0.0044 ms at 3.35 TB/s; the gated form does twice the
 operations (0.013 ms) against 17.8 MB. In f32 the same product takes at
-least 0.096 ms on the CUDA cores (67 TFLOP/s). The kernels in
-``csrc/relic_matmul.cu`` keep the TPU kernels' f32 accumulator tile (here in
-registers, one CTA per output tile, K a loop inside it) and the gated
-kernel's flush, which applies the activation with no intermediate in device
-memory. bf16 runs on the tensor cores through ``mma.sync``; f32 is IEEE FMA
-on the CUDA cores, never TF32. TMA, a multi-stage ring and wgmma are later
-work.
+least 0.096 ms on the CUDA cores (67 TFLOP/s). Every kernel keeps the TPU
+kernels' f32 accumulator tile in registers, one output tile at a time with
+K a loop inside it, and masks ragged edges, so every shape launches.
+``relic_matmul`` has three designs, chosen by predicates on the inputs,
+never by a fallback on failure:
+
+- bf16 whose x and w a TMA map can describe (``wgmma_eligible``: contiguous,
+  16-byte aligned, K and N multiples of 8): ``csrc/relic_matmul_wgmma.cu``,
+  the paper's SPSC pipeline on Hopper: a TMA producer keeps a 4-stage
+  mbarrier ring full and two wgmma warpgroups consume it, persistent over
+  128 x 128 or 128 x 256 output tiles (``wgmma_tile_n``, by shape);
+- other bf16: ``csrc/relic_matmul.cu``'s ``mma.sync`` kernel;
+- f32: IEEE FMA on the CUDA cores, never TF32, in ``csrc/relic_matmul.cu``,
+  with a tile chosen by shape (``f32_tile``) so a small product still fills
+  the card, and a cp.async ring over K.
+
+``relic_matmul_gated`` runs ``csrc/relic_matmul.cu`` (``mma.sync`` in bf16,
+FMA in f32), which applies the activation at the flush with no
+intermediate in device memory.
 
 ``bm``/``bn``/``bk`` are the TPU kernel's VMEM block sizes. The wrappers take
 them so that call sites read as the reference's, and ignore them: the CUDA
-kernels tile by their own sizes (128 x 128, K by 32 in bf16 and 16 in f32;
-the gated form 128 x 64 per weight) and mask ragged edges, so every shape
-launches. The reference sends a shape its blocks do not tile to
-``ref.matmul_ref``, which computes the same function.
+kernels tile by their own sizes. The reference sends a shape its blocks do
+not tile to ``ref.matmul_ref``, which computes the same function.
 
-``relic_matmul`` / ``relic_matmul_gated`` launch the kernel for CUDA tensors
+``relic_matmul`` / ``relic_matmul_gated`` launch a kernel for CUDA tensors
 and take the plain versions (the oracles ``ref.matmul_ref`` /
 ``ref.matmul_gated_ref``) for CPU tensors.
 """
@@ -44,8 +54,13 @@ from repro_torch.kernels.ref import matmul_ref as relic_matmul_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {"silu": 1, "gelu": 2}   # any other name: the gate unactivated
+# The f32 tiles of csrc/relic_matmul.cu, largest first: (rows, columns).
+F32_TILES = ((128, 128), (64, 128), (32, 32), (16, 32))
+WGMMA_TILE_M = 128
+WGMMA_TILES_N = (256, 128)   # output columns per tile of the wgmma design
 
-launches = 0         # relic_matmul launches since the caller last set it to 0
+launches = 0         # relic_matmul launches (every design) since the caller last set it to 0
+wgmma_launches = 0   # of which the wgmma design's
 gated_launches = 0   # relic_matmul_gated launches, likewise
 
 
@@ -72,35 +87,97 @@ def _check(name, x, weights, out_dtype):
         raise ValueError(f"{name}: empty input")
 
 
-def _launch(entry, x, weights, out_dtype, *extra):
-    """Call a C entry of csrc/relic_matmul.cu on contiguous CUDA tensors."""
+def wgmma_eligible(x, w) -> bool:
+    """The dispatch predicate of ``relic_matmul_cuda``: bf16 that a TMA map
+    can describe (both contiguous, bases 16-byte aligned, K and N multiples
+    of 8 so that every row stride is a multiple of 16 bytes) goes to the
+    wgmma design; everything else to the ``mma.sync`` or f32 kernel."""
+    return (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+            and x.shape[1] % 8 == 0 and w.shape[1] % 8 == 0
+            and x.is_contiguous() and w.is_contiguous()
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgmma_tile_n(m: int, n: int, n_sm: int) -> int:
+    """Output columns per tile of the wgmma design for an [m, n] output on
+    ``n_sm`` SMs: the width that needs the fewest rounds of the persistent
+    CTAs, each round weighted by its tile's width (its time), the wider on
+    a tie (so a product of one round takes the narrower tile, which computes
+    fewer padded columns). relic_tiny's down product [2048, 768] gets 128 (96 tiles, one
+    round) where 256 would leave 84 of 132 SMs idle."""
+    def cost(bn):
+        return _ceil(_ceil(m, WGMMA_TILE_M) * _ceil(n, bn), n_sm) * bn
+    return min(WGMMA_TILES_N, key=cost)   # min keeps the first (widest) on a tie
+
+
+def f32_tile(m: int, n: int, n_sm: int) -> int:
+    """Index into ``F32_TILES`` for an [m, n] f32 output on ``n_sm`` SMs: the
+    largest tile that still gives every SM a CTA, else the smallest, so a
+    small product spreads over as many SMs as the tiles allow."""
+    for i, (bm, bn) in enumerate(F32_TILES):
+        if _ceil(m, bm) * _ceil(n, bn) >= n_sm:
+            return i
+    return len(F32_TILES) - 1
+
+
+_N_SM: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device, read once."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _N_SM[idx]
+
+
+def _launch(source, entry, argtypes, x, weights, out_dtype, *ints):
+    """Call a C entry on contiguous CUDA tensors (the caller's, or copies):
+    the pointers of x, the weights and a new [M, N] output in ``out_dtype``,
+    then ``ints`` and the stream."""
     if not (x.is_cuda and all(t.is_cuda for t in weights)):
         raise ValueError(f"{entry} takes CUDA tensors")
-    x = x.contiguous()
-    weights = [t.contiguous() for t in weights]
-    m, k = x.shape
-    n = weights[0].shape[1]
-    out_dtype = out_dtype or x.dtype
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    fn = getattr(_build.load("relic_matmul"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * (len(weights) + 2)
-                   + [ctypes.c_int] * (5 + len(extra)) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    if not (x.is_contiguous() and all(t.is_contiguous() for t in weights)):
+        x = x.contiguous()
+        weights = [t.contiguous() for t in weights]
+    out = torch.empty((x.shape[0], weights[0].shape[1]), dtype=out_dtype,
+                      device=x.device)
+    fn = _build.entry(source, entry, argtypes)
+    with _build.on_device(x):
         err = fn(x.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
-                 _DTYPES[x.dtype], int(out_dtype == torch.bfloat16), m, n, k,
-                 *extra, stream)
+                 *ints, _build.stream(x))
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed (error {err})")
     return out
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
 def relic_matmul_cuda(x, y, *, out_dtype=None):
-    """Launch the CUDA kernel: x [M,K] @ y [K,N] on the card."""
-    global launches
+    """Launch a CUDA kernel: x [M,K] @ y [K,N] on the card; the wgmma design
+    where ``wgmma_eligible`` holds, else the ``mma.sync`` (bf16) or the
+    FMA (f32) kernel."""
+    global launches, wgmma_launches
     _check("relic_matmul", x, [y], out_dtype)
-    out = _launch("relic_matmul_forward", x, [y], out_dtype)
+    if not (x.is_cuda and y.is_cuda):
+        raise ValueError("relic_matmul_cuda takes CUDA tensors")
+    (m, k), n = x.shape, y.shape[1]
+    od = out_dtype or x.dtype
+    n_sm = sm_count(x.device)
+    if wgmma_eligible(x, y):
+        out = _launch("relic_matmul_wgmma", "relic_matmul_wgmma_forward",
+                      [_P] * 3 + [_I] * 5 + [_P], x, [y], od,
+                      int(od == torch.bfloat16), m, n, k, wgmma_tile_n(m, n, n_sm))
+        wgmma_launches += 1
+    else:
+        out = _launch("relic_matmul", "relic_matmul_forward",
+                      [_P] * 3 + [_I] * 6 + [_P], x, [y], od, _DTYPES[x.dtype],
+                      int(od == torch.bfloat16), m, n, k, f32_tile(m, n, n_sm))
     launches += 1
     return out
 
@@ -109,7 +186,11 @@ def relic_matmul_gated_cuda(x, w_gate, w_up, *, act="silu", out_dtype=None):
     """Launch the CUDA kernel: act(x @ w_gate) * (x @ w_up) on the card."""
     global gated_launches
     _check("relic_matmul_gated", x, [w_gate, w_up], out_dtype)
-    out = _launch("relic_matmul_gated_forward", x, [w_gate, w_up], out_dtype,
+    (m, k), n = x.shape, w_gate.shape[1]
+    od = out_dtype or x.dtype
+    out = _launch("relic_matmul", "relic_matmul_gated_forward",
+                  [_P] * 4 + [_I] * 6 + [_P], x, [w_gate, w_up], od,
+                  _DTYPES[x.dtype], int(od == torch.bfloat16), m, n, k,
                   ACTS.get(act, 0))
     gated_launches += 1
     return out

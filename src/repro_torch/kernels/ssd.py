@@ -7,16 +7,26 @@ model's [B, T, H, ...]).
 
 On the H100 this function is bound by operations at the model's shapes: at
 B=8, H=64, T=256, P=N=64 in f32 it needs about 4 GFLOP against 69 MB of
-input and output. The kernel in ``csrc/ssd.cu`` keeps the TPU kernel's
-chunked form: the [P, N] state lives on chip for the whole sequence (in
-shared memory, one CTA per (b, h), the chunk axis a loop inside the CTA),
-and the decay ``exp(la_t - la_s)`` is taken only for s <= t, where its
-exponent is <= 0 (the TPU kernel exponentiates the whole [C, C] difference
-and hides the overflow with a select). Its math is f32 on the CUDA cores;
-moving the products to wgmma is later work. A ragged last chunk is masked
-in the kernel, so every T launches.
+input and output. Both kernels in ``csrc/ssd.cu`` keep the TPU kernel's
+chunked form: the [P, N] state lives on chip for the whole sequence, the
+chunk axis is a loop inside the CTA, and the decay ``exp(la_t - la_s)`` is
+taken only for s <= t, where its exponent is <= 0 (the TPU kernel
+exponentiates the whole [C, C] difference and hides the overflow with a
+select). Two designs, chosen by a predicate on the inputs
+(``tc_eligible``), never by a fallback on failure:
 
-``ssd_bhtp`` launches the kernel for a CUDA tensor and takes the plain
+- f32 with P = N = 64 (every call of zamba2): the tensor-core design. One
+  CTA per batch row and pair of heads computes each chunk's C·Bᵀ once for
+  both; the next chunk loads by cp.async while this one computes; the
+  products run on the tensor cores in 3xTF32 (``mma.sync``), with the state
+  in f32 registers. It reads x, a and y in the caller's layout (the model's
+  [B, T, H, ...] as handed over by ``ops.ssd``), with no copy;
+- everything else (bf16 x, other P and N): the first design, one CTA per
+  (b, h), f32 on the CUDA cores, over contiguous copies.
+
+A ragged last chunk is masked in both, so every T launches.
+
+``ssd_bhtp`` launches a kernel for a CUDA tensor and takes the plain
 version, ``ssd_plain`` (the oracle ``ref.ssd_ref``), for a CPU tensor.
 """
 
@@ -30,8 +40,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_ref as ssd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_P = TC_N = 64   # the head and state size of the tensor-core design
 
-launches = 0   # kernel launches since the caller last set this to 0
+launches = 0      # kernel launches (both designs) since the caller last set this to 0
+tc_launches = 0   # of which the tensor-core design's
 
 
 def _check(x, a, b, c):
@@ -53,34 +65,86 @@ def _check(x, a, b, c):
         raise ValueError("empty ssd input")
 
 
-def ssd_cuda(x, a, b, c, *, chunk: int = 128):
-    """Launch the CUDA kernel; all tensors on the card."""
+def tc_eligible(x, b) -> bool:
+    """The dispatch predicate of ``ssd_cuda``: f32 x with P = 64 and a
+    state size of 64 goes to the tensor-core design; everything else to the
+    first design. (a, b and c are f32 by then: the wrapper casts them.)"""
+    return (x.dtype == torch.float32 and x.shape[3] == TC_P
+            and b.shape[2] == TC_N)
+
+
+def cp_async_rows(t: torch.Tensor) -> bool:
+    """Whether the tensor-core design can read ``t`` [B, H, T, P] as it
+    lies: P contiguous, every other stride a multiple of 4 elements (16
+    bytes), the base 16-byte aligned."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 4 == 0 for st in t.stride()[:3]))
+
+
+def tc_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the tensor-core design can read it as it lies (x: see
+    ``cp_async_rows``; b and c: contiguous with a 16-byte aligned base),
+    else a dense copy, which is."""
+    readable = (cp_async_rows(t) if t.dim() == 4
+                else t.is_contiguous() and t.data_ptr() % 16 == 0)
+    return t if readable else t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch_tc(x, a, b, c):
+    global launches, tc_launches
+    x, b, c = tc_layout(x), tc_layout(b), tc_layout(c)
+    out = torch.empty_like(x)   # x's layout when x is dense, else contiguous
+    bb, h, t, p = x.shape
+    strides = (ctypes.c_longlong * 9)(*x.stride()[:3], *out.stride()[:3],
+                                      *a.stride())
+    fn = _build.entry("ssd", "ssd_tc_forward", [ctypes.c_void_p] * 6
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with _build.on_device(x):
+        err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                 out.data_ptr(), ctypes.addressof(strides), bb, h, t, p,
+                 b.shape[2], _build.stream(x))
+    if err != 0:
+        raise RuntimeError(f"ssd (tensor-core design) launch failed (error {err})")
+    launches += 1
+    tc_launches += 1
+    return out
+
+
+def _launch_first(x, a, b, c, chunk):
     global launches
-    if not all(t.is_cuda for t in (x, a, b, c)):
-        raise ValueError("ssd_cuda takes CUDA tensors")
-    _check(x, a, b, c)
-    if chunk <= 0:
-        raise ValueError(f"chunk {chunk} must be positive")
     x = x.contiguous()
-    a, b, c = (t.float().contiguous() for t in (a, b, c))
+    a, b, c = a.contiguous(), b.contiguous(), c.contiguous()
     bb, h, t, p = x.shape
     out = torch.empty_like(x)
-    fn = _build.load("ssd").ssd_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _build.entry("ssd", "ssd_forward", [ctypes.c_void_p] * 5
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    with _build.on_device(x):
         err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                  out.data_ptr(), _DTYPES[x.dtype], bb, h, t, p, b.shape[2],
-                 chunk, stream)
+                 chunk, _build.stream(x))
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed (error {err})")
     launches += 1
     return out
 
 
+def ssd_cuda(x, a, b, c, *, chunk: int = 128):
+    """Launch a CUDA kernel; all tensors on the card. The tensor-core design
+    where ``tc_eligible`` holds (its chunk is its own), else the first
+    design at ``chunk``."""
+    if not all(t.is_cuda for t in (x, a, b, c)):
+        raise ValueError("ssd_cuda takes CUDA tensors")
+    _check(x, a, b, c)
+    if chunk <= 0:
+        raise ValueError(f"chunk {chunk} must be positive")
+    a, b, c = a.float(), b.float(), c.float()
+    if tc_eligible(x, b):
+        return _launch_tc(x, a, b, c)
+    return _launch_first(x, a, b, c, chunk)
+
+
 def ssd_bhtp(x, a, b, c, *, chunk: int = 128):
-    """x [B,H,T,P] -> [B,H,T,P] in x's dtype: the kernel for a CUDA tensor,
+    """x [B,H,T,P] -> [B,H,T,P] in x's dtype: a kernel for a CUDA tensor,
     the plain version for a CPU tensor."""
     if x.is_cuda:
         return ssd_cuda(x, a, b, c, chunk=chunk)

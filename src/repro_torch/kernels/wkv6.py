@@ -63,14 +63,12 @@ def wkv6_cuda(r, k, v, logw, u, *, chunk: int = 64):
     u = u.float().contiguous()
     b, h, t, kk = r.shape
     out = torch.empty_like(r)
-    fn = _build.load("wkv6").wkv6_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
+    fn = _build.entry("wkv6", "wkv6_forward", [ctypes.c_void_p] * 6
+                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    with _build.on_device(r):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
                  u.data_ptr(), out.data_ptr(), _DTYPES[r.dtype], b, h, t, kk,
-                 chunk, stream)
+                 chunk, _build.stream(r))
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed (error {err})")
     launches += 1
