@@ -22,9 +22,17 @@ Phases (any failure exits non-zero):
      ``rm.f32_tile``): the wgmma one (bf16 that TMA can describe) is held
      on the test shapes and ragged ones, and one call at 4096^3 must run
      one device kernel; ragged K goes to the mma.sync kernel; f32 to the
-     FMA kernel with a tile by shape. ssd has two (``ssd_k.tc_eligible``):
-     the tensor-core one (f32, P = N = 64) at ragged T and odd H, the first
-     one at the small test shapes and in bf16. Device times come from the
+     FMA kernel with a tile by shape. The gated form takes the same
+     predicate: bf16 on the wgmma ring with two accumulators (silu, gelu
+     and an unknown name at relic_tiny's MLP shape, one device kernel a
+     call), the rest on relic_matmul.cu's kernels. ssd has two
+     (``ssd_k.tc_eligible``): the tensor-core one (f32, P = N = 64) at
+     ragged T and odd H, the first one at the small test shapes, in bf16
+     and at P = N = 6 (padded to 8). wkv6 has two (``wkv6_k.tc_eligible``):
+     the tensor-core one (K = 64) at ragged T, in the model's layout (one
+     device kernel, no copy), and the first one at K = 16, 32 and 6. The
+     CUDA-core flash kernel is held at head_dim 48, 96 and 256 (GQA, f32
+     and bf16), and head_dim 320 must raise. Device times come from the
      profiler beside the CUDA-event times;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve.main`` plus three more requests through one
@@ -33,7 +41,8 @@ Phases (any failure exits non-zero):
      ``use_kernels=True`` and check it against the plain forward and the
      served tokens;
   5. serve rwkv6_1p6b (24 layers, d_model 2048) and run its teacher-forced
-     forward through the wkv6 kernel, the same way;
+     forward through the wkv6 kernel (its tensor-core design), the same
+     way;
   6. serve zamba2_1p2b (38 Mamba-2 layers and 6 applications of the shared
      attention block, d_model 2048) and run its teacher-forced forward
      through the ssd and flash-attention kernels, the same way;
@@ -48,9 +57,9 @@ Phases (any failure exits non-zero):
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6 and 7 are the main paths: each starts with every kernel's
 launch count at 0 and its counts are read when it ends; every flash launch
-there and in phase 9 must go through the wgmma design and every ssd launch
-through the tensor-core one, and the quickstart's one relic_matmul launch
-through the f32 design; phase 8 must launch no kernel (training runs the
+there and in phase 9 must go through the wgmma design and every ssd and
+wkv6 launch through the tensor-core one, and the quickstart's one
+relic_matmul launch through the f32 design; phase 8 must launch no kernel (training runs the
 plain paths, as the reference's does).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -129,7 +138,15 @@ COUNTERS = {"flash_attention": (fa, "launches"), "wkv6": (wkv6_k, "launches"),
 # kernel's own count in COUNTERS.
 REDESIGNS = {"flash_attention": (fa, "wgmma_launches"),
              "relic_matmul": (rm, "wgmma_launches"),
-             "ssd": (ssd_k, "tc_launches")}
+             "relic_matmul_gated": (rm, "gated_wgmma_launches"),
+             "ssd": (ssd_k, "tc_launches"),
+             "wkv6": (wkv6_k, "tc_launches")}
+# Head sizes the CUDA-core flash kernel takes beyond the models' 64: the
+# next instance up (48) and instances of their own (96: phi3_mini; 256:
+# paligemma); (b, s, h, kv) GQA 4:1 at a ragged length, and the timed shape.
+FMA_HEAD_DIMS = (48, 96, 256)
+FMA_HEAD_SHAPE = (2, 200, 8, 2)
+FMA_HEAD_TIMED = (2, 1024, 8, 2)
 SOURCES = ["flash_attention", "flash_attention_wgmma", "relic_matmul",
            "relic_matmul_wgmma", "ssd", "wkv6"]   # csrc/<name>.cu
 # The recurrent kernels: f32 1e-3, bf16 rtol 2e-2 / atol 2e-1
@@ -138,7 +155,13 @@ REC_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}
 # wkv6 shapes (b, h, t, k, chunk): tests/test_kernels.py:75-79, a ragged
 # length, the served rwkv6_1p6b forward [8, 192] and a long one.
 WKV6_TEST_SHAPES = [(2, 2, 64, 16, 16), (1, 4, 128, 32, 32), (2, 2, 96, 16, 32),
-                    (2, 4, 96, 64, 64)]
+                    (2, 4, 96, 64, 64),
+                    # K = 64 (the tensor-core design) at T no multiple of
+                    # its chunk of 32 or of a sub-chunk, and K = 6 (the
+                    # first design, padded to 8)
+                    (1, 3, 45, 64, 64), (2, 2, 300, 64, 64), (2, 3, 7, 64, 64),
+                    (1, 2, 37, 6, 16)]
+WKV6_LAYOUT = (2, 3, 70, 64)   # (b, h, t, k) in the model's layout
 WKV6_SERVED = (SERVE_BATCH, 32, PROMPT_LEN + 64, 64, 64)
 WKV6_LONG = (4, 32, 2048, 64, 64)
 # ssd shapes (b, h, t, p, n, chunk): tests/test_kernels.py:97-100, a ragged
@@ -147,7 +170,9 @@ SSD_TEST_SHAPES = [(2, 2, 64, 16, 8, 16), (1, 4, 128, 32, 16, 32),
                    (2, 4, 200, 64, 64, 128),
                    # P = N = 64 (the tensor-core design) with H no multiple
                    # of its head group of 2 and T no multiple of a chunk
-                   (1, 3, 45, 64, 64, 32), (2, 5, 77, 64, 64, 128)]
+                   (1, 3, 45, 64, 64, 32), (2, 5, 77, 64, 64, 128),
+                   # P = N = 6: the first design on copies padded to 8
+                   (1, 2, 45, 6, 6, 32)]
 SSD_SERVED = (SERVE_BATCH, 64, PROMPT_LEN + 128, 64, 64, 128)
 SSD_LONG = (4, 64, 2048, 64, 64, 128)
 # The main paths: (arch, generated tokens, kernel launches of the path,
@@ -260,6 +285,32 @@ def wkv6_bound_ms(r, logw, u, chunk: int):
     nbytes = 4 * r.nbytes + logw.nbytes + u.nbytes
     ms, bound_by = _bound(flops, exps, nbytes)
     return ms, bound_by, flops, exps, nbytes
+
+
+def wkv6_tc_bound_ms(r, logw, u, chunk: int, sub: int = 16):
+    """Least time for wkv6 on these inputs in the tensor-core design's form:
+    per chunk of c steps, the pairwise decay only inside sub-chunks of
+    ``sub`` steps (4 operations and one exponential each pair and channel)
+    and the other strictly causal pairs as a product of factored operands
+    (one more exponential, scale and subtraction per operand element); the
+    products (the factored scores, scores @ v, r_dec @ state and the state
+    update) on the tensor cores in 3xTF32 (three TF32 products each, 495
+    TFLOP/s / 3), the rest of the work, exponentials included, at the f32
+    rate, as ``ssd_tc_bound_ms`` does; bytes as ``wkv6_bound_ms``. Returns
+    (ms, bound_by)."""
+    b, h, t, kk = r.shape
+    prods = rest = exps = 0
+    for c in _chunks(t, chunk):
+        diag = sum(n * (n - 1) // 2 for n in _chunks(c, sub))
+        off = c * (c - 1) // 2 - diag
+        prods += 2 * off * kk + c * (c + 1) * kk + 4 * c * kk * kk
+        rest += 4 * diag * kk + 3 * c * kk + 4 * c * kk + 2 * kk * kk + 3 * c * kk
+        exps += diag * kk + 2 * c * kk + kk + c * kk
+    prods, rest, exps = prods * b * h, rest * b * h, exps * b * h
+    nbytes = 4 * r.nbytes + logw.nbytes + u.nbytes
+    t_ops = prods / (PEAK_TF32 / 3) + (rest + exps) / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def _ssd_work(x, a, bmat, chunk: int):
@@ -455,6 +506,29 @@ def time_flash(label, q, k, v, iters):
                 bound_by=bound_by, tflops=tflops)
 
 
+def time_fma(q, k, v):
+    """The CUDA-core kernel at one causal shape beside the plain version,
+    SDPA (the library yardstick, kv heads repeated outside the timed call)
+    and the bound; returns the numbers as one dict."""
+    h, kv = q.shape[1], k.shape[1]
+    k_rep = torch.repeat_interleave(k, h // kv, dim=1)
+    v_rep = torch.repeat_interleave(v, h // kv, dim=1)
+    ms = time_ms(lambda: fa.flash_attention_fma(q, k, v, causal=True), 10)
+    device_ms = kernel_ms(lambda: fa.flash_attention_fma(q, k, v, causal=True), 10)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
+    library_ms = kernel_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_rep, v_rep, is_causal=True), 10)
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, True)
+    shape = f"q{list(q.shape)} kv{list(k.shape)} {str(q.dtype)[6:]} causal"
+    dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+    lib = "not measured" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"[kernel] CUDA-core flash {shape}: {ms:.4f} ms (device {dev}), "
+          f"plain {plain_ms:.4f} ms, sdpa device {lib}; bound {bound_ms:.4f} "
+          f"ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return dict(shape=shape, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernel(device):
     gen = torch.Generator().manual_seed(0)
     dtype = torch.bfloat16
@@ -484,6 +558,33 @@ def phase_kernel(device):
             "flash_attention_cuda"), f"flash_attention_cuda {dt} d{d}")
         _hold(f"flash_attention_cuda d{d}", got,
               fa.flash_attention_plain(q, k, v), TOL[dt], TOL[dt])
+
+    # Head sizes beyond the models' 64 run the CUDA-core kernel: 48 on the
+    # next instance up (columns zero-filled on chip), 96 and 256 on their
+    # own; above 256 the card raises and launches nothing.
+    head_dims = []
+    for d in FMA_HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = _qkv(gen, *FMA_HEAD_SHAPE, d, dt, device)
+                got = _launched("wgmma_launches", 0, lambda: _launched(
+                    "launches", 1, lambda: fa.flash_attention_cuda(
+                        q, k, v, causal=causal), "flash_attention_cuda"),
+                    f"flash_attention_cuda d{d}")
+                _hold(f"flash_attention_cuda q{list(q.shape)} kv{list(k.shape)} "
+                      f"causal={causal} (CUDA-core kernel)", got,
+                      fa.flash_attention_plain(q, k, v, causal=causal),
+                      TOL[dt], TOL[dt])
+        q, k, v = _qkv(gen, *FMA_HEAD_TIMED, d, dtype, device)
+        head_dims.append(time_fma(q, k, v))
+    q, k, v = _qkv(gen, 1, 64, 4, 2, 320, dtype, device)
+    try:
+        _launched("launches", 0, lambda: fa.flash_attention_cuda(q, k, v),
+                  "flash_attention_cuda d320")
+    except ValueError as e:
+        print(f"[kernel] flash_attention_cuda d320 raises: {e}")
+    else:
+        raise AssertionError("flash_attention_cuda took head_dim 320")
 
     # ops.flash_attention hands the model layout [B, S, H, D] to the wgmma
     # design as it is, at lengths no multiple of its tiles.
@@ -522,11 +623,12 @@ def phase_kernel(device):
                        "heaviest first; wgmma for both products (P from "
                        "registers); K/V by TMA into a 2-stage mbarrier ring "
                        "fed by one producer thread; 4-D tensor maps over the "
-                       "caller's strides; bf16 D=64. f32, D 16/32/128 and "
-                       "non-TMA layouts: "
+                       "caller's strides; bf16 D=64. f32, every other D up "
+                       "to 256 (instances 16/32/64/96/128/256, the next one "
+                       "up for any other) and non-TMA layouts: "
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
             "launches": None, "max_abs_err": max_err, **main,
-            "other_shapes": [teacher, zamba]}
+            "other_shapes": [teacher, zamba], "head_dims": head_dims}
 
 
 def _hold(name, got, want, rtol, atol):
@@ -629,6 +731,27 @@ def phase_recurrence(name, mod, replaces, make_inputs, bound, test_shapes,
             "library_ms": None, "long": timed["long"]}
 
 
+def phase_wkv6_layout(device):
+    """``ops.wkv6`` on the model's [B, T, H, K] layout, as rwkv6 calls it:
+    the tensor-core design reads and writes that layout as it lies, so one
+    call is exactly one device kernel (no copy, no cast), held against the
+    plain version."""
+    gen = torch.Generator().manual_seed(4)
+    b, h, t, kk = WKV6_LAYOUT
+    r, k, v, logw, u = _wkv6_inputs(gen, b, h, t, kk, torch.bfloat16, device)
+    model = [x.transpose(1, 2).contiguous() for x in (r, k, v, logw)]
+    before = wkv6_k.tc_launches
+    got = ops.wkv6(*model, u, chunk=64)
+    if wkv6_k.tc_launches - before != 1:
+        raise AssertionError("ops.wkv6 in the model layout did not take the "
+                             "tensor-core design")
+    _hold(f"ops.wkv6 model layout [{b}, {t}, {h}, {kk}]", got,
+          wkv6_k.wkv6_plain(r, k, v, logw, u).transpose(1, 2),
+          *REC_TOL[torch.bfloat16])
+    _one_kernel(lambda: ops.wkv6(*model, u, chunk=64),
+                f"ops.wkv6 at [{b}, {t}, {h}, {kk}] (model layout)", "wkv6_tc_kernel")
+
+
 def matmul_bound_ms(m, n, k, dtype, n_weights=1):
     """Least time for x [m, k] times ``n_weights`` weights [k, n] (the gated
     form has two): the larger of 2mnk operations per weight over the peak
@@ -686,8 +809,8 @@ def phase_matmul(device):
     the card: the test shapes in f32 and bf16 (the ragged one takes the
     mma.sync kernel, the others in bf16 the wgmma design), ragged bf16 shapes
     the wgmma design takes, an f32 output of bf16 inputs and the reverse,
-    the gated form with silu, gelu and an unknown name (no activation), then
-    timing at the quickstart's shape, relic_tiny's MLP shapes and a square
+    the gated form with silu, gelu and an unknown name (no activation) on
+    both of its routes, then timing at the quickstart's shape, relic_tiny's MLP shapes and a square
     one beside the bound, the plain version and torch.matmul (CUDA events
     and the profiler's device times). One call at 4096^3 bf16 must run one
     device kernel, the wgmma design's. Returns the two kernels' entries of
@@ -709,12 +832,23 @@ def phase_matmul(device):
             _hold(f"{_mm_label('relic_matmul', m, n, k)} ({design}, out "
                   f"{str(od or dtype)[6:]})", got,
                   rm.relic_matmul_plain(x, w, od), *tol)
-    m, n, k = GATED_TEST
-    for act in ("silu", "gelu", "none"):
-        for dtype in (torch.float32, torch.bfloat16):
-            x, (wg, wu) = _mm_inputs(gen, m, n, k, dtype, 2, device)
-            _hold(_mm_label("relic_matmul_gated", m, n, k, act),
-                  rm.relic_matmul_gated_cuda(x, wg, wu, act=act),
+    # The gated form: the wgmma ring where the predicate holds for x with
+    # each weight (bf16, K and N multiples of 8), relic_matmul.cu elsewhere.
+    gated_shapes = [(*GATED_TEST, dt) for dt in (torch.float32, torch.bfloat16)]
+    gated_shapes += [(m, n, k, torch.bfloat16) for m, n, k in MM_WGMMA_RAGGED]
+    gated_shapes += [(100, 60, 36, torch.bfloat16), (*GATED_MLP, torch.bfloat16)]
+    for m, n, k, dtype in gated_shapes:
+        x, (wg, wu) = _mm_inputs(gen, m, n, k, dtype, 2, device)
+        want_wgmma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+        for act in ("silu", "gelu", "none"):
+            before = rm.gated_wgmma_launches
+            got = rm.relic_matmul_gated_cuda(x, wg, wu, act=act)
+            if (rm.gated_wgmma_launches - before == 1) != want_wgmma:
+                raise AssertionError(f"relic_matmul_gated [{m}, {k}] @ [{k}, {n}] "
+                                     f"{dtype}: wgmma launches "
+                                     f"{rm.gated_wgmma_launches - before}")
+            _hold(f"{_mm_label('relic_matmul_gated', m, n, k, act)} "
+                  f"({'wgmma' if want_wgmma else 'relic_matmul.cu'})", got,
                   rm.relic_matmul_gated_plain(x, wg, wu, act), *GATED_TOL[dtype])
 
     # ops.matmul keeps no tile predicate: a ragged shape goes to the kernel.
@@ -764,18 +898,31 @@ def phase_matmul(device):
     m, n, k = GATED_MLP
     dtype = torch.bfloat16
     x, (wg, wu) = _mm_inputs(gen, m, n, k, dtype, 2, device)
-    desc = f"{_mm_label('relic_matmul_gated', m, n, k, 'silu')} {str(dtype)[6:]}"
+    bn = rm.wgmma_tile_n(m, n, rm.sm_count(device), rm.GATED_WGMMA_TILES_N)
+    desc = (f"{_mm_label('relic_matmul_gated', m, n, k, 'silu')} "
+            f"{str(dtype)[6:]} (wgmma, 128 x {bn} tiles per weight)")
     err = _hold(_mm_label("relic_matmul_gated", m, n, k, "silu"),
                 rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"),
                 rm.relic_matmul_gated_plain(x, wg, wu, "silu"), *GATED_TOL[dtype])
     ms = time_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"), 50)
     device_ms = kernel_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"))
     plain_ms = time_ms(lambda: rm.relic_matmul_gated_plain(x, wg, wu, "silu"), 50)
+    # For information only: no single PyTorch call computes the gated form;
+    # three do (two torch.matmul, then silu(g) * u). Their summed device time.
+    calls_ms = kernel_ms(lambda: torch.nn.functional.silu(x @ wg) * (x @ wu))
     bound_ms, bound_by, flops, nbytes = matmul_bound_ms(m, n, k, dtype, 2)
     print(f"[kernel] {desc}: kernel {ms:.4f} ms (device {fmt(device_ms)}), "
-          f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+          f"plain {plain_ms:.4f} ms, three library calls (x @ Wg, x @ Wu, "
+          f"silu(g) * u) device {fmt(calls_ms)}; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
           f"{flops / (device_ms or ms) / 1e9:.1f} TFLOP/s achieved")
+    _one_kernel(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"),
+                "relic_matmul_gated_cuda at relic_tiny's MLP shape", "mm_wgmma_kernel")
+    # What the epilogue's activation costs: the same call with each one.
+    acts_ms = {act: kernel_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act=act))
+               for act in ("none", "silu", "gelu")}
+    print(f"[kernel] {desc}: device time by activation "
+          + ", ".join(f"{a} {fmt(v)}" for a, v in acts_ms.items()))
     return (
         {"name": "relic_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/relic_matmul.cu",
@@ -790,11 +937,19 @@ def phase_matmul(device):
                     "bf16: mma.sync"),
          "other_shapes": timed[1:]},
         {"name": "relic_matmul_gated", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/relic_matmul.cu",
+         "source": "src/repro_torch/kernels/csrc/relic_matmul_wgmma.cu",
          "replaces": "src/repro/kernels/relic_matmul.py:73", "launches": None,
          "max_abs_err": err, "ms": ms, "device_ms": device_ms,
          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": None, "shape": desc})
+         "library_ms": None, "library_calls_device_ms": calls_ms, "shape": desc,
+         "device_ms_by_act": acts_ms,
+         "design": ("bf16 that TMA can describe: the wgmma ring of "
+                    "relic_matmul_wgmma.cu with a tile of each weight per "
+                    "stage (one expect_tx), two f32 accumulators per "
+                    "consumer warpgroup, act(gate) * up in the staged "
+                    "epilogue; 128 x 128 or 128 x 64 per weight by shape. "
+                    "f32 and other bf16: "
+                    "src/repro_torch/kernels/csrc/relic_matmul.cu")})
 
 
 def decode_outside(cfg, model, params, device):
@@ -879,9 +1034,9 @@ def _reset_launches():
 
 def _count_path(label, want, entries):
     """The launches since the last reset must be exactly ``want`` ({kernel:
-    count}); every flash attention and ssd launch must take its redesigned
-    design (wgmma; tensor cores), and no relic_matmul launch the wgmma one
-    (the only product on a main path, the quickstart's, is f32). The counts
+    count}); every flash attention, ssd and wkv6 launch must take its
+    redesigned design (wgmma; tensor cores), and no relic_matmul launch the
+    wgmma one (the only product on a main path, the quickstart's, is f32). The counts
     are added to the kernels' entries of the numbers line."""
     got = {n: c for n, c in _launches().items() if c}
     redesigned = {n: getattr(mod, attr) for n, (mod, attr) in REDESIGNS.items()}
@@ -890,12 +1045,16 @@ def _count_path(label, want, entries):
     if got != want:
         raise AssertionError(f"{label} launched {got}, want {want}")
     expect = {"flash_attention": got.get("flash_attention", 0),
-              "ssd": got.get("ssd", 0), "relic_matmul": 0}
+              "ssd": got.get("ssd", 0), "wkv6": got.get("wkv6", 0),
+              "relic_matmul": 0, "relic_matmul_gated": 0}
     if redesigned != expect:
         raise AssertionError(f"{label}: launches through the redesigned "
                              f"designs {redesigned}, want {expect}")
     for name, count in got.items():
         entries[name]["launches"] += count
+    for name, count in redesigned.items():
+        entries[name]["redesign_launches"] = (
+            entries[name].get("redesign_launches", 0) + count)
 
 
 def _timed_forward(cfg, params, tokens):
@@ -1221,7 +1380,10 @@ def main() -> int:
         "wkv6": phase_recurrence(
             "wkv6", wkv6_k, "src/repro/kernels/wkv6.py:21", _wkv6_inputs,
             lambda ins, chunk: wkv6_bound_ms(ins[0], ins[3], ins[4], chunk),
-            WKV6_TEST_SHAPES, WKV6_SERVED, WKV6_LONG, torch.bfloat16, 1, device),
+            WKV6_TEST_SHAPES, WKV6_SERVED, WKV6_LONG, torch.bfloat16, 1, device,
+            redesign=("tc_launches", lambda r, k, v, w, u: wkv6_k.tc_eligible(r)),
+            tc_bound=lambda ins, chunk: wkv6_tc_bound_ms(ins[0], ins[3], ins[4],
+                                                         chunk)),
         "ssd": phase_recurrence(
             "ssd", ssd_k, "src/repro/kernels/ssd.py:19", _ssd_inputs,
             lambda ins, chunk: ssd_bound_ms(ins[0], ins[1], ins[2], chunk),
@@ -1232,6 +1394,16 @@ def main() -> int:
         "relic_matmul": mm_entry,
         "relic_matmul_gated": gated_entry,
     }
+    phase_wkv6_layout(device)
+    entries["wkv6"]["design"] = (
+        "K = 64 (every rwkv6 call): tensor cores, 3xTF32 mma.sync; decays "
+        "between sub-chunks of 16 factored into the operands (exponents <= "
+        "0), the clamped pairwise exponential only in the diagonal 16 x 16 "
+        "blocks; chunks of 32 loaded by cp.async into a second buffer while "
+        "the last computes; a shuffle scan for the cumulative decay; eight "
+        "warps, each holding a 16 x 32 block of the state in f32 registers; "
+        "the caller's layout, no copy. Other K: one CTA per (b, h), f32 on "
+        "the CUDA cores, K padded to a multiple of 4")
     entries["ssd"]["design"] = (
         "f32, P = N = 64 (every zamba2 call): tensor cores, 3xTF32 mma.sync; "
         "one CTA per batch row and pair of heads sharing each chunk's C B^T; "

@@ -43,6 +43,23 @@ def refuse_grad(name: str, *tensors):
             f"reference trains with use_kernels=False")
 
 
+def cp_async_rows(t: torch.Tensor) -> bool:
+    """Whether a tensor-core recurrence kernel (ssd's, wkv6's) can read or
+    write ``t`` [B, H, T, D] as it lies, 16 bytes a cp.async: D contiguous,
+    every other stride a multiple of 16 bytes, the base 16-byte aligned."""
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * es % 16 == 0 for st in t.stride()[:-1]))
+
+
+def pad4(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to a multiple of 4, the unit the
+    CUDA-core recurrence kernels (wkv6's and ssd's first designs) tile
+    channels by; ``t`` itself when it already is one."""
+    extra = -t.shape[-1] % 4
+    return torch.nn.functional.pad(t, (0, extra)) if extra else t
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -5,6 +5,13 @@
 //   o = softmax(q k^T * D^-0.5  [causal mask at -1e30]) v
 // over [B, H, S, D] tensors; query head h reads kv head h / (H / Hkv).
 //
+// Head sizes: instances at D = 16, 32, 64, 96, 128 and 256; any other
+// d <= 256 runs the next instance up. The instance's D sizes the shared
+// tiles and the registers; the true d is the rows' stride in device memory,
+// columns d .. D-1 of q, k and v are zero-filled in shared memory (they add
+// nothing to a dot product or to the output) and the store drops them. The
+// caller passes the scale of the true d.
+//
 // Design (simple and right first): one CTA per (64-row q tile, head, batch),
 // 256 threads, four threads per q row. The CTA loops over 64-row kv tiles
 // held in shared memory as f32; the online softmax state (m, l) of each row
@@ -16,7 +23,8 @@
 // card's bf16 tensor-core bound; see PERF.md for its measured time.
 //
 // C interface (bound with ctypes): fa_forward returns cudaGetLastError()
-// after the launch, or -1 for a dtype / head_dim it has no instance for.
+// after the launch, or -1 for a dtype it has no instance for or a head_dim
+// above 256.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,7 +56,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
-              int H, int Hkv, int Sq, int Sk, float scale, int causal) {
+              int H, int Hkv, int Sq, int Sk, int d, float scale, int causal) {
   constexpr int DP = D + 1;       // padded row stride of Qs / Ks
   constexpr int PP = BK + 1;      // padded row stride of Ps
   constexpr int SC = BK / TPR;    // score columns per thread
@@ -68,15 +76,15 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = tid % TPR;
   const int qi = q0 + r;
 
-  const T* qb = q + ((size_t)b * H + h) * (size_t)Sq * D;
-  const T* kb = k + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
-  const T* vb = v + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
-  T* ob = o + ((size_t)b * H + h) * (size_t)Sq * D;
+  const T* qb = q + ((size_t)b * H + h) * (size_t)Sq * d;
+  const T* kb = k + ((size_t)b * Hkv + hk) * (size_t)Sk * d;
+  const T* vb = v + ((size_t)b * Hkv + hk) * (size_t)Sk * d;
+  T* ob = o + ((size_t)b * H + h) * (size_t)Sq * d;
 
   // q is scaled in f32 before the dot, as the TPU kernel does.
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int rr = i / D, dd = i % D, row = q0 + rr;
-    Qs[rr * DP + dd] = row < Sq ? to_f32(qb[(size_t)row * D + dd]) * scale : 0.f;
+    Qs[rr * DP + dd] = row < Sq && dd < d ? to_f32(qb[(size_t)row * d + dd]) * scale : 0.f;
   }
 
   float acc[DT];
@@ -93,9 +101,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile is consumed; Qs is visible
     for (int i = tid; i < BK * D; i += THREADS) {
       const int c = i / D, dd = i % D, row = k0 + c;
-      const bool ok = row < Sk;
-      Ks[c * DP + dd] = ok ? to_f32(kb[(size_t)row * D + dd]) : 0.f;
-      Vs[c * D + dd] = ok ? to_f32(vb[(size_t)row * D + dd]) : 0.f;
+      const bool ok = row < Sk && dd < d;
+      Ks[c * DP + dd] = ok ? to_f32(kb[(size_t)row * d + dd]) : 0.f;
+      Vs[c * D + dd] = ok ? to_f32(vb[(size_t)row * d + dd]) : 0.f;
     }
     __syncthreads();
 
@@ -142,13 +150,13 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / l;
 #pragma unroll
     for (int e = 0; e < DT; ++e)
-      ob[(size_t)qi * D + t + TPR * e] = from_f32<T>(acc[e] * inv);
+      if (t + TPR * e < d) ob[(size_t)qi * d + t + TPR * e] = from_f32<T>(acc[e] * inv);
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
+           int Hkv, int Sq, int Sk, int d, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -156,7 +164,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   fa_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hkv, Sq, Sk, scale, causal);
+      static_cast<T*>(o), H, Hkv, Sq, Sk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -164,21 +172,24 @@ template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
                int Hkv, int Sq, int Sk, int D, float scale, int causal,
                cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, stream);
-    default: return -1;
-  }
+  // The smallest instance that holds D columns.
+  if (D <= 16) return launch<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal, stream);
+  if (D <= 32) return launch<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal, stream);
+  if (D <= 64) return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal, stream);
+  if (D <= 96) return launch<T, 96>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal, stream);
+  if (D <= 128) return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal, stream);
+  if (D <= 256) return launch<T, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal, stream);
+  return -1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. All tensors contiguous [B, H(kv), S, D].
+// dtype: 0 = float32, 1 = bfloat16. All tensors contiguous [B, H(kv), S, D],
+// 1 <= D <= 256.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           int dtype, int B, int H, int Hkv, int Sq, int Sk, int D,
                           float scale, int causal, void* stream) {
+  if (D <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, o, B, H, Hkv, Sq, Sk, D, scale, causal, s);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels, as plain inline
 // PTX: TMA tensor loads (2-D and 4-D) and stores completed on mbarriers,
 // mbarrier waits, wgmma shared-memory descriptors and instructions,
-// warpgroup register reallocation. Every tile here is 128-byte swizzled: TMA writes it so, and
+// warpgroup register reallocation; cp.async copies and f32 products in
+// 3xTF32 on mma.sync (ssd, wkv6); the matmuls' activations. Every tile here is 128-byte swizzled: TMA writes it so, and
 // the wgmma descriptors read it so, which keeps shared-memory reads free of
 // bank conflicts without padding.
 //
@@ -14,6 +15,7 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -221,6 +223,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory
+// (descriptors): A K-major, B MN-major (transposed); f32 accumulators, bf16
+// inputs.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tb(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory
 // (descriptors): A K-major, B MN-major (transposed); f32 accumulators, bf16
 // inputs.
@@ -279,6 +299,100 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// ---- cp.async ---------------------------------------------------------------
+
+// 16 (cp16) or 4 (cp4) bytes from device memory to shared memory, in flight
+// until a cp.async.wait_group; `in` false writes zeros and reads nothing.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- f32 products in 3xTF32 on mma.sync.m16n8k8 ----------------------------
+
+// An f32 fragment of K values split into TF32 high parts and TF32
+// remainders: hi keeps the sign, exponent and top 10 mantissa bits of v,
+// lo = v - hi exactly, and the tensor core reads lo's top 19 bits as TF32,
+// so hi + lo is v to about 2^-20. Two instructions a value where rounding
+// hi with cvt.rna.tf32.f32 takes three (0.093 against 0.072 ms at zamba2's
+// served ssd shape on an H100).
+template <int K>
+struct TF {
+  uint32_t hi[K], lo[K];
+};
+__device__ __forceinline__ void split_into(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+__device__ __forceinline__ TF<4> split4(float v0, float v1, float v2, float v3) {
+  TF<4> f;
+  split_into(v0, f.hi[0], f.lo[0]);
+  split_into(v1, f.hi[1], f.lo[1]);
+  split_into(v2, f.hi[2], f.lo[2]);
+  split_into(v3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ TF<2> split2(float v0, float v1) {
+  TF<2> f;
+  split_into(v0, f.hi[0], f.lo[0]);
+  split_into(v1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A B in 3xTF32, f32 sums: hi*hi into d, and lo*hi + hi*lo into c, a second
+// accumulator (a chain of its own, added to d at the end) or d itself. The
+// lo*lo term, below 2^-20 of the product, is dropped. Single-pass TF32 is
+// never used.
+//
+// Fragments of mma.m16n8k8 (lane = 4g + t): A a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, col g), b1 (k t + 4, col g);
+// D d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma3(float (&d)[4], float (&c)[4], const TF<4>& a,
+                                     const TF<2>& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// ---- the matmuls' activations ----------------------------------------------
+
+// 1 = silu, 2 = gelu (tanh form, jax.nn.gelu's default); any other code
+// leaves the gate unactivated, as the TPU kernel does. Both go through the
+// fast exponential and division (a few ulp in f32), since the accurate
+// expf and tanhf weigh on the wgmma kernel's epilogue (chip_smoke.py times
+// the gated form with each activation). tanh(y) = 1 - 2 / (1 + exp(2y)) is
+// exact at both ends (exp overflowing to inf gives 1, underflowing to 0
+// gives -1), as g / (1 + exp(-g)) is for silu.
+__device__ __forceinline__ float activate(int act, float g) {
+  if (act == 1) return __fdividef(g, 1.0f + __expf(-g));   // silu
+  if (act == 2) {                                           // gelu, tanh form
+    const float c = 0.7978845608028654f;                    // sqrt(2 / pi)
+    const float y = c * (g + 0.044715f * g * g * g);
+    return 0.5f * g * (2.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * y)));
+  }
+  return g;
 }
 
 }  // namespace hopper

@@ -21,7 +21,7 @@
 // Ragged M, N and K are masked in the kernel (loads outside the matrices
 // read zero, stores outside are skipped), so every shape launches.
 //   * bf16 (relic_matmul takes it only for inputs that a TMA map cannot
-//     describe, see relic_matmul_wgmma.cu; the gated form always):
+//     describe, see relic_matmul_wgmma.cu; the gated form likewise):
 //     8 warps, a 128 x BN tile (BN = 128, gated 64 per weight), K in steps
 //     of 32. Each step's tiles are loaded into registers while the previous
 //     step computes, then stored to shared memory: x row-major, w transposed
@@ -49,18 +49,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
+using hopper::activate;
 
-__device__ __forceinline__ float activate(int act, float g) {
-  if (act == 1) return g * (1.0f / (1.0f + expf(-g)));  // silu
-  if (act == 2) {                                        // gelu, tanh form
-    const float c = 0.7978845608028654f;                 // sqrt(2 / pi)
-    return 0.5f * g * (1.0f + tanhf(c * (g + 0.044715f * g * g * g)));
-  }
-  return g;
-}
+constexpr int THREADS = 256;
 
 __device__ __forceinline__ void store_out(void* out, int out_bf16, size_t i, float v) {
   if (out_bf16)

@@ -1,9 +1,11 @@
 // relic_matmul for Hopper, sm_90a: the bf16 design on TMA and wgmma, the
 // paper's bounded SPSC pipeline on the card's own lanes.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/relic_matmul.py
-// (_mm_kernel / relic_matmul) for bf16 inputs: out = x @ w, x [M, K] and
-// w [K, N] row-major bf16, f32 sums, the output in f32 or bf16.
+// Replaces the Pallas TPU kernels src/repro/kernels/relic_matmul.py
+// (_mm_kernel / relic_matmul and _gated_kernel / relic_matmul_gated) for
+// bf16 inputs: out = x @ w, or out = act(x @ w_gate) * (x @ w_up) (GATED),
+// x [M, K] and the weights [K, N] row-major bf16, f32 sums, the output in
+// f32 or bf16.
 //
 // What bounds it on the H100: operations. At relic_tiny's MLP shapes the
 // product does about 440 operations per byte it must move, above the card's
@@ -36,7 +38,16 @@
 //    fragments written straight to device memory, 4 or 8 bytes a lane,
 //    relic_tiny's up product took 0.0184 ms on an H100, staged 0.0128);
 //  - ragged M and K are zero-filled by TMA, and the epilogue drops rows and
-//    columns past M and N.
+//    columns past M and N;
+//  - the gated form (GATED): each stage holds the x tile and a tile of each
+//    weight, all three announced by one expect_tx; each consumer keeps two
+//    f32 accumulators and issues both weights' wgmmas on the same x stage,
+//    so x is read once for both products; the staged epilogue writes
+//    act(gate) * up (activate, hopper.cuh), so neither product reaches
+//    device memory. Two accumulators of 64 registers a thread at 128
+//    columns per weight, and 3 stages of 48 KB beside the epilogue's
+//    buffers (4 at 64 columns); the caller chooses the width by the same
+//    wave-quantisation cost as the plain product's.
 // The caller (kernels/relic_matmul.py) sends only what a TMA map can
 // describe here: bf16, K and N multiples of 8 (16-byte row strides),
 // contiguous, 16-byte aligned bases.
@@ -71,14 +82,32 @@ constexpr int LAUNCH_REGS = (65536 / THREADS) / 8 * 8;
 constexpr int CONSUMER_REGS = ((LAUNCH_REGS * THREADS - 24 * 128) / (128 * CONSUMERS)) / 8 * 8;
 
 // Ring depth: as many stages as fit beside the epilogue's staging (4 at
-// BN = 128, 3 at BN = 256).
-template <int BN>
-constexpr int kStages = BN == 256 ? 3 : 4;
-template <int BN>
+// BN = 128, 3 at BN = 256; gated, with two weight tiles a stage: 3 at
+// BN = 128, 4 at BN = 64).
+template <int BN, bool GATED>
+constexpr int kStages = (GATED ? 2 * BN : BN) >= 256 ? 3 : 4;
+template <int BN, bool GATED>
+constexpr int kStageBytes = A_BYTES + (GATED ? 2 : 1) * (BN / 64) * ATOM_BYTES;
+template <int BN, bool GATED>
 constexpr size_t smem_bytes() {
   return 1024 /* alignment slack */ +
-         (size_t)kStages<BN> * (A_BYTES + BN / 64 * ATOM_BYTES) +
-         CONSUMERS * OUT_BYTES + 8 * 2 * kStages<BN>;
+         (size_t)kStages<BN, GATED> * kStageBytes<BN, GATED> +
+         CONSUMERS * OUT_BYTES + 8 * 2 * kStages<BN, GATED>;
+}
+static_assert(smem_bytes<256, false>() <= 232448 && smem_bytes<128, true>() <= 232448 &&
+                  smem_bytes<64, true>() <= 232448,
+              "a block's shared memory");
+
+// D[64 x BN] (+)= A[64 x 16] * B[16 x BN], B MN-major (transposed).
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  if constexpr (BN == 256)
+    wgmma_m64n256k16_ss_tb(d, desc_a, desc_b, accumulate);
+  else if constexpr (BN == 128)
+    wgmma_m64n128k16_ss_tb(d, desc_a, desc_b, accumulate);
+  else
+    wgmma_m64n64k16_ss_tb(d, desc_a, desc_b, accumulate);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -86,20 +115,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int BN>
+template <int BN, bool GATED>
 __global__ void __launch_bounds__(THREADS, 1)
 mm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
-                const __grid_constant__ CUtensorMap tm_w, void* __restrict__ out,
-                int out_bf16, int M, int N, int K) {
+                const __grid_constant__ CUtensorMap tm_w,
+                const __grid_constant__ CUtensorMap tm_u, void* __restrict__ out,
+                int out_bf16, int M, int N, int K, int act) {
   constexpr int ATOMS = BN / 64;
-  constexpr int STAGES = kStages<BN>;
-  constexpr int STAGE_BYTES = A_BYTES + ATOMS * ATOM_BYTES;
+  constexpr int NW = GATED ? 2 : 1;   // weights: w (the gate), u (the up)
+  constexpr int STAGES = kStages<BN, GATED>;
+  constexpr int STAGE_BYTES = kStageBytes<BN, GATED>;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: tiles start 1024-aligned.
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   auto a_tile = [&](int s) { return base + STAGE_BYTES * s; };
-  auto b_tile = [&](int s) { return base + STAGE_BYTES * s + A_BYTES; };
+  auto b_tile = [&](int s, int w) {
+    return base + STAGE_BYTES * s + A_BYTES + w * ATOMS * ATOM_BYTES;
+  };
   uint8_t* out_stage = base + STAGE_BYTES * STAGES;   // CONSUMERS x OUT_BYTES
   uint64_t* full = reinterpret_cast<uint64_t*>(out_stage + CONSUMERS * OUT_BYTES);
   uint64_t* empty = full + STAGES;
@@ -111,6 +144,7 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   if (threadIdx.x == 0) {
     prefetch_tensormap(&tm_x);
     prefetch_tensormap(&tm_w);
+    if (GATED) prefetch_tensormap(&tm_u);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, CONSUMERS * 4);   // one arrival per consumer warp
@@ -133,10 +167,12 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
-          mbar_arrive_expect_tx(full + s, A_BYTES + atoms * ATOM_BYTES);
+          mbar_arrive_expect_tx(full + s, A_BYTES + NW * atoms * ATOM_BYTES);
           tma_load_2d(a_tile(s), &tm_x, full + s, kt * BK, m0);
-          for (int j = 0; j < atoms; ++j)
-            tma_load_2d(b_tile(s) + j * ATOM_BYTES, &tm_w, full + s, n0 + 64 * j, kt * BK);
+          for (int w = 0; w < NW; ++w)
+            for (int j = 0; j < atoms; ++j)
+              tma_load_2d(b_tile(s, w) + j * ATOM_BYTES, w ? &tm_u : &tm_w, full + s,
+                          n0 + 64 * j, kt * BK);
         }
       }
     }
@@ -152,9 +188,11 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int row_in_wg = 16 * warp + lane / 4;    // and row_in_wg + 8
   const int col = 2 * (lane % 4);                // within each 8-column block
 
-  float acc[BN / 2];
+  float acc[NW][BN / 2];   // [0] x @ w, [1] x @ u (gated)
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;   // each tile's first wgmma overwrites
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[w][i] = 0.f;   // each tile's first wgmma overwrites
   int it = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int m0 = tile / n_tn * BM, n0 = tile % n_tn * BN;
@@ -164,27 +202,27 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       // MN-major, atoms 8 KB apart (lbo), 8-row groups 1024 bytes apart
       // (sbo); 16 rows of K are 2048 bytes.
       const uint64_t desc_a = desc_sw128(a_tile(s) + c * 64 * BK * 2, 16, 1024);
-      const uint64_t desc_b = desc_sw128(b_tile(s), ATOM_BYTES, 1024);
       mbar_wait(full + s, (it / STAGES) & 1);
-      fence_regs(acc);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) fence_regs(acc[w]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        if constexpr (BN == 256)
-          wgmma_m64n256k16_ss_tb(acc, desc_a + 2 * kk, desc_b + (2048 >> 4) * kk,
-                                 kt > 0 || kk > 0);
-        else
-          wgmma_m64n128k16_ss_tb(acc, desc_a + 2 * kk, desc_b + (2048 >> 4) * kk,
-                                 kt > 0 || kk > 0);
-      }
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          wgmma_tile<BN>(acc[w], desc_a + 2 * kk,
+                         desc_sw128(b_tile(s, w), ATOM_BYTES, 1024) + (2048 >> 4) * kk,
+                         kt > 0 || kk > 0);
       wgmma_commit();
-      fence_regs(acc);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) fence_regs(acc[w]);
       // The previous stage's products are done: hand it back to the producer.
       wgmma_wait<1>();
       if (kt > 0 && lane == 0) mbar_arrive(empty + (it - 1) % STAGES);
     }
     wgmma_wait<0>();
-    fence_regs(acc);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) fence_regs(acc[w]);
     if (lane == 0) mbar_arrive(empty + (it - 1) % STAGES);
 
     // ---- epilogue: 64-column blocks through this warpgroup's staging
@@ -204,7 +242,11 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int r = row_in_wg + 8 * i, cc = 8 * jj + col;
-          const float v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
+          float v0 = acc[0][4 * j + 2 * i], v1 = acc[0][4 * j + 2 * i + 1];
+          if constexpr (GATED) {
+            v0 = activate(act, v0) * acc[NW - 1][4 * j + 2 * i];
+            v1 = activate(act, v1) * acc[NW - 1][4 * j + 2 * i + 1];
+          }
           if (out_bf16)
             *reinterpret_cast<uint32_t*>(stage_out + r * OUT_ROW_BF16 + cc * 2) =
                 pack_bf16(v0, v1);
@@ -277,22 +319,23 @@ int n_sms() {
   return n;
 }
 
-template <int BN>
-int launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, void* out, int out_bf16,
-           int M, int N, int K, cudaStream_t stream) {
+template <int BN, bool GATED>
+int launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtensorMap& tm_u,
+           void* out, int out_bf16, int M, int N, int K, int act, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(mm_wgmma_kernel<BN>,
+    cudaError_t err = cudaFuncSetAttribute(mm_wgmma_kernel<BN, GATED>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem_bytes<BN>());
+                                           (int)smem_bytes<BN, GATED>());
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   const int sms = n_sms();
   if (sms == 0) return -4;
   const int n_tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);
-  mm_wgmma_kernel<BN><<<n_tiles < sms ? n_tiles : sms, THREADS, smem_bytes<BN>(), stream>>>(
-      tm_x, tm_w, out, out_bf16, M, N, K);
+  mm_wgmma_kernel<BN, GATED>
+      <<<n_tiles < sms ? n_tiles : sms, THREADS, smem_bytes<BN, GATED>(), stream>>>(
+          tm_x, tm_w, tm_u, out, out_bf16, M, N, K, act);
   return (int)cudaGetLastError();
 }
 
@@ -313,6 +356,26 @@ extern "C" int relic_matmul_wgmma_forward(const void* x, const void* w, void* ou
   if (!encode(fn, &tm_x, x, M, K, BK, BM) || !encode(fn, &tm_w, w, K, N, 64, BK))
     return -3;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bn == 256) return launch<256>(tm_x, tm_w, out, out_bf16, M, N, K, s);
-  return launch<128>(tm_x, tm_w, out, out_bf16, M, N, K, s);
+  if (bn == 256) return launch<256, false>(tm_x, tm_w, tm_w, out, out_bf16, M, N, K, 0, s);
+  return launch<128, false>(tm_x, tm_w, tm_w, out, out_bf16, M, N, K, 0, s);
+}
+
+// The gated form: out = act(x @ w_gate) * (x @ w_up); w_gate and w_up as w
+// above, of one shape; bn: 128 or 64 columns per weight and tile; act: 1 =
+// silu, 2 = gelu (tanh form), anything else = no activation. Returns as
+// relic_matmul_wgmma_forward.
+extern "C" int relic_matmul_gated_wgmma_forward(const void* x, const void* w_gate,
+                                                const void* w_up, void* out, int out_bf16,
+                                                int M, int N, int K, int bn, int act,
+                                                void* stream) {
+  if (bn != 128 && bn != 64) return -1;
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return -2;
+  CUtensorMap tm_x, tm_g, tm_u;
+  if (!encode(fn, &tm_x, x, M, K, BK, BM) || !encode(fn, &tm_g, w_gate, K, N, 64, BK) ||
+      !encode(fn, &tm_u, w_up, K, N, 64, BK))
+    return -3;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 64) return launch<64, true>(tm_x, tm_g, tm_u, out, out_bf16, M, N, K, act, s);
+  return launch<128, true>(tm_x, tm_g, tm_u, out, out_bf16, M, N, K, act, s);
 }

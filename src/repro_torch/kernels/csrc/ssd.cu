@@ -38,7 +38,7 @@
 //    every f32 operand is split into a TF32 high part and a TF32 remainder,
 //    and hi*hi + hi*lo + lo*hi are summed in f32 (a few parts in 10^6 per
 //    product; the path is held at 1e-3, and single-pass TF32 is never
-//    used).
+//    used); the split and the product are in hopper.cuh.
 //  - 79,616 bytes of shared memory and at most 128 registers a thread, so
 //    two CTAs fit an SM.
 //
@@ -61,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -295,6 +297,8 @@ int launch(const void* x, const float* a, const float* b, const float* c, void* 
 
 namespace tc {
 
+using namespace hopper;   // cp16, cp4, TF, split4, split2, mma3
+
 constexpr int L = 32;            // steps per chunk of the kernel's own loop
 constexpr int P = 64, N = 64;    // head size, state size
 constexpr int HG = 2;            // heads per CTA: they share C B^T
@@ -317,64 +321,6 @@ struct Strides {
   long long yb, yh, yt;   // y likewise
   long long ab, ah, at;   // a [B, H, T]
 };
-
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
-                  "r"(in ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
-                  "r"(in ? 4 : 0) : "memory");
-}
-
-// An f32 fragment of K values split into TF32 high parts and TF32
-// remainders: hi keeps the sign, exponent and top 10 mantissa bits of v,
-// lo = v - hi exactly, and the tensor core reads lo's top 19 bits as TF32,
-// so hi + lo is v to about 2^-20. Two instructions a value where rounding
-// hi with cvt.rna.tf32.f32 takes three (0.093 against 0.072 ms at zamba2's
-// served shape on an H100).
-template <int K>
-struct TF {
-  uint32_t hi[K], lo[K];
-};
-__device__ __forceinline__ void split_into(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-__device__ __forceinline__ TF<4> split4(float v0, float v1, float v2, float v3) {
-  TF<4> f;
-  split_into(v0, f.hi[0], f.lo[0]);
-  split_into(v1, f.hi[1], f.lo[1]);
-  split_into(v2, f.hi[2], f.lo[2]);
-  split_into(v3, f.hi[3], f.lo[3]);
-  return f;
-}
-__device__ __forceinline__ TF<2> split2(float v0, float v1) {
-  TF<2> f;
-  split_into(v0, f.hi[0], f.lo[0]);
-  split_into(v1, f.hi[1], f.lo[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A B in 3xTF32, f32 sums: hi*hi into d, and lo*hi + hi*lo into c, a second
-// accumulator (a chain of its own, added to d at the end) or d itself. The
-// lo*lo term, below 2^-20 of the product, is dropped.
-__device__ __forceinline__ void mma3(float (&d)[4], float (&c)[4], const TF<4>& a,
-                                     const TF<2>& b) {
-  mma_tf32(c, a.lo, b.hi);
-  mma_tf32(c, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
 
 // Fragments of mma.m16n8k8 (lane = 4g + t): A a0 (g, t), a1 (g + 8, t),
 // a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, col g), b1 (k t + 4, col g);

@@ -16,9 +16,13 @@ designs share the work, chosen by a predicate on the inputs
   the tensor cores through wgmma, K and V fed by TMA into an mbarrier ring
   by a producer warp, tensor maps over the caller's own strides, so no
   layout copy is made;
-- ``csrc/flash_attention.cu`` (f32, head_dim 16/32/128, and layouts TMA
-  cannot describe): the CUDA-core kernel, f32 on the CUDA cores, over
-  contiguous copies.
+- ``csrc/flash_attention.cu`` (f32, every other head_dim up to
+  ``MAX_FMA_HEAD_DIM``, and layouts TMA cannot describe): the CUDA-core
+  kernel, f32 on the CUDA cores, over contiguous copies. It has instances
+  at head_dim 16, 32, 64, 96, 128 and 256; any other head_dim runs the next
+  one up, with the columns past it zero-filled on chip. Above 256 the card
+  raises (no instance fits a block's shared memory); the plain version on
+  the CPU takes every head_dim, as the reference does.
 
 Both keep the TPU kernel's structure: the online softmax (m, l, acc) in f32,
 never writing the S x S scores to device memory, and never loading kv tiles
@@ -38,7 +42,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref as flash_attention_plain
 
-HEAD_DIMS = (16, 32, 64, 128)
+MAX_FMA_HEAD_DIM = 256   # the CUDA-core kernel's largest instance
 WGMMA_HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STRIDE_BYTES = 1 << 40   # a TMA map's byte strides stay below 2^40
@@ -59,8 +63,6 @@ def _check(q, k, v):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash attention takes float32 or bfloat16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if min(b, h, sq, k.shape[2]) == 0:
         raise ValueError("empty attention input")
 
@@ -138,6 +140,9 @@ def flash_attention_wgmma(q, k, v, *, causal: bool = True):
 
 def _launch_fma(q, k, v, causal):
     global launches
+    if q.shape[3] > MAX_FMA_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[3]} is above the card kernel's "
+                         f"{MAX_FMA_HEAD_DIM}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -158,7 +163,7 @@ def _launch_fma(q, k, v, causal):
 
 def flash_attention_fma(q, k, v, *, causal: bool = True):
     """Launch the CUDA-core kernel (f32 math on the CUDA cores; f32 or
-    bf16, head_dim 16/32/64/128) on contiguous copies of the inputs."""
+    bf16, head_dim up to 256) on contiguous copies of the inputs."""
     _require_cuda("flash_attention_fma", q, k, v)
     _check(q, k, v)
     return _launch_fma(q, k, v, causal)

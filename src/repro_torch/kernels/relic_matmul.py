@@ -28,9 +28,14 @@ never by a fallback on failure:
   with a tile chosen by shape (``f32_tile``) so a small product still fills
   the card, and a cp.async ring over K.
 
-``relic_matmul_gated`` runs ``csrc/relic_matmul.cu`` (``mma.sync`` in bf16,
-FMA in f32), which applies the activation at the flush with no
-intermediate in device memory.
+``relic_matmul_gated`` has the same three routes, chosen by the same
+predicate on x and each weight: bf16 that TMA can describe runs the gated
+form of ``csrc/relic_matmul_wgmma.cu`` (each ring stage holds the x tile and
+a tile of each weight; two accumulators; 128 or 64 columns per weight by
+``wgmma_tile_n`` over ``GATED_WGMMA_TILES_N``); other bf16 the ``mma.sync``
+kernel and f32 the FMA kernel of ``csrc/relic_matmul.cu``. Every route
+applies the activation at the flush, with no intermediate in device
+memory.
 
 ``bm``/``bn``/``bk`` are the TPU kernel's VMEM block sizes. The wrappers take
 them so that call sites read as the reference's, and ignore them: the CUDA
@@ -58,10 +63,12 @@ ACTS = {"silu": 1, "gelu": 2}   # any other name: the gate unactivated
 F32_TILES = ((128, 128), (64, 128), (32, 32), (16, 32))
 WGMMA_TILE_M = 128
 WGMMA_TILES_N = (256, 128)   # output columns per tile of the wgmma design
+GATED_WGMMA_TILES_N = (128, 64)   # ... of its gated form, per weight
 
 launches = 0         # relic_matmul launches (every design) since the caller last set it to 0
 wgmma_launches = 0   # of which the wgmma design's
 gated_launches = 0   # relic_matmul_gated launches, likewise
+gated_wgmma_launches = 0   # of which the wgmma design's
 
 
 def _check(name, x, weights, out_dtype):
@@ -102,16 +109,18 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def wgmma_tile_n(m: int, n: int, n_sm: int) -> int:
+def wgmma_tile_n(m: int, n: int, n_sm: int, widths=WGMMA_TILES_N) -> int:
     """Output columns per tile of the wgmma design for an [m, n] output on
-    ``n_sm`` SMs: the width that needs the fewest rounds of the persistent
-    CTAs, each round weighted by its tile's width (its time), the wider on
-    a tie (so a product of one round takes the narrower tile, which computes
-    fewer padded columns). relic_tiny's down product [2048, 768] gets 128 (96 tiles, one
-    round) where 256 would leave 84 of 132 SMs idle."""
+    ``n_sm`` SMs, from ``widths`` (widest first; the gated form's are
+    ``GATED_WGMMA_TILES_N``): the width that needs the fewest rounds of the
+    persistent CTAs, each round weighted by its tile's width (its time), the
+    wider on a tie (so a product of one round takes the narrower tile, which
+    computes fewer padded columns). relic_tiny's down product [2048, 768]
+    gets 128 (96 tiles, one round) where 256 would leave 84 of 132 SMs
+    idle."""
     def cost(bn):
         return _ceil(_ceil(m, WGMMA_TILE_M) * _ceil(n, bn), n_sm) * bn
-    return min(WGMMA_TILES_N, key=cost)   # min keeps the first (widest) on a tie
+    return min(widths, key=cost)   # min keeps the first (widest) on a tie
 
 
 def f32_tile(m: int, n: int, n_sm: int) -> int:
@@ -183,15 +192,26 @@ def relic_matmul_cuda(x, y, *, out_dtype=None):
 
 
 def relic_matmul_gated_cuda(x, w_gate, w_up, *, act="silu", out_dtype=None):
-    """Launch the CUDA kernel: act(x @ w_gate) * (x @ w_up) on the card."""
-    global gated_launches
+    """Launch a CUDA kernel: act(x @ w_gate) * (x @ w_up) on the card; the
+    wgmma design where ``wgmma_eligible`` holds for x with each weight, else
+    the ``mma.sync`` (bf16) or the FMA (f32) kernel."""
+    global gated_launches, gated_wgmma_launches
     _check("relic_matmul_gated", x, [w_gate, w_up], out_dtype)
+    if not (x.is_cuda and w_gate.is_cuda and w_up.is_cuda):
+        raise ValueError("relic_matmul_gated_cuda takes CUDA tensors")
     (m, k), n = x.shape, w_gate.shape[1]
     od = out_dtype or x.dtype
-    out = _launch("relic_matmul", "relic_matmul_gated_forward",
-                  [_P] * 4 + [_I] * 6 + [_P], x, [w_gate, w_up], od,
-                  _DTYPES[x.dtype], int(od == torch.bfloat16), m, n, k,
-                  ACTS.get(act, 0))
+    if wgmma_eligible(x, w_gate) and wgmma_eligible(x, w_up):
+        bn = wgmma_tile_n(m, n, sm_count(x.device), GATED_WGMMA_TILES_N)
+        out = _launch("relic_matmul_wgmma", "relic_matmul_gated_wgmma_forward",
+                      [_P] * 4 + [_I] * 6 + [_P], x, [w_gate, w_up], od,
+                      int(od == torch.bfloat16), m, n, k, bn, ACTS.get(act, 0))
+        gated_wgmma_launches += 1
+    else:
+        out = _launch("relic_matmul", "relic_matmul_gated_forward",
+                      [_P] * 4 + [_I] * 6 + [_P], x, [w_gate, w_up], od,
+                      _DTYPES[x.dtype], int(od == torch.bfloat16), m, n, k,
+                      ACTS.get(act, 0))
     gated_launches += 1
     return out
 

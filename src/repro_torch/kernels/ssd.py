@@ -22,7 +22,9 @@ select). Two designs, chosen by a predicate on the inputs
   in f32 registers. It reads x, a and y in the caller's layout (the model's
   [B, T, H, ...] as handed over by ``ops.ssd``), with no copy;
 - everything else (bf16 x, other P and N): the first design, one CTA per
-  (b, h), f32 on the CUDA cores, over contiguous copies.
+  (b, h), f32 on the CUDA cores, over contiguous copies; a P or N that is
+  no multiple of 4 runs on copies zero-padded to one (zero columns of x, b
+  and c add nothing), and the output is sliced back.
 
 A ragged last chunk is masked in both, so every T launches.
 
@@ -37,6 +39,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import cp_async_rows
 from repro_torch.kernels.ref import ssd_ref as ssd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,10 +61,7 @@ def _check(x, a, b, c):
                          f"[{bb}, {t}, N]")
     if x.dtype not in _DTYPES:
         raise ValueError(f"ssd takes x in float32 or bfloat16, got {x.dtype}")
-    if p % 4 or b.shape[2] % 4:
-        raise ValueError(f"head size {p} and state size {b.shape[2]} must be "
-                         f"multiples of 4")
-    if min(bb, h, t) == 0:
+    if min(bb, h, t, p, b.shape[2]) == 0:
         raise ValueError("empty ssd input")
 
 
@@ -71,14 +71,6 @@ def tc_eligible(x, b) -> bool:
     first design. (a, b and c are f32 by then: the wrapper casts them.)"""
     return (x.dtype == torch.float32 and x.shape[3] == TC_P
             and b.shape[2] == TC_N)
-
-
-def cp_async_rows(t: torch.Tensor) -> bool:
-    """Whether the tensor-core design can read ``t`` [B, H, T, P] as it
-    lies: P contiguous, every other stride a multiple of 4 elements (16
-    bytes), the base 16-byte aligned."""
-    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(st % 4 == 0 for st in t.stride()[:3]))
 
 
 def tc_layout(t: torch.Tensor) -> torch.Tensor:
@@ -112,8 +104,9 @@ def _launch_tc(x, a, b, c):
 
 def _launch_first(x, a, b, c, chunk):
     global launches
-    x = x.contiguous()
-    a, b, c = a.contiguous(), b.contiguous(), c.contiguous()
+    p_true = x.shape[3]
+    x = _build.pad4(x.contiguous())
+    a, b, c = a.contiguous(), _build.pad4(b.contiguous()), _build.pad4(c.contiguous())
     bb, h, t, p = x.shape
     out = torch.empty_like(x)
     fn = _build.entry("ssd", "ssd_forward", [ctypes.c_void_p] * 5
@@ -125,7 +118,7 @@ def _launch_first(x, a, b, c, chunk):
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed (error {err})")
     launches += 1
-    return out
+    return out[..., :p_true]
 
 
 def ssd_cuda(x, a, b, c, *, chunk: int = 128):

@@ -20,7 +20,13 @@ SHAPES = [  # (b, s, h, kv, d, bq, bk): tests/test_kernels.py:55-60
     (1, 256, 8, 2, 64, 128, 64),    # GQA 4:1
     (2, 128, 8, 1, 32, 64, 128),    # MQA
     (1, 96, 4, 2, 16, 64, 64),      # unaligned S (the JAX side takes its
-]                                   # reference path; the port has no tiles)
+                                    # reference path; the port has no tiles)
+    # Head sizes the reference takes and the card runs on the next instance
+    # up (48) or on instances of their own (96, 256), GQA 2:1.
+    (1, 128, 4, 2, 48, 64, 64),
+    (1, 128, 4, 2, 96, 64, 64),
+    (1, 128, 4, 2, 256, 64, 64),
+]
 
 
 def _pair(rng, shape, dtype):
@@ -89,12 +95,28 @@ def test_cuda_entry_rejects_cpu_tensors():
     assert fa.launches == before
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float16, 16), (torch.float32, 48)])
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 16)])
 def test_unsupported_inputs_raise(dtype, d):
     q = torch.zeros((1, 2, 8, d), dtype=dtype)
     k = torch.zeros((1, 1, 8, d), dtype=dtype)
     with pytest.raises(ValueError):
         fa.flash_attention_bhsd(q, k, k, causal=True)
+
+
+@pytest.mark.parametrize("d", [48, 96, 256, 300])
+def test_card_entry_refuses_cpu_tensors_before_any_size_check(d):
+    # Even at a head size above the card kernel's largest instance (300),
+    # the card entry's first refusal is the device, and no launch is
+    # counted; the CPU path computes every size.
+    q = torch.ones((1, 2, 8, d))
+    k = torch.ones((1, 1, 8, d))
+    before = (fa.launches, fa.wgmma_launches)
+    for entry in (fa.flash_attention_cuda, fa.flash_attention_fma):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            entry(q, k, k, causal=True)
+    assert (fa.launches, fa.wgmma_launches) == before
+    got = fa.flash_attention_bhsd(q, k, k, causal=True)
+    assert got.shape == q.shape and torch.allclose(got, torch.ones_like(q))
 
 
 def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):

@@ -121,7 +121,7 @@ def test_wgmma_source_is_a_tma_ring_feeding_wgmma_with_b_transposed():
         assert "p, 1, 1, 0, 1;" in body, name
     for call in ("tma_load_2d(", "wgmma_m64n256k16_ss_tb(", "wgmma_m64n128k16_ss_tb(",
                  "mbar_wait(empty", "mbar_wait(full", "mbar_arrive(empty",
-                 "setmaxnreg_dec<", "setmaxnreg_inc<", "kStages<BN>"):
+                 "setmaxnreg_dec<", "setmaxnreg_inc<", "kStages<BN, GATED>"):
         assert call in src, call
 
 
@@ -172,3 +172,97 @@ def test_ragged_shapes_match_jax(rng, dtype, m, n, k):
     tol = TOL[dtype]
     for want in (jops.matmul(xj, yj, bm=128, bn=128, bk=64), jref.matmul_ref(xj, yj)):
         np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol * 50)
+
+
+# ---- the gated form on the wgmma ring ---------------------------------------
+
+def _gated_inputs(case):
+    m, n, k = 300, 264, 200
+    return {
+        "bf16 that TMA can describe": (_bf16(m, k), _bf16(k, n), _bf16(k, n)),
+        "w_up misaligned": (_bf16(64, 64), _bf16(64, 64), _misaligned(64, 64)),
+        "w_gate a column slice": (_bf16(64, 64), _bf16(64, 136)[:, :64], _bf16(64, 64)),
+        "K % 8 != 0": (_bf16(100, 36), _bf16(36, 64), _bf16(36, 64)),
+        "f32": (torch.zeros(m, k), torch.zeros(k, n), torch.zeros(k, n)),
+    }[case]
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 that TMA can describe", "relic_matmul_gated_wgmma_forward"),
+    ("w_up misaligned", "relic_matmul_gated_forward"),
+    ("w_gate a column slice", "relic_matmul_gated_forward"),
+    ("K % 8 != 0", "relic_matmul_gated_forward"),
+    ("f32", "relic_matmul_gated_forward"),
+])
+def test_gated_route_is_taken_by_wgmma_eligible(monkeypatch, case, want):
+    # The C entry the card would run, recorded instead of launched: the
+    # tensors are made to pass for CUDA ones, so only the predicate decides.
+    x, wg, wu = _gated_inputs(case)
+    calls = []
+
+    def record(source, entry, argtypes, x, weights, out_dtype, *ints):
+        calls.append((source, entry, ints))
+        return torch.empty(0)
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(rm, "_launch", record)
+    monkeypatch.setattr(rm, "sm_count", lambda device: H100_SMS)
+    monkeypatch.setattr(rm, "gated_launches", 0)
+    monkeypatch.setattr(rm, "gated_wgmma_launches", 0)
+    rm.relic_matmul_gated_cuda(x, wg, wu, act="gelu")
+    assert [c[1] for c in calls] == [want]
+    wgmma = want == "relic_matmul_gated_wgmma_forward"
+    assert (rm.gated_launches, rm.gated_wgmma_launches) == (1, int(wgmma))
+    assert wgmma == (rm.wgmma_eligible(x, wg) and rm.wgmma_eligible(x, wu))
+    if wgmma:
+        source, _, (out_bf16, m, n, k, bn, act) = calls[0]
+        assert source == "relic_matmul_wgmma" and (m, n, k) == (300, 264, 200)
+        assert bn in rm.GATED_WGMMA_TILES_N and act == rm.ACTS["gelu"] and out_bf16 == 1
+
+
+@pytest.mark.parametrize("m,n,want", [
+    (2048, 2048, 128),   # relic_tiny's gate/up at 2048 tokens: 2 rounds of 128 or 4 of 64
+    (2048, 768, 128),
+    (128, 128, 64),      # one round either way: the narrower does less work
+])
+def test_gated_tile_width_by_shape(m, n, want):
+    assert rm.wgmma_tile_n(m, n, H100_SMS, rm.GATED_WGMMA_TILES_N) == want
+
+
+def test_gated_source_has_two_accumulators_on_one_ring():
+    src = (CSRC / "relic_matmul_wgmma.cu").read_text()
+    assert "template <int BN, bool GATED>" in src
+    assert "constexpr int NW = GATED ? 2 : 1;" in src
+    assert "float acc[NW][BN / 2];" in src          # one accumulator per weight
+    # One ring: one pair of barrier arrays, one expect_tx for all of a
+    # stage's tiles, both weights' wgmmas on the same x stage.
+    assert src.count("mbar_arrive_expect_tx(") == 1
+    assert "A_BYTES + NW * atoms * ATOM_BYTES" in src
+    assert src.count("uint64_t* full =") == 1 and src.count("uint64_t* empty =") == 1
+    assert "wgmma_tile<BN>(acc[w], desc_a + 2 * kk," in src
+    assert "activate(act, v0) * acc[NW - 1]" in src
+    assert 'extern "C" int relic_matmul_gated_wgmma_forward(' in src
+    assert "float activate(" in (CSRC / "hopper.cuh").read_text()
+    assert "float activate(" not in (CSRC / "relic_matmul.cu").read_text()
+
+
+GATED_ATOL = {"float32": 2e-2, "bfloat16": 2.0}   # tests/test_kernels.py:48-50
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,k", [
+    (128, 256, 64),                     # the Pallas kernel's tiles divide these
+    (300, 264, 200), (130, 136, 72),    # ragged: the JAX side takes its oracle
+])
+def test_gated_ragged_shapes_match_jax(rng, act, dtype, m, n, k):
+    xj, xt = _pair(rng, (m, k), dtype)
+    gj, gt = _pair(rng, (k, n), dtype)
+    uj, ut = _pair(rng, (k, n), dtype)
+    before = (rm.gated_launches, rm.gated_wgmma_launches)
+    got = ops.matmul_gated(xt, gt, ut, act=act, bm=128, bn=128, bk=64)
+    assert (rm.gated_launches, rm.gated_wgmma_launches) == before   # no kernel on the CPU
+    assert got.shape == (m, n) and got.dtype == xt.dtype
+    for want in (jops.matmul_gated(xj, gj, uj, act=act, bm=128, bn=128, bk=64),
+                 jref.matmul_gated_ref(xj, gj, uj, act)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=GATED_ATOL[dtype])

@@ -95,15 +95,21 @@ def test_cuda_entry_rejects_cpu_tensors_before_any_design():
 def test_source_loads_asynchronously_and_runs_3xtf32_on_the_tensor_cores():
     src = (CSRC / "ssd.cu").read_text()
     tc = src.split("namespace tc {")[1].split("}  // namespace tc")[0]
-    for ptx in ("cp.async.cg.shared.global", "cp.async.commit_group",
-                "cp.async.wait_group 1",
+    # The cp.async copies and the 3xTF32 product are shared with wkv6, in
+    # hopper.cuh, which the tensor-core design uses.
+    hdr = (CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src and "using namespace hopper;" in tc
+    for call in ("cp16(", "cp4(", "cp.async.commit_group", "cp.async.wait_group 1",
+                 "mma3(", "split4(", "split2("):
+        assert call in tc, call
+    for ptx in ("cp.async.cg.shared.global", "cp.async.ca.shared.global",
                 "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"):
-        assert ptx in tc, ptx
+        assert ptx in hdr, ptx
     # hi: v's top 19 bits (TF32); lo: the exact rest.
-    split = tc.split("void split_into(")[1].split("\n}\n")[0]
+    split = hdr.split("void split_into(")[1].split("\n}\n")[0]
     assert "0xffffe000u" in split and "v - __uint_as_float(hi)" in split
     # Three TF32 products for each f32 one: lo*hi, hi*lo, hi*hi.
-    body = tc.split("void mma3(")[1].split("\n}\n")[0]
+    body = hdr.split("void mma3(")[1].split("\n}\n")[0]
     assert body.count("mma_tf32(") == 3
     assert "a.lo, b.hi" in body and "a.hi, b.lo" in body and "a.hi, b.hi" in body
     # The decay exponent is taken only for s <= t and clamped at 0.
@@ -169,3 +175,51 @@ def test_tensor_core_shapes_match_jax(rng, b, t, h, chunk):
                           cj).swapaxes(1, 2)
     for want in (pallas, oracle):
         np.testing.assert_allclose(_np(got), _np(want), rtol=KTOL, atol=KTOL)
+
+
+# ---- the first design's padding, through a stand-in for its C entry ---------
+
+def _as_tensor(ptr, shape, dtype):
+    """The CPU memory at ``ptr`` as a tensor of ``shape`` (no copy)."""
+    import ctypes
+    n = int(np.prod(shape))
+    ctype = {torch.float32: ctypes.c_float, torch.bfloat16: ctypes.c_uint16}[dtype]
+    return torch.frombuffer((ctype * n).from_address(ptr), dtype=dtype).view(*shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sizes_6_run_the_first_design_zero_padded_to_8(monkeypatch, rng, dtype):
+    # The card's wrapper, with the tensors passed off as CUDA ones and the C
+    # entry replaced by the plain version on the memory it is handed: the
+    # entry sees P = N = 8 (zero columns of x, b and c), and the wrapper's
+    # output, sliced back to P = 6, equals the unpadded function.
+    seen = []
+
+    def entry(source, name, argtypes):
+        assert (source, name) == ("ssd", "ssd_forward")
+
+        def fake(x, a, b, c, y, dt, bb, h, t, p, n, chunk, stream):
+            tdt = (torch.float32, torch.bfloat16)[dt]
+            xs = _as_tensor(x, (bb, h, t, p), tdt)
+            bs, cs = (_as_tensor(q, (bb, t, n), torch.float32) for q in (b, c))
+            seen.append((p, n, float(xs[..., 6:].abs().sum() + bs[..., 6:].abs().sum()
+                                     + cs[..., 6:].abs().sum())))
+            _as_tensor(y, (bb, h, t, p), tdt).copy_(
+                ssd_mod.ssd_plain(xs, _as_tensor(a, (bb, h, t), torch.float32), bs, cs))
+            return 0
+        return fake
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(ssd_mod._build, "entry", entry)
+    monkeypatch.setattr(ssd_mod._build, "stream", lambda t: 0)
+    monkeypatch.setattr(ssd_mod, "launches", 0)
+    monkeypatch.setattr(ssd_mod, "tc_launches", 0)
+    b, h, t = 2, 3, 45
+    x = torch.from_numpy(rng.normal(size=(b, h, t, 6)).astype(np.float32)).to(dtype)
+    a = torch.from_numpy(-np.abs(rng.normal(size=(b, h, t))).astype(np.float32) * 0.5)
+    bm, cm = (torch.from_numpy(rng.normal(size=(b, t, 6)).astype(np.float32)) for _ in range(2))
+    got = ssd_mod.ssd_cuda(x, a, bm, cm, chunk=32)
+    assert seen == [(8, 8, 0.0)] and (ssd_mod.launches, ssd_mod.tc_launches) == (1, 0)
+    assert got.shape == (b, h, t, 6) and got.dtype == dtype
+    rtol, atol = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}[dtype]
+    np.testing.assert_allclose(_np(got), _np(ssd_mod.ssd_plain(x, a, bm, cm)), rtol=rtol, atol=atol)

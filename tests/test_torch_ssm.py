@@ -106,6 +106,7 @@ def _ssd_inputs(rng, b, t, h, p, n, dtype):
     (2, 64, 2, 16, 16),
     (1, 128, 4, 32, 32),
     (2, 96, 2, 16, 32),
+    (2, 64, 2, 6, 16),    # K = 6, no multiple of 4: the reference computes it
 ])
 def test_wkv6_matches_jax(rng, dtype, b, t, h, k, chunk):
     (rj, rt), (kj, kt), (vj, vt), (wj, wt), (uj, ut) = _wkv_inputs(
@@ -127,6 +128,7 @@ def test_wkv6_matches_jax(rng, dtype, b, t, h, k, chunk):
 @pytest.mark.parametrize("b,t,h,p,n,chunk", [   # tests/test_kernels.py:97-100
     (2, 64, 2, 16, 8, 16),
     (1, 128, 4, 32, 16, 32),
+    (2, 64, 2, 6, 6, 16),     # P = N = 6, no multiple of 4: the reference computes it
 ])
 def test_ssd_matches_jax(rng, dtype, b, t, h, p, n, chunk):
     (xj, xt), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(rng, b, t, h, p, n,
@@ -172,10 +174,10 @@ def test_cuda_entries_reject_cpu_tensors():
                          torch.zeros((1, 8, 4)))
 
 
-@pytest.mark.parametrize("case", ["dtype", "u_shape", "head_size"])
+@pytest.mark.parametrize("case", ["dtype", "u_shape"])
 def test_wkv6_rejects_bad_inputs(case):
     dtype = torch.float16 if case == "dtype" else torch.float32
-    k = 6 if case == "head_size" else 8
+    k = 8
     x = torch.zeros((1, 2, 4, k), dtype=dtype)
     u = torch.zeros((3, k) if case == "u_shape" else (2, k))
     with pytest.raises(ValueError):
