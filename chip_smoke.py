@@ -31,9 +31,10 @@ Phases (any failure exits non-zero):
      and at P = N = 6 (padded to 8). wkv6 has two (``wkv6_k.tc_eligible``):
      the tensor-core one (K = 64) at ragged T, in the model's layout (one
      device kernel, no copy), and the first one at K = 16, 32 and 6. The
-     CUDA-core flash kernel is held at head_dim 48, 96 and 256 (GQA, f32
-     and bf16), and head_dim 320 must raise. Device times come from the
-     profiler beside the CUDA-event times;
+     CUDA-core flash kernel is held at head_dim 48, 96, 256, 320 and 512
+     (GQA, f32 and bf16; above 256 in slabs of 128 columns) and timed
+     there. Device times come from the profiler beside the CUDA-event
+     times;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve.main`` plus three more requests through one
      ``ServeScheduler``;
@@ -53,14 +54,25 @@ Phases (any failure exits non-zero):
      grad_accum 2 against 1, then 20 steps on one batch with the loss
      falling; then one f32 train step at SMOKE size on the card against the
      same step on the CPU;
-  9. a long relic_tiny forward and loss at [4, 2048] with the kernel against
+  9. the train driver, ``repro_torch.launch.train.main``, for relic_tiny at
+     full width: 30 steps of Relic-prefetched batches without and with an
+     async checkpoint every 10 steps, beside the same loop without the
+     driver's threads; then the chaos pair of
+     tests/test_checkpoint_crash.py:277-307 (a crash in the second save's
+     manifest, then --resume), the state restored onto the card held bit
+     for bit against the published files;
+ 10. the paper's nine workloads (``repro_torch.workloads``) serial and fused
+     outside any substrate, paired and chunked on ``relic``, every result
+     through its oracle: µs per instance and paired over serial;
+ 11. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6 and 7 are the main paths: each starts with every kernel's
 launch count at 0 and its counts are read when it ends; every flash launch
-there and in phase 9 must go through the wgmma design and every ssd and
+there and in phase 11 must go through the wgmma design and every ssd and
 wkv6 launch through the tensor-core one, and the quickstart's one
-relic_matmul launch through the f32 design; phase 8 must launch no kernel (training runs the
-plain paths, as the reference's does).
+relic_matmul launch through the f32 design; phases 8, 9 and 10 must launch
+no kernel (training runs the plain paths, as the reference's does, and the
+workloads' kernels were never Pallas ones).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the card's name and power limit and the one before that
@@ -74,10 +86,14 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+import warnings
+import zlib
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -86,13 +102,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import quickstart  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import relic_matmul as rm  # noqa: E402
 from repro_torch.kernels import ssd as ssd_k  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv6_k  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,  # noqa: E402
                                       make_train_state, make_train_step)
 from repro_torch.models import build_model  # noqa: E402
@@ -102,7 +120,11 @@ from repro_torch.models.convert import (train_state_from_numpy,  # noqa: E402
                                         train_state_to_numpy)
 from repro_torch.models.lm import lm_forward, lm_loss  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.runtime.chaos import FsCrash  # noqa: E402
 from repro_torch.serve import ServeScheduler  # noqa: E402
+from repro_torch.tasks.api import TaskScope  # noqa: E402
+from repro_torch.workloads import (available_workloads, make_workload,  # noqa: E402
+                                   split_instances)
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores and
 # HBM3 rate.
@@ -142,9 +164,10 @@ REDESIGNS = {"flash_attention": (fa, "wgmma_launches"),
              "ssd": (ssd_k, "tc_launches"),
              "wkv6": (wkv6_k, "tc_launches")}
 # Head sizes the CUDA-core flash kernel takes beyond the models' 64: the
-# next instance up (48) and instances of their own (96: phi3_mini; 256:
-# paligemma); (b, s, h, kv) GQA 4:1 at a ragged length, and the timed shape.
-FMA_HEAD_DIMS = (48, 96, 256)
+# next instance up (48), instances of their own (96: phi3_mini; 256:
+# paligemma) and the slabs of 128 columns above 256 (320, 512); (b, s, h,
+# kv) GQA 4:1 at a ragged length, and the timed shape.
+FMA_HEAD_DIMS = (48, 96, 256, 320, 512)
 FMA_HEAD_SHAPE = (2, 200, 8, 2)
 FMA_HEAD_TIMED = (2, 1024, 8, 2)
 SOURCES = ["flash_attention", "flash_attention_wgmma", "relic_matmul",
@@ -212,6 +235,10 @@ GATED_MLP = (2048, 2048, 768)   # relic_tiny's act(x@Wg)*(x@Wu) at 2048 tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 20
 TRAIN_OC = OptConfig(peak_lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 5),
                      total_steps=TRAIN_STEPS)
+# The train driver at the same batch: steps and checkpoint interval of the
+# timed runs.
+DRIVER_STEPS, DRIVER_CKPT_EVERY = 30, 10
+WORKLOAD_PASSES, WORKLOAD_REPS = 3, 5   # passes over the workloads; runs a pass
 
 
 def card_line() -> str:
@@ -561,7 +588,7 @@ def phase_kernel(device):
 
     # Head sizes beyond the models' 64 run the CUDA-core kernel: 48 on the
     # next instance up (columns zero-filled on chip), 96 and 256 on their
-    # own; above 256 the card raises and launches nothing.
+    # own, 320 and 512 in slabs of 128 columns.
     head_dims = []
     for d in FMA_HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
@@ -577,14 +604,6 @@ def phase_kernel(device):
                       TOL[dt], TOL[dt])
         q, k, v = _qkv(gen, *FMA_HEAD_TIMED, d, dtype, device)
         head_dims.append(time_fma(q, k, v))
-    q, k, v = _qkv(gen, 1, 64, 4, 2, 320, dtype, device)
-    try:
-        _launched("launches", 0, lambda: fa.flash_attention_cuda(q, k, v),
-                  "flash_attention_cuda d320")
-    except ValueError as e:
-        print(f"[kernel] flash_attention_cuda d320 raises: {e}")
-    else:
-        raise AssertionError("flash_attention_cuda took head_dim 320")
 
     # ops.flash_attention hands the model layout [B, S, H, D] to the wgmma
     # design as it is, at lengths no multiple of its tiles.
@@ -623,9 +642,10 @@ def phase_kernel(device):
                        "heaviest first; wgmma for both products (P from "
                        "registers); K/V by TMA into a 2-stage mbarrier ring "
                        "fed by one producer thread; 4-D tensor maps over the "
-                       "caller's strides; bf16 D=64. f32, every other D up "
-                       "to 256 (instances 16/32/64/96/128/256, the next one "
-                       "up for any other) and non-TMA layouts: "
+                       "caller's strides; bf16 D=64. f32, every other D "
+                       "(instances 16/32/64/96/128/256, the next one up for "
+                       "any other up to 256, slabs of 128 columns above) and "
+                       "non-TMA layouts: "
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
             "launches": None, "max_abs_err": max_err, **main,
             "other_shapes": [teacher, zamba], "head_dims": head_dims}
@@ -1323,6 +1343,221 @@ def phase_train(device):
         raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
     device_profile(lambda: step(state, batch),
                    f"train step [{TRAIN_BATCH}, {TRAIN_SEQ}]")
+    return ms
+
+
+class _StampedLines(io.TextIOBase):
+    """A stdout that keeps each line with the host clock at its end."""
+
+    def __init__(self):
+        self.lines: list[tuple[float, str]] = []
+        self._part = ""
+
+    def write(self, text):
+        self._part += text
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+
+def _driver(argv, label):
+    """``train.main(argv)`` with its log captured and echoed: (last loss,
+    [(step, loss, host clock)] of its step lines, the whole log)."""
+    out = _StampedLines()
+    with contextlib.redirect_stdout(out):
+        loss = train.main(argv)
+    steps = []
+    for t, line in out.lines:
+        print(f"[driver] {label}: {line}")
+        if line.startswith("step "):
+            f = line.split()
+            steps.append((int(f[1]), float(f[3]), t))
+    return loss, steps, "\n".join(line for _, line in out.lines)
+
+
+def _driver_ms(steps):
+    """Host ms a step over the logged steps after the first (every step is
+    logged, and each log line waits for its step's loss)."""
+    (s0, _, t0), (s1, _, t1) = steps[0], steps[-1]
+    return (t1 - t0) * 1e3 / (s1 - s0)
+
+
+def _hold_losses(label, steps, n):
+    losses = [x for _, x, _ in steps]
+    if len(losses) != n or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: {len(losses)} losses, want {n} finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    return losses
+
+
+def _bare_driver_loop(device):
+    """The driver's step loop without its threads: the same model, weights,
+    optimizer and SyntheticLM batches (made on the host beforehand), with
+    the driver's per-step reads of loss, lr and grad_norm. ms a step over
+    steps 2 to DRIVER_STEPS."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device)
+    state = make_train_state(model, torch.Generator().manual_seed(0))
+    oc = OptConfig(peak_lr=3e-4, warmup_steps=max(DRIVER_STEPS // 20, 5),
+                   total_steps=DRIVER_STEPS)
+    step = make_train_step(model, oc)
+    src = SyntheticLM(DataConfig(TRAIN_SEQ, TRAIN_BATCH, cfg.vocab_size))
+    batches = [src.batch(i) for i in range(DRIVER_STEPS)]
+    t0 = None
+    for i, b in enumerate(batches):
+        batch = {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+        state, metrics = step(state, batch)
+        float(metrics["loss"]), float(metrics["lr"]), float(metrics["grad_norm"])
+        if i == 0:
+            t0 = time.perf_counter()
+    return (time.perf_counter() - t0) * 1e3 / (DRIVER_STEPS - 1)
+
+
+def phase_train_driver(device, bare_ms):
+    """``repro_torch.launch.train.main`` as a user runs it, for relic_tiny at
+    full width on the card: Relic-prefetched batches, DRIVER_STEPS steps,
+    without and with checkpoints every DRIVER_CKPT_EVERY steps (the
+    serialize and publish stages on the Relic substrate), beside the same
+    loop without the driver's threads and phase 8's bare loop. Then the
+    chaos pair of tests/test_checkpoint_crash.py:277-307 with its own
+    arguments on the card (a crash in the second save's manifest, then
+    --resume), holding the state restored onto the card bit for bit
+    against the published files."""
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run = ["--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+           str(TRAIN_SEQ), "--device", device.type, "--steps",
+           str(DRIVER_STEPS), "--log-every", "1"]
+    try:
+        _, plain, _ = _driver(run, "no checkpoints")
+        _, saved, _ = _driver(run + ["--ckpt", ckpt, "--ckpt-every",
+                                     str(DRIVER_CKPT_EVERY)], "checkpoints")
+        losses = _hold_losses("driver", plain, DRIVER_STEPS)
+        _hold_losses("driver with checkpoints", saved, DRIVER_STEPS)
+        if CheckpointManager(ckpt, async_=False).latest_step() != DRIVER_STEPS:
+            raise AssertionError("the last save did not publish")
+        shutil.rmtree(ckpt)
+        loop_ms = _bare_driver_loop(device)
+        ms, ms_ckpt = _driver_ms(plain), _driver_ms(saved)
+        print(f"[driver] {ARCH} [{TRAIN_BATCH}, {TRAIN_SEQ}], {DRIVER_STEPS} "
+              f"steps, every loss read: {ms:.2f} ms/step without checkpoints, "
+              f"{ms_ckpt:.2f} with a checkpoint every {DRIVER_CKPT_EVERY} "
+              f"steps; the same loop without the driver's threads "
+              f"{loop_ms:.2f} (driver over it {ms / loop_ms:.3f}x); phase 8's "
+              f"bare loop {bare_ms:.2f}, reading no loss; losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite")
+
+        # The chaos pair: a crash in the second save's manifest, then --resume.
+        chaos = ["--arch", ARCH, "--smoke", "--batch", "4", "--seq", "32",
+                 "--log-every", "50", "--ckpt", ckpt, "--ckpt-every", "5",
+                 "--steps", "20", "--device", device.type]
+        try:
+            _driver(chaos + ["--ckpt-chaos", "manifest:1"], "chaos")
+        except FsCrash as e:
+            print(f"[driver] chaos: the run died mid-save as asked ({e})")
+        else:
+            raise AssertionError("the chaos run did not crash")
+        dirs = sorted(p.name for p in Path(ckpt).glob("step_*"))
+        if "step_00000005" not in dirs or "step_00000010" in dirs:
+            raise AssertionError(f"after the crash: {dirs}")
+        pub = Path(ckpt) / "step_00000005"
+        files = {}
+        for key, ent in json.loads((pub / "manifest.json").read_text())["entries"].items():
+            arr = np.load(pub / ent["file"])
+            if zlib.crc32(np.ascontiguousarray(arr).tobytes()) != ent["crc32"]:
+                raise AssertionError(f"{key}: published CRC mismatch")
+            files[key] = arr
+        cfg = get_config(ARCH, smoke=True)
+        template = train_state_to_numpy(make_train_state(
+            build_model(cfg, device), torch.Generator().manual_seed(0)))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            tree, step = CheckpointManager(ckpt, async_=False).restore(
+                template, device=device)
+        on_card = train_state_from_numpy(cfg, tree, device)
+        if on_card["params"]["embed"]["table"].device.type != device.type:
+            raise AssertionError("the restored state is not on the card")
+        back = dict(_flat_numpy(train_state_to_numpy(on_card)))
+        if step != 5 or set(back) != set(files):
+            raise AssertionError(f"restored step {step}, keys differ: "
+                                 f"{sorted(set(back) ^ set(files))[:4]}")
+        bad = [k for k, a in files.items() if back[k].tobytes() != a.tobytes()]
+        if bad:
+            raise AssertionError(f"restored state differs from the files: {bad[:4]}")
+        print(f"[driver] chaos: step 5 restored onto the card bit-identical to "
+              f"its {len(files)} published files")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            loss, _, log = _driver(chaos + ["--resume"], "resume")
+        if "resumed from step 5" not in log or not np.isfinite(loss):
+            raise AssertionError(f"resume: loss {loss}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return ms, ms_ckpt, loop_ms
+
+
+def _flat_numpy(tree, prefix=""):
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat_numpy(v, key)
+        else:
+            yield key, np.asarray(v)
+
+
+def phase_workloads(device, card):
+    """The paper's table on the card: each of the nine workloads (its
+    instances on their own copies of the paper's inputs) run ``serial``
+    and ``fused`` (one batched call) outside any substrate, as the
+    reference's harness times its baseline (``benchmarks/run.py:338-343``),
+    and ``paired`` and ``chunked`` on a ``relic`` substrate; every result
+    through the workload's oracle. WORKLOAD_PASSES passes over all
+    workloads, WORKLOAD_REPS timed runs of each variant a pass. Prints µs
+    per instance (the median run) and the paired-over-serial speedup, the
+    paper's metric."""
+    loads = {name: make_workload(name, device=device)
+             for name in available_workloads()}
+    times = {name: {k: [] for k in ("serial", "paired", "chunked", "fused")}
+             for name in loads}
+
+    def timed(w, name, variant, fn, first):
+        if first:                          # warm, then hold to the oracle
+            w.check(fn())
+        for _ in range(WORKLOAD_REPS):
+            t0 = time.perf_counter()
+            res = fn()
+            times[name][variant].append(time.perf_counter() - t0)
+            w.check(res)
+
+    for p in range(WORKLOAD_PASSES):
+        for name, w in loads.items():
+            timed(w, name, "serial", w.serial, p == 0)
+            timed(w, name, "fused", lambda: split_instances(
+                w.fused_task()(), w.n_instances), p == 0)
+            with TaskScope("relic") as scope:
+                timed(w, name, "paired", lambda: w.paired(scope), p == 0)
+                timed(w, name, "chunked", lambda: w.chunked(scope, grain=1),
+                      p == 0)
+    bc = loads["bc"]
+    device_profile(bc.serial, "workload bc serial, 2 instances")
+    with TaskScope("relic") as scope:
+        device_profile(lambda: bc.paired(scope), "workload bc paired, 2 instances")
+    rows = {}
+    for name, w in loads.items():
+        us = {k: float(np.median(v)) * 1e6 / w.n_instances
+              for k, v in times[name].items()}
+        rows[name] = dict(us, speedup=us["serial"] / us["paired"])
+        print(f"[workloads] {name}: µs per instance serial {us['serial']:.1f}, "
+              f"paired {us['paired']:.1f}, chunked {us['chunked']:.1f}, fused "
+              f"{us['fused']:.1f}; paired over serial "
+              f"{rows[name]['speedup']:.3f}x ({w.n_instances} instances, "
+              f"{WORKLOAD_PASSES} x {WORKLOAD_REPS} runs of each, every "
+              f"result through its oracle)")
+    print(f"[workloads] on {card}: " + json.dumps(
+        {n: {k: round(v, 3) for k, v in r.items()} for n, r in rows.items()}))
+    return rows
 
 
 def phase_card_vs_cpu(device):
@@ -1441,10 +1676,24 @@ def main() -> int:
 
     # Training runs the plain paths: no kernel launch.
     _reset_launches()
-    phase_train(device)
+    bare_ms = phase_train(device)
     phase_card_vs_cpu(device)
     _count_path("training", {}, entries)
     torch.cuda.empty_cache()
+
+    # The train driver (prefetched data, async checkpoints, --resume) and
+    # the paper's workloads: no kernel launch either.
+    _reset_launches()
+    t0 = time.perf_counter()
+    phase_train_driver(device, bare_ms)
+    _count_path("train driver", {}, entries)
+    torch.cuda.empty_cache()
+    _reset_launches()
+    t1 = time.perf_counter()
+    phase_workloads(device, card)
+    _count_path("workloads", {}, entries)
+    print(f"[main] train driver {t1 - t0:.1f} s, workloads "
+          f"{time.perf_counter() - t1:.1f} s")
 
     phase_long(*relic, device)
 

@@ -16,13 +16,14 @@ designs share the work, chosen by a predicate on the inputs
   the tensor cores through wgmma, K and V fed by TMA into an mbarrier ring
   by a producer warp, tensor maps over the caller's own strides, so no
   layout copy is made;
-- ``csrc/flash_attention.cu`` (f32, every other head_dim up to
-  ``MAX_FMA_HEAD_DIM``, and layouts TMA cannot describe): the CUDA-core
-  kernel, f32 on the CUDA cores, over contiguous copies. It has instances
-  at head_dim 16, 32, 64, 96, 128 and 256; any other head_dim runs the next
-  one up, with the columns past it zero-filled on chip. Above 256 the card
-  raises (no instance fits a block's shared memory); the plain version on
-  the CPU takes every head_dim, as the reference does.
+- ``csrc/flash_attention.cu`` (f32, every other head_dim, and layouts TMA
+  cannot describe): the CUDA-core kernel, f32 on the CUDA cores, over
+  contiguous copies. It has instances at head_dim 16, 32, 64, 96, 128 and
+  256; any other head_dim up to 256 runs the next one up, with the columns
+  past it zero-filled on chip. Above 256 it runs the head dimension in
+  slabs of 128 columns (each CTA one slab of output columns, the scores
+  summed slab by slab), so the card takes every head_dim the reference
+  takes.
 
 Both keep the TPU kernel's structure: the online softmax (m, l, acc) in f32,
 never writing the S x S scores to device memory, and never loading kv tiles
@@ -42,7 +43,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref as flash_attention_plain
 
-MAX_FMA_HEAD_DIM = 256   # the CUDA-core kernel's largest instance
 WGMMA_HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STRIDE_BYTES = 1 << 40   # a TMA map's byte strides stay below 2^40
@@ -140,9 +140,6 @@ def flash_attention_wgmma(q, k, v, *, causal: bool = True):
 
 def _launch_fma(q, k, v, causal):
     global launches
-    if q.shape[3] > MAX_FMA_HEAD_DIM:
-        raise ValueError(f"head_dim {q.shape[3]} is above the card kernel's "
-                         f"{MAX_FMA_HEAD_DIM}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -163,7 +160,7 @@ def _launch_fma(q, k, v, causal):
 
 def flash_attention_fma(q, k, v, *, causal: bool = True):
     """Launch the CUDA-core kernel (f32 math on the CUDA cores; f32 or
-    bf16, head_dim up to 256) on contiguous copies of the inputs."""
+    bf16, any head_dim) on contiguous copies of the inputs."""
     _require_cuda("flash_attention_fma", q, k, v)
     _check(q, k, v)
     return _launch_fma(q, k, v, causal)

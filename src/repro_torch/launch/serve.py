@@ -19,23 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.devices import resolve_device, synchronize
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import build_model
 from repro_torch.serve import ServeScheduler
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {name!r} asked for, but "
-                           "torch.cuda.is_available() is False")
-    return device
-
-
-def synchronize(device: torch.device):
-    """Wait for the card, so a host clock read after this sees finished work."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def load_model(arch: str, *, smoke: bool, device: torch.device):

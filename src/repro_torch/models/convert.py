@@ -72,16 +72,25 @@ def _arrays_by_name(params, tree: dict, what: str):
             yield name, arr
 
 
+def _f32(arr, device) -> torch.Tensor:
+    """A float32 copy of a leaf on ``device``: a numpy array (bfloat16
+    leaves may be ml_dtypes arrays) or a tensor on any device, as
+    ``checkpoint.CheckpointManager.restore`` returns them. Never a view."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().to(device=device, dtype=torch.float32, copy=True)
+    return torch.tensor(np.asarray(arr, np.float32)).to(device)
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> nn.ModuleDict:
     """The port's parameters from the JAX package's parameter tree, given as
-    nested dicts of numpy arrays (bfloat16 leaves may be ml_dtypes arrays;
-    they widen to float32 exactly on the way)."""
+    nested dicts of numpy arrays or tensors (bfloat16 leaves widen to
+    float32 exactly on the way)."""
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), "meta")
     pd = dt(cfg.param_dtype)
     for name, arr in list(_arrays_by_name(params, tree, "parameter")):
         holder, _, key = name.rpartition(".")
-        t = torch.tensor(np.asarray(arr, np.float32))  # a copy, never a view
-        params.get_submodule(holder)[key] = nn.Parameter(t.to(device=device, dtype=pd))
+        t = _f32(arr, device)
+        params.get_submodule(holder)[key] = nn.Parameter(t.to(dtype=pd))
     return params
 
 
@@ -107,14 +116,14 @@ def params_to_numpy(params: nn.ModuleDict) -> dict:
 
 def train_state_from_numpy(cfg: ModelConfig, state: dict, device="cpu") -> dict:
     """The port's train state (``launch.steps.make_train_state``'s layout)
-    from the JAX package's, given as nested dicts of numpy arrays:
-    params, opt.mu, opt.nu (f32) and step."""
+    from the JAX package's, given as nested dicts of numpy arrays or
+    tensors: params, opt.mu, opt.nu (f32) and step."""
     params = params_from_numpy(cfg, state["params"], device)
-    opt = {k: {name: torch.tensor(np.asarray(arr, np.float32), device=device)
+    opt = {k: {name: _f32(arr, device)
                for name, arr in _arrays_by_name(params, state["opt"][k],
                                                 f"optimizer {k}")}
            for k in ("mu", "nu")}
-    return {"params": params, "opt": opt, "step": int(np.asarray(state["step"]))}
+    return {"params": params, "opt": opt, "step": int(state["step"])}
 
 
 def train_state_to_numpy(state: dict) -> dict:

@@ -22,10 +22,13 @@ SHAPES = [  # (b, s, h, kv, d, bq, bk): tests/test_kernels.py:55-60
     (1, 96, 4, 2, 16, 64, 64),      # unaligned S (the JAX side takes its
                                     # reference path; the port has no tiles)
     # Head sizes the reference takes and the card runs on the next instance
-    # up (48) or on instances of their own (96, 256), GQA 2:1.
+    # up (48), on instances of their own (96, 256) or in slabs of 128
+    # columns (320, 512), GQA 2:1.
     (1, 128, 4, 2, 48, 64, 64),
     (1, 128, 4, 2, 96, 64, 64),
     (1, 128, 4, 2, 256, 64, 64),
+    (1, 128, 4, 2, 320, 64, 64),
+    (1, 128, 4, 2, 512, 64, 64),
 ]
 
 
@@ -105,9 +108,9 @@ def test_unsupported_inputs_raise(dtype, d):
 
 @pytest.mark.parametrize("d", [48, 96, 256, 300])
 def test_card_entry_refuses_cpu_tensors_before_any_size_check(d):
-    # Even at a head size above the card kernel's largest instance (300),
-    # the card entry's first refusal is the device, and no launch is
-    # counted; the CPU path computes every size.
+    # At every head size, the slab sizes above 256 (300) included, the
+    # card entry's first refusal is the device, and no launch is counted;
+    # the CPU path computes every size.
     q = torch.ones((1, 2, 8, d))
     k = torch.ones((1, 1, 8, d))
     before = (fa.launches, fa.wgmma_launches)

@@ -38,6 +38,8 @@ COPIED = [
     "serve/__init__.py", "serve/request.py", "serve/metrics.py",
     "serve/ingest.py", "serve/retry.py", "serve/scheduler.py", "serve/loadgen.py",
     "tasks/api.py",
+    "stream/__init__.py", "stream/stage.py", "stream/pipeline.py",
+    "stream/farm.py", "data/__init__.py", "data/pipeline.py",
 ]
 
 
@@ -56,15 +58,45 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.kernels.ssd, repro_torch.models.rwkv6, "
         "repro_torch.models.mamba2, repro_torch.core, repro_torch.runtime, "
         "repro_torch.quickstart, repro_torch.optim, repro_torch.tasks, "
-        "repro_torch.kernels.relic_matmul\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
-        "m.startswith(('jax.', 'repro.')))\n"
+        "repro_torch.kernels.relic_matmul, repro_torch.launch.train, "
+        "repro_torch.checkpoint, repro_torch.data, repro_torch.stream, "
+        "repro_torch.tasks.graph, repro_torch.tasks.jsonparse, "
+        "repro_torch.workloads\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
+        "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_stream_layer_has_no_locks():
+    """tests/test_stream.py:238-257 on the port: no lock and no MPMC queue
+    on the streaming path, the prefetch pipeline or the checkpoint manager;
+    composition of 1P1C rings replaces them."""
+    import inspect
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import PrefetchPipeline
+    from repro_torch.stream import farm, pipeline, stage
+
+    for mod in (stage, pipeline, farm):
+        src = inspect.getsource(mod)
+        assert "Lock(" not in src, mod.__name__
+        assert "queue.Queue" not in src, mod.__name__
+    for cls in (PrefetchPipeline, CheckpointManager):
+        assert "Lock" not in inspect.getsource(cls), cls.__name__
+
+
+def test_prefetch_pipeline_and_checkpoint_manager_hold_no_lock(tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, PrefetchPipeline, SyntheticLM
+
+    dc = DataConfig(8, 4, 50)
+    assert not hasattr(PrefetchPipeline(SyntheticLM(dc), dc), "_push_lock")
+    assert not hasattr(CheckpointManager(tmp_path, async_=False), "_write_lock")
 
 
 # ---------------------------------------------------------------------------
