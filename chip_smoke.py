@@ -33,8 +33,11 @@ Phases (any failure exits non-zero):
      device kernel, no copy), and the first one at K = 16, 32 and 6. The
      CUDA-core flash kernel is held at head_dim 48, 96, 256, 320 and 512
      (GQA, f32 and bf16; above 256 in slabs of 128 columns) and timed
-     there. Device times come from the profiler beside the CUDA-event
-     times;
+     there, and at granite_8b's attention (q [8, 32, 192, 128], 8 kv
+     heads); the wgmma design at whisper_large_v3's three (the encoder's
+     [8, 20, 1500, 64] and the cross-attention's Sq 192 against Sk 1500,
+     non-causal; the decoder's causal [8, 20, 192, 64]). Device times come
+     from the profiler beside the CUDA-event times;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve.main`` plus three more requests through one
      ``ServeScheduler``;
@@ -47,32 +50,46 @@ Phases (any failure exits non-zero):
   6. serve zamba2_1p2b (38 Mamba-2 layers and 6 applications of the shared
      attention block, d_model 2048) and run its teacher-forced forward
      through the ssd and flash-attention kernels, the same way;
-  7. the quickstart path, ``repro_torch.quickstart.main`` at full width: the
+  7. the other families at full width, each a main path of its own:
+     granite_8b (36 layers, head_dim 128) served through ``serve.main``,
+     its teacher-forced forward through 36 launches of the CUDA-core flash
+     kernel at the dense bf16 bars; whisper_large_v3 (32 + 32 layers)
+     served (frames -> encode -> cross K/V -> prefill -> decode), its
+     forward over the served frames through 96 wgmma launches (encoder,
+     decoder and cross-attention; held first at its own shapes in phase
+     2), then its loss forward; arctic_480b at full width with its depth cut
+     to one layer (the init's shapes and scales, the forward through one
+     launch with its routing tables checked, decode against teacher
+     forcing drop-free); paligemma_3b served (text) and its loss forward
+     over 256 patches and 192 tokens with no launch (the prefix path);
+  8. the quickstart path, ``repro_torch.quickstart.main`` at full width: the
      tasking façade, one train step, eight decode steps and one
      ``ops.matmul`` through the relic_matmul kernel;
-  8. training relic_tiny at full width (f32 parameters, bf16 compute):
+  9. training relic_tiny at full width (f32 parameters, bf16 compute):
      grad_accum 2 against 1, then 20 steps on one batch with the loss
-     falling; then one f32 train step at SMOKE size on the card against the
-     same step on the CPU;
-  9. the train driver, ``repro_torch.launch.train.main``, for relic_tiny at
+     falling; five steps with gradient compression beside five without and
+     one Adafactor step; then one f32 train step at SMOKE size on the card
+     against the same step on the CPU;
+ 10. the train driver, ``repro_torch.launch.train.main``, for relic_tiny at
      full width: 30 steps of Relic-prefetched batches without and with an
      async checkpoint every 10 steps, beside the same loop without the
      driver's threads; then the chaos pair of
      tests/test_checkpoint_crash.py:277-307 (a crash in the second save's
      manifest, then --resume), the state restored onto the card held bit
      for bit against the published files;
- 10. the paper's nine workloads (``repro_torch.workloads``) serial and fused
+ 11. the paper's nine workloads (``repro_torch.workloads``) serial and fused
      outside any substrate, paired and chunked on ``relic``, every result
      through its oracle: µs per instance and paired over serial;
- 11. a long relic_tiny forward and loss at [4, 2048] with the kernel against
+ 12. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
-Phases 3-4, 5, 6 and 7 are the main paths: each starts with every kernel's
-launch count at 0 and its counts are read when it ends; every flash launch
-there and in phase 11 must go through the wgmma design and every ssd and
-wkv6 launch through the tensor-core one, and the quickstart's one
-relic_matmul launch through the f32 design; phases 8, 9 and 10 must launch
-no kernel (training runs the plain paths, as the reference's does, and the
-workloads' kernels were never Pallas ones).
+Phases 3-4, 5, 6, each family of 7, and 8 are the main paths: each starts
+with every kernel's launch count at 0 and its counts are read when it ends;
+every flash launch there and in phase 12 must go through the wgmma design
+(granite's and arctic's, head_dim 128, through the CUDA-core kernel) and
+every ssd and wkv6 launch through the tensor-core one, and the
+quickstart's one relic_matmul launch through the f32 design; phases 9, 10
+and 11 must launch no kernel (training runs the plain paths, as the
+reference's does, and the workloads' kernels were never Pallas ones).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the card's name and power limit and the one before that
@@ -86,6 +103,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -105,6 +123,7 @@ from repro_torch import quickstart  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.devices import synchronize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import relic_matmul as rm  # noqa: E402
@@ -115,11 +134,15 @@ from repro_torch.launch.steps import (make_prefill_step, make_serve_step,  # noq
                                       make_train_state, make_train_step)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import mamba2 as m2  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import rwkv6 as r6  # noqa: E402
 from repro_torch.models.convert import (train_state_from_numpy,  # noqa: E402
                                         train_state_to_numpy)
+from repro_torch.models.encdec import encdec_loss  # noqa: E402
 from repro_torch.models.lm import lm_forward, lm_loss  # noqa: E402
-from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.optim import (AdafactorConfig, OptConfig,  # noqa: E402
+                               adafactor_update, clip_by_global_norm,
+                               init_adafactor_state, schedule)
 from repro_torch.runtime.chaos import FsCrash  # noqa: E402
 from repro_torch.serve import ServeScheduler  # noqa: E402
 from repro_torch.tasks.api import TaskScope  # noqa: E402
@@ -210,6 +233,34 @@ MAIN_PATHS = [(ARCH, GEN, {"flash_attention": 12}, True),
               ("rwkv6_1p6b", 64, {"wkv6": 24}, False),
               ("zamba2_1p2b", 128, {"ssd": 38, "flash_attention": 6}, False)]
 QUICKSTART_LAUNCHES = {"relic_matmul": 1}   # its ops.matmul (quickstart.py)
+# The other families at full width, served and forwarded as the paths above
+# (batch 8, prompt 128, 64 tokens; the teacher-forced forwards over 192
+# tokens). granite_8b is full depth (36 layers, head_dim 128: the CUDA-core
+# flash kernel); whisper_large_v3 full depth (32 + 32 layers, 20 heads of 64
+# over 1500 frames: the wgmma design in the encoder, the decoder and its
+# cross-attention); paligemma_3b full depth (its image prefix keeps every
+# attention off the kernels); arctic_480b full width with its depth cut to
+# ARCTIC_LAYERS (128 experts of d_ff 4864 at d_model 7168 are 14.1 B
+# parameters a layer, 28.1 GB in bf16), not served through the CLI, which
+# takes no depth.
+GRANITE, WHISPER, ARCTIC, PALIGEMMA = ("granite_8b", "whisper_large_v3",
+                                       "arctic_480b", "paligemma_3b")
+ARCTIC_LAYERS = 1
+TEXT_LEN = PROMPT_LEN + GEN
+GRANITE_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 8, 128)   # (b, s, h, kv, d)
+# whisper_large_v3's attentions: (label, (b, s, h, kv, d), causal, sk)
+WHISPER_ATTN = [("encoder self-attention", (SERVE_BATCH, 1500, 20, 20, 64),
+                 False, None),
+                ("decoder cross-attention", (SERVE_BATCH, TEXT_LEN, 20, 20, 64),
+                 False, 1500),
+                ("decoder self-attention", (SERVE_BATCH, TEXT_LEN, 20, 20, 64),
+                 True, None)]
+# Flash launches of each new path's counted forward: one a layer and
+# attention (whisper: 32 encoder, 32 decoder self, 32 cross), and how many
+# of them run the CUDA-core kernel (head_dim 128) rather than the wgmma one.
+GRANITE_LAUNCHES, WHISPER_LAUNCHES = 36, 96
+ARCTIC_DECODE = 16   # forced tokens of arctic's decode check
+OPTIM_STEPS = 5      # train steps of relic_tiny with gradient compression
 # relic_matmul: f32 rtol 2e-4 / atol 1e-2 (tests/test_kernels.py:35-37); bf16
 # rtol 2e-2 / atol 2e-1, tighter than the tests' 2e-1 / 10. The gated form:
 # rtol 2e-2, atol 2e-2 in f32 and 2.0 in bf16 (tests/test_kernels.py:48-50).
@@ -494,29 +545,29 @@ def _launched(counter: str, n: int, fn, label: str):
     return out
 
 
-def time_flash(label, q, k, v, iters):
-    """The wgmma design at one causal bf16 shape beside the CUDA-core
-    kernel, the plain version, SDPA (the library yardstick, kv heads
-    repeated outside the timed call; the port never calls it) and the
-    bound: CUDA-event times of back-to-back calls (at small shapes the
-    host's issue rate) and the profiler's device times. Returns the numbers
-    as one dict."""
+def time_flash(label, q, k, v, iters, causal=True):
+    """The wgmma design at one bf16 shape beside the CUDA-core kernel, the
+    plain version, SDPA (the library yardstick, kv heads repeated outside
+    the timed call; the port never calls it) and the bound: CUDA-event
+    times of back-to-back calls (at small shapes the host's issue rate) and
+    the profiler's device times. Returns the numbers as one dict."""
     h, kv = q.shape[1], k.shape[1]
     k_rep = torch.repeat_interleave(k, h // kv, dim=1)
     v_rep = torch.repeat_interleave(v, h // kv, dim=1)
-    ms = time_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=True), iters)
-    fma_ms = time_ms(lambda: fa.flash_attention_fma(q, k, v, causal=True),
+    ms = time_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=causal), iters)
+    fma_ms = time_ms(lambda: fa.flash_attention_fma(q, k, v, causal=causal),
                      max(iters // 4, 3))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
                        max(iters // 4, 3))
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k_rep, v_rep, is_causal=True), iters)
-    device_ms = kernel_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=True))
+        q, k_rep, v_rep, is_causal=causal), iters)
+    device_ms = kernel_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=causal))
     library_device_ms = kernel_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k_rep, v_rep, is_causal=True))
-    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, True)
-    shape = f"q{list(q.shape)} kv{list(k.shape)} bf16 causal"
+            q, k_rep, v_rep, is_causal=causal))
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, causal)
+    shape = (f"q{list(q.shape)} kv{list(k.shape)} bf16 "
+             f"{'causal' if causal else 'non-causal'}")
     tflops = flops / (device_ms or ms) / 1e9
 
     def fmt(x):
@@ -625,6 +676,22 @@ def phase_kernel(device):
                                   ZAMBA_ATTN_SHAPE, dtype, True, device)
     zamba = {**time_flash("zamba2 shared-attention shape", q, k, v, 50),
              "max_abs_err": err}
+    # granite_8b's attention (head_dim 128: the CUDA-core kernel) and
+    # whisper_large_v3's (20 heads, 1500 frames, Sq 192 against Sk 1500:
+    # shapes new to the wgmma design), each held against the plain version
+    # before its path relies on it, and timed.
+    (q, k, v), err = check_kernel(fa.flash_attention_fma, gen,
+                                  GRANITE_ATTN_SHAPE, dtype, True, device)
+    granite = {**time_fma(q, k, v), "max_abs_err": err,
+               "design": "CUDA-core kernel", "path": GRANITE}
+    whisper = []
+    for label, shape, causal, sk in WHISPER_ATTN:
+        (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
+                                      dtype, causal, device, sk=sk)
+        whisper.append({**time_flash(f"{WHISPER} {label}", q, k, v, 20,
+                                     causal=causal),
+                        "max_abs_err": err, "path": WHISPER})
+    del q, k, v
     (q, k, v), max_err = check_kernel(fa.flash_attention_wgmma, gen, MAIN_SHAPE,
                                       dtype, True, device)
     main = time_flash("main shape", q, k, v, 20)
@@ -648,7 +715,8 @@ def phase_kernel(device):
                        "non-TMA layouts: "
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
             "launches": None, "max_abs_err": max_err, **main,
-            "other_shapes": [teacher, zamba], "head_dims": head_dims}
+            "other_shapes": [teacher, zamba, granite, *whisper],
+            "head_dims": head_dims}
 
 
 def _hold(name, got, want, rtol, atol):
@@ -989,32 +1057,72 @@ def decode_outside(cfg, model, params, device):
     t0 = time.perf_counter()
     decode()
     torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
     print(f"[serve] {cfg.name}: decode step outside the scheduler, batch "
-          f"{SERVE_BATCH}: {(time.perf_counter() - t0) / n_steps * 1e3:.2f} "
-          f"ms/step")
+          f"{SERVE_BATCH}: {ms:.2f} ms/step")
     device_profile(decode, f"{cfg.name}: {n_steps} decode steps, batch "
                            f"{SERVE_BATCH}")
+    return ms
+
+
+class _Tee(io.TextIOBase):
+    """A stdout that also keeps what is written to it."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.out.write(text)
+        self.parts.append(text)
+        return len(text)
 
 
 def serve_main(arch, gen, device):
-    """``serve.main`` as a user runs it, at full width."""
+    """``serve.main`` as a user runs it, at full width. Returns the served
+    tokens, the (cfg, model, params) it served with, kept from its call of
+    ``serve.load_model`` (timed here: the weights drawn from the host
+    generator, then moved to the card), so the checks that follow run on
+    the served weights without drawing them again, and {"init_s",
+    "ms_per_step", "ttft_ms"} as the run printed them."""
     argv = ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
             str(PROMPT_LEN), "--gen", str(gen), "--device", device.type]
-    t0 = time.perf_counter()
-    gen_toks = serve.main(argv)
-    print(f"[serve] main({' '.join(argv)}) took {time.perf_counter() - t0:.1f} s")
+    load, loaded = serve.load_model, []
+
+    def timed_load(*args, **kw):
+        t = time.perf_counter()
+        out = load(*args, **kw)
+        synchronize(device)
+        loaded.append((out, time.perf_counter() - t))
+        return out
+
+    serve.load_model = timed_load
+    tee = _Tee(sys.stdout)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            gen_toks = serve.main(argv)
+    finally:
+        serve.load_model = load
+    (cfg, model, params), init_s = loaded[0]
+    ms_step, ttft = map(float, re.search(r"\(([\d.]+) ms/step, ttft ([\d.]+) ms",
+                                         "".join(tee.parts)).groups())
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[serve] main({' '.join(argv)}) took {time.perf_counter() - t0:.1f} "
+          f"s, of which the init {init_s:.1f} s ({n_params / 1e9:.3f} B "
+          f"parameters, {n_params * 2 / 1e9:.2f} GB in bf16, drawn from "
+          f"torch.Generator().manual_seed(0) on the host)")
     if tuple(gen_toks.shape) != (SERVE_BATCH, gen):
         raise AssertionError(f"served shape {tuple(gen_toks.shape)}")
-    return gen_toks
+    return gen_toks, (cfg, model, params), {"init_s": init_s,
+                                            "ms_per_step": ms_step,
+                                            "ttft_ms": ttft}
 
 
 def phase_serve(device):
-    gen_toks = serve_main(ARCH, GEN, device)
-
-    # The served weights again (the same seed), then three more requests
-    # through one scheduler, each prefilling inside its work function so its
-    # TTFT covers the prefill.
-    cfg, model, params = serve.load_model(ARCH, smoke=False, device=device)
+    # Then three more requests on the served weights through one
+    # scheduler, each prefilling inside its work function so its TTFT
+    # covers the prefill.
+    gen_toks, (cfg, model, params), _ = serve_main(ARCH, GEN, device)
     serve_step, prefill = make_serve_step(model), make_prefill_step(model)
     n_req, plen, ngen = 3, 32, 16
 
@@ -1052,37 +1160,47 @@ def _reset_launches():
         setattr(mod, attr, 0)
 
 
-def _count_path(label, want, entries):
+def _count_path(label, want, entries, fma_flash=0):
     """The launches since the last reset must be exactly ``want`` ({kernel:
-    count}); every flash attention, ssd and wkv6 launch must take its
-    redesigned design (wgmma; tensor cores), and no relic_matmul launch the
-    wgmma one (the only product on a main path, the quickstart's, is f32). The counts
-    are added to the kernels' entries of the numbers line."""
+    count}); every ssd and wkv6 launch must take its redesigned design
+    (tensor cores), every flash launch the wgmma one but ``fma_flash`` (the
+    CUDA-core kernel: head_dim 128 of granite and arctic), and no
+    relic_matmul launch the wgmma one (the only product on a main path, the
+    quickstart's, is f32). The counts are added to the kernels' entries of
+    the numbers line, in total and by path."""
     got = {n: c for n, c in _launches().items() if c}
     redesigned = {n: getattr(mod, attr) for n, (mod, attr) in REDESIGNS.items()}
     print(f"[main] {label}: kernel launches {got}; through the redesigned "
           f"designs {redesigned}")
     if got != want:
         raise AssertionError(f"{label} launched {got}, want {want}")
-    expect = {"flash_attention": got.get("flash_attention", 0),
+    expect = {"flash_attention": got.get("flash_attention", 0) - fma_flash,
               "ssd": got.get("ssd", 0), "wkv6": got.get("wkv6", 0),
               "relic_matmul": 0, "relic_matmul_gated": 0}
     if redesigned != expect:
         raise AssertionError(f"{label}: launches through the redesigned "
                              f"designs {redesigned}, want {expect}")
-    for name, count in got.items():
-        entries[name]["launches"] += count
+    for name, entry in entries.items():
+        entry["launches"] += got.get(name, 0)
+        entry.setdefault("launches_by_path", {})[label] = got.get(name, 0)
     for name, count in redesigned.items():
         entries[name]["redesign_launches"] = (
             entries[name].get("redesign_launches", 0) + count)
 
 
-def _timed_forward(cfg, params, tokens):
+def _forward(cfg, params, tokens, extra=None):
+    """(logits, aux) of ``Model.forward``: ``extra`` is the
+    encoder-decoder's frames (required) or the VLM's patches (a prefix)."""
+    return build_model(cfg, tokens.device).forward(
+        params, tokens, *(() if extra is None else (extra,)))
+
+
+def _timed_forward(cfg, params, tokens, extra=None):
     """(logits, ms): one warm call, then one timed on the host clock."""
-    lm_forward(cfg, params, tokens)
+    _forward(cfg, params, tokens, extra)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, _ = lm_forward(cfg, params, tokens)
+    out, _ = _forward(cfg, params, tokens, extra)
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
 
@@ -1096,23 +1214,24 @@ def _agree(logits_a, logits_b) -> float:
 
 
 @torch.no_grad()
-def phase_forward(cfg, params, gen_toks, want, bf16_bar, device):
+def phase_forward(cfg, params, gen_toks, want, bf16_bar, device, extra=None):
     """The teacher-forced forward over prompt plus served tokens with the
-    kernels (bf16, as served): exactly ``want`` launches ({kernel: count});
-    where ``bf16_bar``, logits within MODEL_TOL of the plain forward and
-    greedy agreement with the served tokens above 0.9. Returns (tokens,
-    kernel logits, plain logits)."""
+    kernels (bf16, as served; the encoder-decoder over ``extra``, the served
+    frames): exactly ``want`` launches ({kernel: count}); where
+    ``bf16_bar``, logits within MODEL_TOL of the plain forward and greedy
+    agreement with the served tokens above 0.9. Returns (tokens, kernel
+    logits, plain logits)."""
     gen = gen_toks.shape[1]
     prompts = serve.make_prompts(cfg, SERVE_BATCH, PROMPT_LEN, device)
     tokens = torch.cat([prompts, gen_toks], dim=1)
     cfg_k = cfg.replace(use_kernels=True)
     before = _launches()
-    logits_k, _ = lm_forward(cfg_k, params, tokens)
+    logits_k, _ = _forward(cfg_k, params, tokens, extra)
     torch.cuda.synchronize()
     got = {n: c - before[n] for n, c in _launches().items() if c != before[n]}
     if got != want:
         raise AssertionError(f"{cfg.name}: kernel launches {got}, want {want}")
-    logits_p, _ = lm_forward(cfg, params, tokens)
+    logits_p, _ = _forward(cfg, params, tokens, extra)
     if not (torch.isfinite(logits_k).all() and torch.isfinite(logits_p).all()):
         raise AssertionError(f"{cfg.name}: non-finite logits")
     err = (logits_k - logits_p).abs().max().item()
@@ -1191,30 +1310,28 @@ def check_layers(cfg, params, tokens):
 
 
 @torch.no_grad()
-def time_forwards(cfg, params, tokens):
+def time_forwards(cfg, params, tokens, extra=None):
     """The teacher-forced forward with the kernels and the plain one, timed
     outside the counted main path, and the kernel forward's device time
     under the profiler."""
     cfg_k = cfg.replace(use_kernels=True)
-    _, ms_k = _timed_forward(cfg_k, params, tokens)
-    _, ms_p = _timed_forward(cfg, params, tokens)
+    _, ms_k = _timed_forward(cfg_k, params, tokens, extra)
+    _, ms_p = _timed_forward(cfg, params, tokens, extra)
     print(f"[forward] {cfg.name} tokens {list(tokens.shape)}: forward with "
           f"kernels {ms_k:.2f} ms, plain {ms_p:.2f} ms")
-    device_profile(lambda: lm_forward(cfg_k, params, tokens),
+    device_profile(lambda: _forward(cfg_k, params, tokens, extra),
                    f"{cfg.name} forward {list(tokens.shape)} with the kernels")
+    return {"forward_ms": ms_k, "plain_forward_ms": ms_p}
 
 
 def phase_recurrent(arch, gen, device):
     """Serve a recurrent family at full width; returns (cfg, params, served
     tokens)."""
-    gen_toks = serve_main(arch, gen, device)
-    cfg, model, params = serve.load_model(arch, smoke=False, device=device)
-    n_params = sum(p.numel() for p in params.parameters())
+    gen_toks, (cfg, model, params), _ = serve_main(arch, gen, device)
     cache = model.init_cache(SERVE_BATCH, PROMPT_LEN + gen)
     state_bytes = sum(t.nbytes for t in _tensors(cache))
-    print(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters "
-          f"({n_params * 2 / 1e9:.2f} GB in bf16), decode cache at batch "
-          f"{SERVE_BATCH} {state_bytes / 1e9:.3f} GB")
+    print(f"[serve] {cfg.name}: decode cache at batch {SERVE_BATCH} "
+          f"{state_bytes / 1e9:.3f} GB")
     del cache
     decode_outside(cfg, model, params, device)
     return cfg, params, gen_toks
@@ -1597,6 +1714,331 @@ def phase_card_vs_cpu(device):
         raise AssertionError(f"parameter updates differ by {rel_delta}")
 
 
+# ---------------------------------------------------------------------------
+# The other families: dense (granite), encoder-decoder (whisper), MoE
+# (arctic) and the VLM's prefix path (paligemma)
+# ---------------------------------------------------------------------------
+
+def phase_granite(device, entries):
+    """granite_8b at full width and depth: served through ``serve.main``,
+    then its teacher-forced forward [8, 192] through 36 launches of the
+    CUDA-core flash kernel (head_dim 128), held at the dense family's bf16
+    bars against the plain forward and the served tokens."""
+    _reset_launches()
+    gen_toks, (cfg, model, params), served = serve_main(GRANITE, GEN, device)
+    tokens, logits_k, logits_p = phase_forward(
+        cfg, params, gen_toks, {"flash_attention": GRANITE_LAUNCHES}, True, device)
+    _count_path(GRANITE, {"flash_attention": GRANITE_LAUNCHES}, entries,
+                fma_flash=GRANITE_LAUNCHES)
+    del logits_k, logits_p
+    return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
+                                                            device),
+            **time_forwards(cfg, params, tokens)}
+
+
+def _ce(logits, tokens):
+    """Teacher-forced next-token cross-entropy: position i predicts i + 1."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    return -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0].mean()
+
+
+@torch.no_grad()
+def phase_whisper(device, entries):
+    """whisper_large_v3 at full width and depth: served through
+    ``serve.main`` (frames -> encode -> cross cache -> prefill -> decode),
+    then the teacher-forced forward over the served frames and 192 decoder
+    tokens: 96 flash launches, all through the wgmma design, held at the
+    bf16 bars; then the loss forward (``encdec_loss``) with the kernels,
+    96 launches again, against the plain one."""
+    _reset_launches()
+    gen_toks, (cfg, model, params), served = serve_main(WHISPER, GEN, device)
+    frames = serve.make_frames(cfg, SERVE_BATCH, PROMPT_LEN, device)
+    tokens, logits_k, logits_p = phase_forward(
+        cfg, params, gen_toks, {"flash_attention": WHISPER_LAUNCHES}, True,
+        device, extra=frames)
+    _count_path(WHISPER, {"flash_attention": WHISPER_LAUNCHES}, entries)
+    ce_k, ce_p = _ce(logits_k, tokens).item(), _ce(logits_p, tokens).item()
+    del logits_k, logits_p
+
+    batch = {"frames": frames, "tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "mask": torch.ones(tokens[:, 1:].shape, device=device)}
+    loss_k, _ = _launched("wgmma_launches", WHISPER_LAUNCHES, lambda: _launched(
+        "launches", WHISPER_LAUNCHES, lambda: encdec_loss(
+            cfg.replace(use_kernels=True), params, batch), "encdec_loss"),
+        "encdec_loss with the kernels")
+    loss_p, _ = encdec_loss(cfg, params, batch)
+    loss_k, loss_p = loss_k.item(), loss_p.item()
+    print(f"[forward] {cfg.name}: loss forward [{SERVE_BATCH}, {TEXT_LEN - 1}] "
+          f"decoder tokens over {cfg.frontend.n_tokens} frames: with kernels "
+          f"{loss_k:.5f} ({WHISPER_LAUNCHES} wgmma launches), plain "
+          f"{loss_p:.5f}; the forward's own next-token loss {ce_k:.5f} / "
+          f"{ce_p:.5f}")
+    if not (np.isfinite(loss_k) and abs(loss_k - loss_p) <= MODEL_TOL):
+        raise AssertionError(f"{cfg.name}: loss {loss_k} against {loss_p}")
+    return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
+                                                            device),
+            **time_forwards(cfg, params, tokens, frames)}
+
+
+def _check_init(cfg, params):
+    """Every leaf's shape and scale against the reference's ``init_*``
+    (models/moe.py:31-45, layers.py, attention.py): norms at 1 / 0, every
+    other leaf a normal of its fan-in's scale (the embedding and the
+    unembedding of their own); each expert of a stack on its own."""
+    d, f = cfg.d_model, cfg.moe.d_ff
+    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    want = {"embed.table": ((cfg.vocab_size, d), 0.02),
+            "lm_head.kernel": ((d, cfg.vocab_size), d ** -0.5),
+            "final_norm.scale": ((d,), 1.0)}
+    for i in range(cfg.n_layers):
+        want.update({
+            f"layers.{i}.ln1.scale": ((d,), 1.0),
+            f"layers.{i}.ln2.scale": ((d,), 1.0),
+            f"layers.{i}.attn.wq": ((d, h, hd), d ** -0.5),
+            f"layers.{i}.attn.wk": ((d, kv, hd), d ** -0.5),
+            f"layers.{i}.attn.wv": ((d, kv, hd), d ** -0.5),
+            f"layers.{i}.attn.wo": ((h, hd, d), (h * hd) ** -0.5),
+            f"layers.{i}.moe.router": ((d, cfg.moe.n_experts), d ** -0.5),
+            f"layers.{i}.moe.w_gate": ((cfg.moe.n_experts, d, f), d ** -0.5),
+            f"layers.{i}.moe.w_up": ((cfg.moe.n_experts, d, f), d ** -0.5),
+            f"layers.{i}.moe.w_down": ((cfg.moe.n_experts, f, d), f ** -0.5),
+            f"layers.{i}.moe.shared.w_gate": ((d, cfg.d_ff), d ** -0.5),
+            f"layers.{i}.moe.shared.w_up": ((d, cfg.d_ff), d ** -0.5),
+            f"layers.{i}.moe.shared.w_down": ((cfg.d_ff, d), cfg.d_ff ** -0.5)})
+    got = dict(params.named_parameters())
+    if set(got) != set(want):
+        raise AssertionError(f"arctic parameters: missing "
+                             f"{sorted(set(want) - set(got))}, unexpected "
+                             f"{sorted(set(got) - set(want))}")
+    worst = 0.0
+    for name, (shape, scale) in want.items():
+        t = got[name]
+        if tuple(t.shape) != shape or t.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: {tuple(t.shape)} {t.dtype}, want {shape}")
+        if name.endswith("scale"):
+            if not bool((t == 1).all()):
+                raise AssertionError(f"{name}: not all ones")
+            continue
+        stack = t if name.split(".")[-1].startswith("w_") and t.dim() == 3 else t[None]
+        # five standard errors of a sample std (1 / sqrt(2n)), plus 1%
+        tol = 0.01 + 5 / (2 * stack[0].numel()) ** 0.5
+        for e in range(stack.shape[0]):
+            std = stack[e].float().std().item()
+            worst = max(worst, abs(std / scale - 1))
+            if not abs(std / scale - 1) < tol:
+                raise AssertionError(f"{name}[{e}]: std {std}, want {scale} "
+                                     f"within {tol:.2%}")
+    print(f"[arctic] init: {len(want)} leaves in the reference's shapes, every "
+          f"norm at 1, every normal (each expert on its own) within "
+          f"{worst:.2%} of its scale (tol 1% plus five standard errors)")
+
+
+def _check_routes(cfg, routes):
+    """The routing tables of the forward's MoE calls, well formed at full
+    width: experts in range and distinct per token, gates in (0, 1] and
+    descending, every kept (expert, slot) once per row and below the
+    capacity, keep exactly slot < capacity, aux finite and positive."""
+    mc = cfg.moe
+    for logits, cap, (eidx, probs, slot, keep, aux) in routes:
+        b, s, k = eidx.shape
+        if not (eidx.min() >= 0 and eidx.max() < mc.n_experts
+                and (eidx[..., :1] != eidx[..., 1:]).all()):
+            raise AssertionError("expert indices out of range or repeated")
+        if not ((probs > 0).all() and (probs <= 1).all()
+                and (probs[..., :-1] >= probs[..., 1:]).all()):
+            raise AssertionError("gates not in (0, 1] or not descending")
+        if not torch.equal(keep, slot < cap) or not (slot >= 0).all():
+            raise AssertionError("keep is not slot < capacity")
+        ids = (torch.arange(b, device=eidx.device)[:, None, None] * mc.n_experts
+               + eidx) * (s * k) + slot
+        kept = ids[keep]
+        if kept.numel() != kept.unique().numel():
+            raise AssertionError("a kept (expert, slot) taken twice in a row")
+        if not (torch.isfinite(aux) and aux > 0):
+            raise AssertionError(f"aux {aux}")
+        print(f"[arctic] routes [{b}, {s}] x top-{k} over {mc.n_experts} "
+              f"experts, capacity {cap}: {int(keep.sum())} of {keep.numel()} "
+              f"choices kept, {int((slot == 0).sum())} (row, expert) buffers "
+              f"used, aux {aux.item():.5f}")
+
+
+@torch.no_grad()
+def phase_arctic(device, entries):
+    """arctic_480b at full width, its depth cut to ARCTIC_LAYERS: the init
+    held against the reference's shapes and scales (the expert stacks drawn
+    one expert at a time from the host generator into the bf16 tensor on
+    the card), the forward [8, 192] through one flash launch (head_dim 128,
+    the CUDA-core kernel) held at the bf16 bars against the plain one with
+    its routing tables checked, then ARCTIC_DECODE decode steps against the
+    teacher-forced forward in the drop-free regime (capacity_factor
+    n_experts / top_k: every expert can take every token), as
+    tests/test_models.py:88-123 holds the MoE."""
+    _reset_launches()
+    cfg = get_config(ARCTIC).replace(n_layers=ARCTIC_LAYERS,
+                                     param_dtype="bfloat16")
+    model = build_model(cfg, device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[arctic] {cfg.name} at full width, depth cut to {cfg.n_layers} "
+          f"layer(s): {n_params / 1e9:.3f} B parameters, {n_params * 2 / 1e9:.2f} "
+          f"GB in bf16; init {init_s:.1f} s")
+    _check_init(cfg, params)
+
+    tokens = serve.make_prompts(cfg, SERVE_BATCH, TEXT_LEN, device)
+    route, routes = moe.route, []
+
+    def capture(mc, logits, cap):
+        out = route(mc, logits, cap)
+        routes.append((logits, cap, out))
+        return out
+
+    cfg_k = cfg.replace(use_kernels=True)
+    moe.route = capture
+    try:
+        logits_k, aux_k = _launched("launches", cfg.n_layers, lambda: lm_forward(
+            cfg_k, params, tokens), f"{cfg.name} forward")
+    finally:
+        moe.route = route
+    logits_p, aux_p = lm_forward(cfg, params, tokens)
+    if not (torch.isfinite(logits_k).all() and torch.isfinite(logits_p).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    err = (logits_k - logits_p).abs().max().item()
+    agree = _agree(logits_k, logits_p)
+    print(f"[forward] {cfg.name} tokens {list(tokens.shape)} bf16: max|logits "
+          f"kernel - plain| {err:.3g}, relative {_rel(logits_k, logits_p):.3g}, "
+          f"greedy agreement {agree:.4f}; aux {aux_k.item():.6f} / "
+          f"{aux_p.item():.6f}")
+    torch.testing.assert_close(logits_k, logits_p, rtol=MODEL_TOL, atol=MODEL_TOL)
+    if not agree > 0.9:
+        raise AssertionError(f"{cfg.name}: greedy agreement {agree} <= 0.9")
+    _check_routes(cfg, routes)
+    del logits_k, logits_p, routes
+
+    free = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    fmodel, toks = build_model(free, device), tokens[:, :ARCTIC_DECODE]
+    cache, got = fmodel.init_cache(SERVE_BATCH, ARCTIC_DECODE), []
+    t0 = time.perf_counter()
+    for t in range(ARCTIC_DECODE):
+        logits, cache = fmodel.decode_step(params, cache, toks[:, t:t + 1], t)
+        got.append(logits[:, 0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / ARCTIC_DECODE * 1e3
+    got = torch.stack(got, dim=1)
+    forced, _ = lm_forward(free, params, toks)
+    agree = _agree(got, forced)
+    print(f"[arctic] {ARCTIC_DECODE} decode steps, batch {SERVE_BATCH}, "
+          f"{step_ms:.2f} ms/step: max|decode - teacher-forced| "
+          f"{(got - forced).abs().max().item():.3g}, greedy agreement "
+          f"{agree:.4f}")
+    torch.testing.assert_close(got, forced, rtol=MODEL_TOL, atol=MODEL_TOL)
+    if not agree > 0.9:
+        raise AssertionError(f"{cfg.name}: decode agreement {agree} <= 0.9")
+    _count_path(ARCTIC, {"flash_attention": cfg.n_layers}, entries,
+                fma_flash=cfg.n_layers)
+    return {"init_s": init_s, "decode_ms_per_step": step_ms,
+            **time_forwards(cfg, params, tokens)}
+
+
+@torch.no_grad()
+def phase_paligemma(device, entries):
+    """paligemma_3b at full width and depth: text served through
+    ``serve.main``, then the loss forward over 256 image patches and 192
+    text tokens with and without the kernels: the prefix-LM mask keeps
+    every attention off the flash kernel, so no launch and the same loss
+    both ways (1e-6 relative: the same operations), finite."""
+    _reset_launches()
+    gen_toks, (cfg, model, params), served = serve_main(PALIGEMMA, GEN, device)
+    prompts = serve.make_prompts(cfg, SERVE_BATCH, PROMPT_LEN, device)
+    tokens = torch.cat([prompts, gen_toks], dim=1)
+    n_img = cfg.frontend.n_tokens
+    patches = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(SERVE_BATCH, n_img, cfg.frontend.embed_dim)),
+        dtype=torch.float32).to(device=device, dtype=torch.bfloat16)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1),
+             "mask": torch.ones(tokens.shape, device=device), "patches": patches}
+    batch["mask"][:, -1] = 0
+    loss_k, m_k = lm_loss(cfg.replace(use_kernels=True), params, batch)
+    loss_p, _ = lm_loss(cfg, params, batch)
+    print(f"[forward] {cfg.name}: loss forward over {n_img} patches + "
+          f"{TEXT_LEN} text tokens, batch {SERVE_BATCH}: with kernels "
+          f"{loss_k.item():.5f}, plain {loss_p.item():.5f} (over "
+          f"{int(m_k['tokens'].item())} text positions)")
+    if not (torch.isfinite(loss_k)
+            and abs(loss_k.item() - loss_p.item()) <= 1e-6 * abs(loss_p.item())):
+        raise AssertionError(f"{cfg.name}: loss {loss_k.item()} / {loss_p.item()}")
+    _count_path(PALIGEMMA, {}, entries)
+    return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
+                                                            device),
+            **time_forwards(cfg, params, tokens, patches)}
+
+
+def phase_train_optim(device):
+    """relic_tiny at full width (f32 parameters, bf16 compute): OPTIM_STEPS
+    steps with ``compress_grads=True`` beside the same steps without, from
+    the same weights on one batch: every loss finite and the last below the
+    first, the compression residual finite and nonzero; then one Adafactor
+    step: the parameters move, stay finite, and the loss falls."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device)
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, device)
+    runs = {}
+    for compress in (False, True):
+        oc = dataclasses.replace(TRAIN_OC, compress_grads=compress)
+        state = make_train_state(model, torch.Generator().manual_seed(0), oc)
+        step, losses = make_train_step(model, oc), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OPTIM_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        ms = (time.perf_counter() - t0) * 1e3 / OPTIM_STEPS
+        runs[compress] = (losses, ms)
+        print(f"[train] {cfg.name} {'with' if compress else 'without'} "
+              f"gradient compression: {ms:.2f} ms/step over {OPTIM_STEPS} "
+              f"steps (the first included), losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"compress_grads={compress}: losses {losses}")
+        if compress:
+            res = state["opt"]["residual"].values()
+            if not all(torch.isfinite(r).all() for r in res):
+                raise AssertionError("non-finite compression residual")
+            peak = max(float(r.abs().max()) for r in res)
+            print(f"[train] compression residual after {OPTIM_STEPS} steps: "
+                  f"max |r| {peak:.3g}, every entry finite")
+            if not peak > 0:
+                raise AssertionError("the compression residual stayed zero")
+        del state
+
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = init_adafactor_state(params)
+    before = {n: p.detach().clone() for n, p in params.named_parameters()}
+    t0 = time.perf_counter()
+    loss, _ = model.loss(params, batch)
+    loss.backward()
+    grads, _ = clip_by_global_norm({n: p.grad for n, p in params.named_parameters()},
+                                   TRAIN_OC.clip_norm)
+    adafactor_update(AdafactorConfig(), grads, opt, params, 0,
+                     schedule(dataclasses.replace(TRAIN_OC, peak_lr=1e-2), 0))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        after, _ = model.loss(params, batch)
+    moved = max((p.detach() - before[n]).abs().max().item()
+                for n, p in params.named_parameters())
+    print(f"[train] one Adafactor step (factored second moments, lr "
+          f"{schedule(dataclasses.replace(TRAIN_OC, peak_lr=1e-2), 0):.3g}): "
+          f"{ms:.2f} ms with its backward, loss {loss.item():.4f} -> "
+          f"{after.item():.4f}, largest move {moved:.3g}")
+    if not (all(torch.isfinite(p).all() for p in params.parameters())
+            and moved > 0 and after.item() < loss.item()):
+        raise AssertionError("the Adafactor step did not train")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -1669,6 +2111,30 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
 
+    # The other families, each from launch counts of 0 (each phase resets
+    # them and counts its own path).
+    flash_at = {}   # each path's first timed flash shape (phase_kernel)
+    for o in entries["flash_attention"]["other_shapes"]:
+        if o.get("path"):
+            flash_at.setdefault(o["path"], o)
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    for arch, phase in ((GRANITE, phase_granite), (WHISPER, phase_whisper),
+                        (ARCTIC, phase_arctic), (PALIGEMMA, phase_paligemma)):
+        t0 = time.perf_counter()
+        summary = phase(device, entries)
+        torch.cuda.empty_cache()
+        fl = flash_at.get(arch)
+        print(f"[path] {arch} on {card}: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in summary.items())
+              + (f"; flash {fl['shape']} device {ms(fl['device_ms'])}, bound "
+                 f"{ms(fl['bound_ms'])} by {fl['bound_by']}, sdpa device "
+                 f"{ms(fl.get('library_device_ms', fl['library_ms']))}"
+                 if fl else "")
+              + f"; phase {time.perf_counter() - t0:.1f} s")
+
     # The quickstart path, from launch counts of 0.
     _reset_launches()
     phase_quickstart(device)
@@ -1677,6 +2143,7 @@ def main() -> int:
     # Training runs the plain paths: no kernel launch.
     _reset_launches()
     bare_ms = phase_train(device)
+    phase_train_optim(device)
     phase_card_vs_cpu(device)
     _count_path("training", {}, entries)
     torch.cuda.empty_cache()

@@ -6,6 +6,11 @@ one yielded item, so the response's ``first_result_t`` is the
 time-to-first-token and the subsystem's latency accounting applies unchanged
 to token serving. It runs on the card unless ``--device cpu`` is given.
 
+The encoder-decoder (``--arch whisper_large_v3``) first encodes frames drawn
+from the same seeded generator as the prompts and writes each decoder
+layer's cross K/V into the cache, as the reference's driver does; the VLM
+serves text only, as there.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch relic_tiny \
       --batch 4 --prompt-len 16 --gen 32
@@ -22,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.devices import resolve_device, synchronize
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import build_model
+from repro_torch.models.encdec import encode, prefill_cross_cache
 from repro_torch.serve import ServeScheduler
 
 
@@ -37,6 +43,17 @@ def make_prompts(cfg, batch: int, prompt_len: int, device, seed: int = 0):
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
                            device=device)
+
+
+def make_frames(cfg, batch: int, prompt_len: int, device, seed: int = 0):
+    """The encoder-decoder's frames [B, T_enc, D] in bf16: the draw after
+    ``make_prompts``' from the same seeded generator, as the reference's
+    driver draws them."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, cfg.vocab_size, (batch, prompt_len))  # the prompts' draw
+    frames = rng.normal(size=(batch, cfg.frontend.n_tokens, cfg.d_model))
+    return torch.as_tensor(frames, dtype=torch.float32).to(
+        device=device, dtype=torch.bfloat16)
 
 
 def decode_stream(serve_step, params, first_tok, cache, start: int, n: int,
@@ -73,6 +90,11 @@ def main(argv=None):
     serve_step = make_serve_step(model)
     prefill = make_prefill_step(model)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, device)
+    if cfg.family == "encdec":
+        frames = make_frames(cfg, args.batch, args.prompt_len, device)
+        with torch.no_grad():
+            cache = prefill_cross_cache(cfg, params, cache,
+                                        encode(cfg, params, frames))
 
     # Warm decode off the served path (its own throwaway cache), so the
     # served request measures steady-state steps, not first-call set-up.

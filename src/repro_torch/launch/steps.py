@@ -10,21 +10,19 @@ import torch
 from repro_torch.models.registry import Model
 from repro_torch.optim import (OptConfig, adamw_update, clip_by_global_norm,
                                init_opt_state)
-
-
-def _refuse_compression(oc: Optional[OptConfig]):
-    if oc is not None and oc.compress_grads:
-        raise NotImplementedError(
-            "gradient compression (optim/compression.py) is not ported to "
-            "repro_torch yet; see ROADMAP.md")
+from repro_torch.optim.compression import compress_with_feedback, init_residual
 
 
 def make_train_state(model: Model, gen: torch.Generator,
                      oc: Optional[OptConfig] = None) -> dict:
-    """{"params", "opt": {"mu", "nu"}, "step": 0}; params drawn from ``gen``."""
-    _refuse_compression(oc)
+    """{"params", "opt": {"mu", "nu"}, "step": 0}; params drawn from ``gen``.
+    With ``oc.compress_grads`` the optimizer state also holds the
+    compression's ``residual`` (f32 zeros, by parameter name)."""
     params = model.init(gen)
-    return {"params": params, "opt": init_opt_state(params), "step": 0}
+    state = {"params": params, "opt": init_opt_state(params), "step": 0}
+    if oc is not None and oc.compress_grads:
+        state["opt"]["residual"] = init_residual(params)
+    return state
 
 
 def _grads(model: Model, params, batch: dict):
@@ -44,9 +42,11 @@ def _grads(model: Model, params, batch: dict):
 def make_train_step(model: Model, oc: OptConfig):
     """(state, batch) -> (state, metrics): gradients (over ``oc.grad_accum``
     equal slices of the batch, averaged in f32, the last slice's loss
-    metrics reported, as the reference's scan does), global-norm clipping,
+    metrics reported, as the reference's scan does); with
+    ``oc.compress_grads`` int8 compression with error feedback (the
+    quantized gradients are what a bandwidth-starved axis would all-reduce;
+    the residual carries the error to the next step); global-norm clipping;
     then AdamW in place. Metrics: loss, ce, aux, tokens, grad_norm, lr."""
-    _refuse_compression(oc)
 
     def train_step(state: dict, batch: dict) -> Tuple[dict, dict]:
         params = state["params"]
@@ -66,8 +66,13 @@ def make_train_step(model: Model, oc: OptConfig):
                     grads[name] += gi.float() / oc.grad_accum
         else:
             metrics, grads = _grads(model, params, batch)
+        opt = dict(state["opt"])
+        if oc.compress_grads:
+            grads, residual = compress_with_feedback(grads, opt.pop("residual"))
         grads, gnorm = clip_by_global_norm(grads, oc.clip_norm)
-        _, opt, lr = adamw_update(oc, grads, state["opt"], params, state["step"])
+        _, opt, lr = adamw_update(oc, grads, opt, params, state["step"])
+        if oc.compress_grads:
+            opt["residual"] = residual
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
         return new_state, dict(metrics, grad_norm=gnorm, lr=lr)
 

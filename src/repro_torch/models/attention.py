@@ -1,5 +1,6 @@
 """GQA attention: full, chunked (flash-style streaming softmax in plain
-torch), and cached decode paths.
+torch), and cached decode paths, plus cross-attention for encoder-decoder
+models.
 
 The chunked path is the portable flash attention: a loop over KV blocks
 carrying the running (max, denominator, accumulator), so long sequences run
@@ -180,12 +181,15 @@ def attention_core(
 # Full layer-level wrappers (projections + rope + cache handling)
 # ---------------------------------------------------------------------------
 
-def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
+def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
+                 x_kv: Optional[torch.Tensor] = None):
+    """q from ``x``; k and v from ``x_kv`` (cross-attention) or ``x``."""
     cd = dt(cfg.compute_dtype)
     x = x.to(cd)
+    src = x if x_kv is None else x_kv.to(cd)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(cd))
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"])
         k = rms_norm_headwise(k, p["k_norm"])
@@ -217,6 +221,16 @@ def self_attention(
     return _output(cfg, p, o)
 
 
+def cross_attention(cfg: ModelConfig, p, x: torch.Tensor,
+                    enc: torch.Tensor) -> torch.Tensor:
+    """Decoder queries over the encoder output [B,T,D], no mask and no rope;
+    with ``sq > 1`` and ``use_kernels`` it goes to the flash kernel,
+    non-causal, as the reference's ``attention_core`` sends it."""
+    q, k, v = _project_qkv(cfg, p, x, x_kv=enc)
+    o = attention_core(cfg, q, k, v, causal=False)
+    return _output(cfg, p, o)
+
+
 def decode_self_attention(
     cfg: ModelConfig,
     p,
@@ -239,6 +253,22 @@ def decode_self_attention(
     v[:, pos] = v_new[:, 0].to(v.dtype)
     o = attention_core(cfg, q, k, v, causal=False, kv_len=pos + 1)
     return _output(cfg, p, o), {"k": k, "v": v}
+
+
+def decode_cross_attention(
+    cfg: ModelConfig,
+    p,
+    x: torch.Tensor,        # [B,1,D]
+    cache: dict,            # {"xk": [B,T,Kv,Dh], "xv": ...} from the encoder
+) -> torch.Tensor:
+    """One decoder token against the cross K/V precomputed at prefill."""
+    cd = dt(cfg.compute_dtype)
+    q = torch.einsum("bsd,dhk->bshk", x.to(cd), p["wq"].to(cd))
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, p["q_norm"])
+    o = attention_core(cfg, q, cache["xk"].to(cd), cache["xv"].to(cd),
+                       causal=False)
+    return _output(cfg, p, o)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, n_kv: int,

@@ -1,23 +1,36 @@
 """Carry parameters and train states between the JAX package's pytrees and
 the port's modules.
 
-The JAX package stacks every leaf under ``layers`` on a leading ``n_layers``
-axis (one ``lax.scan`` over the blocks); the port keeps one module per layer.
-Both sides use the same nested key paths, e.g. ``layers/attn/wq`` is
-``[L, D, H, Dh]`` in the tree and ``layers[i]["attn"]["wq"]`` ``[D, H, Dh]``
-in the port (parameter name ``layers.i.attn.wq``), so the conversion is a
-copy and an unstack, never a reshape. The optimizer's ``mu``/``nu`` follow
-the parameters' key paths on both sides (``repro_torch.optim``).
+The JAX package stacks every leaf of a layer stack (``layers``; the
+encoder-decoder's ``enc_layers`` and ``dec_layers``) on a leading axis of
+its depth (one ``lax.scan`` over the blocks); the port keeps one module per
+layer, in an ``nn.ModuleList``. Both sides use the same nested key paths,
+e.g. ``layers/attn/wq`` is ``[L, D, H, Dh]`` in the tree and
+``layers[i]["attn"]["wq"]`` ``[D, H, Dh]`` in the port (parameter name
+``layers.i.attn.wq``); an MoE's stacked experts ``layers/moe/w_up`` are
+``[L, E, D, F]`` there and ``[E, D, F]`` a layer here. So the conversion is
+a copy and an unstack, never a reshape. The optimizer's state (AdamW's
+``mu``/``nu``, the compression ``residual``) follows the parameters' key
+paths on both sides (``repro_torch.optim``).
+
+``leaves`` gives the reference's leaves over the port's parameter names.
+Elementwise updates (AdamW) do not see the layer stacks; Adafactor does (a
+stacked [L, D] norm scale is factored, and the update is clipped by the RMS
+of the whole leaf), and so does block quantization (blocks of 256 run
+across layer boundaries), so those two stack the port's tensors into the
+reference's leaves with ``gather`` and split them back with ``scatter``.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.layers import dt
 
 
@@ -29,43 +42,57 @@ def _tree_leaves(tree: dict, prefix=()):
             yield prefix + (key,), val
 
 
-def _module_leaves(mod, prefix=()):
-    """(path, parameter) of an LM's modules; ``layers`` paths are read from
-    layer 0 and carry no layer index."""
-    for key, val in mod.items():
-        if isinstance(val, nn.ParameterDict):
-            for name, t in val.items():
-                yield prefix + (key, name), t
-        elif isinstance(val, nn.ModuleList):
-            yield from _module_leaves(val[0], prefix + (key,))
+def leaves(names: Iterable[str]) -> List[Tuple[str, bool, List[str]]]:
+    """(leaf key, stacked over layers, the port's names in layer order) of
+    every leaf of the reference's tree: ``layers.<i>.<rest>`` (likewise
+    ``enc_layers``, ``dec_layers``) go to leaf ``layers.<rest>``."""
+    stacks: Dict[str, List[Tuple[int, str]]] = {}
+    out = []
+    for name in names:
+        parts = name.split(".")
+        if len(parts) > 2 and parts[1].isdigit():
+            key = ".".join(parts[:1] + parts[2:])
+            if key not in stacks:
+                stacks[key] = []
+                out.append((key, True, stacks[key]))
+            stacks[key].append((int(parts[1]), name))
         else:
-            yield from _module_leaves(val, prefix + (key,))
+            out.append((name, False, [(0, name)]))
+    return [(key, stacked, [n for _, n in sorted(group)])
+            for key, stacked, group in out]
 
 
-def _leaf_names(params):
-    """(key path in the JAX tree, the port's parameter names) of every leaf:
-    one name per layer for a path under ``layers``."""
-    for path, _ in _module_leaves(params):
-        if path[0] == "layers":
-            yield path, [".".join(("layers", str(i)) + path[1:])
-                         for i in range(len(params["layers"]))]
-        else:
-            yield path, [".".join(path)]
+def gather(named: Dict[str, torch.Tensor], stacked: bool,
+           names: List[str]) -> torch.Tensor:
+    """A leaf's tensor: the layers' tensors stacked on axis 0."""
+    return torch.stack([named[n] for n in names]) if stacked else named[names[0]]
+
+
+def scatter(leaf: torch.Tensor, stacked: bool,
+            names: List[str]) -> Dict[str, torch.Tensor]:
+    """Inverse of ``gather``: the leaf's slices by the port's names."""
+    return dict(zip(names, leaf.unbind(0))) if stacked else {names[0]: leaf}
+
+
+def _leaf_paths(params):
+    """(key path in the JAX tree, stacked, the port's names) of every leaf."""
+    for key, stacked, names in leaves(n for n, _ in params.named_parameters()):
+        yield tuple(key.split(".")), stacked, names
 
 
 def _arrays_by_name(params, tree: dict, what: str):
     """(parameter name, numpy array) of every leaf of ``tree``, a tree with
-    the parameters' key paths, ``layers`` leaves unstacked. Raises if its
-    paths or shapes are not the parameters'."""
+    the parameters' key paths, layer stacks unstacked. Raises if its paths
+    or shapes are not the parameters'."""
     got = dict(_tree_leaves(tree))
-    want = dict(_leaf_names(params))
+    want = {path: (stacked, names) for path, stacked, names in _leaf_paths(params)}
     if set(got) != set(want):
         raise ValueError(f"{what} tree mismatch: missing "
                          f"{sorted(set(want) - set(got))}, unexpected "
                          f"{sorted(set(got) - set(want))}")
-    for path, names in want.items():
+    for path, (stacked, names) in want.items():
         for i, name in enumerate(names):
-            arr = got[path][i] if path[0] == "layers" else got[path]
+            arr = got[path][i] if stacked else got[path]
             shape = tuple(params.get_parameter(name).shape)
             if tuple(arr.shape) != shape:
                 raise ValueError(f"{name}: shape {tuple(arr.shape)} != {shape}")
@@ -85,7 +112,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> nn.ModuleDi
     """The port's parameters from the JAX package's parameter tree, given as
     nested dicts of numpy arrays or tensors (bfloat16 leaves widen to
     float32 exactly on the way)."""
-    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), "meta")
+    init = encdec.init_encdec if cfg.family == "encdec" else lm.init_lm
+    params = init(cfg, torch.Generator().manual_seed(0), "meta")
     pd = dt(cfg.param_dtype)
     for name, arr in list(_arrays_by_name(params, tree, "parameter")):
         holder, _, key = name.rpartition(".")
@@ -96,33 +124,33 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> nn.ModuleDi
 
 def named_to_numpy(params, named: dict) -> dict:
     """Tensors keyed by the port's parameter names (parameters, gradients,
-    the optimizer's mu or nu) as nested dicts of float32 numpy arrays with
-    the JAX tree's key paths, ``layers`` leaves stacked on axis 0."""
+    the optimizer's mu, nu or residual) as nested dicts of float32 numpy
+    arrays with the JAX tree's key paths, layer stacks stacked on axis 0."""
     out: dict = {}
-    for path, names in _leaf_names(params):
+    for path, stacked, names in _leaf_paths(params):
         arrs = [named[n].detach().float().cpu().numpy() for n in names]
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrs) if path[0] == "layers" else arrs[0]
+        node[path[-1]] = np.stack(arrs) if stacked else arrs[0]
     return out
 
 
 def params_to_numpy(params: nn.ModuleDict) -> dict:
     """Inverse of ``params_from_numpy``: nested dicts of float32 numpy arrays
-    (bf16 parameters widen exactly), ``layers`` leaves stacked on axis 0."""
+    (bf16 parameters widen exactly), layer stacks stacked on axis 0."""
     return named_to_numpy(params, dict(params.named_parameters()))
 
 
 def train_state_from_numpy(cfg: ModelConfig, state: dict, device="cpu") -> dict:
     """The port's train state (``launch.steps.make_train_state``'s layout)
     from the JAX package's, given as nested dicts of numpy arrays or
-    tensors: params, opt.mu, opt.nu (f32) and step."""
+    tensors: params, opt.mu, opt.nu and, with gradient compression,
+    opt.residual (f32), and step."""
     params = params_from_numpy(cfg, state["params"], device)
     opt = {k: {name: _f32(arr, device)
-               for name, arr in _arrays_by_name(params, state["opt"][k],
-                                                f"optimizer {k}")}
-           for k in ("mu", "nu")}
+               for name, arr in _arrays_by_name(params, tree, f"optimizer {k}")}
+           for k, tree in state["opt"].items()}
     return {"params": params, "opt": opt, "step": int(state["step"])}
 
 
@@ -131,6 +159,6 @@ def train_state_to_numpy(state: dict) -> dict:
     ``step`` as an int32 scalar."""
     params = state["params"]
     return {"params": params_to_numpy(params),
-            "opt": {k: named_to_numpy(params, state["opt"][k])
-                    for k in ("mu", "nu")},
+            "opt": {k: named_to_numpy(params, named)
+                    for k, named in state["opt"].items()},
             "step": np.asarray(state["step"], np.int32)}

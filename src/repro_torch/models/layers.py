@@ -114,6 +114,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, dim: int, device=None) -> torch.Tensor:
+    """[n, dim] f32: sin over the first half of the columns, cos over the
+    second (Whisper's encoder positions)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    inv = 1.0 / (10_000.0 ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                           device=device) / dim))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (gated SwiGLU / GeGLU, or plain 2-layer)
 # ---------------------------------------------------------------------------

@@ -1,13 +1,17 @@
-"""Decoder-only LM assembly: dense / RWKV-6 / Zamba2-hybrid families.
+"""Decoder-only LM assembly: dense / MoE / VLM / RWKV-6 / Zamba2-hybrid
+families.
 
 The blocks are an ``nn.ModuleList`` run in a Python loop (PyTorch runs
 eagerly, so the JAX package's layer scan has no counterpart here); the
 hybrid runs groups of ``attn_every`` Mamba-2 layers, each followed by the
-one shared attention block, then the tail layers. The other families (MoE,
-VLM prefix) are queued in ROADMAP.md.
+one shared attention block, then the tail layers. The VLM is the dense
+block under the gemma convention (embeddings scaled by sqrt(d_model)) with
+projected image patches prepended as a bidirectional prefix.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -16,16 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as r6
-
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-
-
-def _check_family(cfg: ModelConfig):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported to repro_torch yet "
-            f"(ported: {PORTED_FAMILIES}); see ROADMAP.md")
 
 
 # ---------------------------------------------------------------------------
@@ -44,8 +40,17 @@ def _attn_block(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
 
 
 def init_block(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return _attn_block(cfg, gen, device)
+    if cfg.family == "moe":
+        hd = cfg.resolved_head_dim
+        return nn.ModuleDict({
+            "ln1": L.init_norm(cfg, cfg.d_model, device),
+            "attn": attn.init_attention(cfg, gen, cfg.d_model, cfg.n_heads,
+                                        cfg.n_kv_heads, hd, device),
+            "ln2": L.init_norm(cfg, cfg.d_model, device),
+            "moe": moe_mod.init_moe(cfg, gen, device),
+        })
     if cfg.family == "ssm":  # rwkv6
         return nn.ModuleDict({
             "ln1": L.init_norm(cfg, cfg.d_model, device),
@@ -66,9 +71,16 @@ def init_shared_attn(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
     return _attn_block(cfg, gen, device)
 
 
-def block_fwd(cfg: ModelConfig, p, x):
-    if cfg.family == "dense":  # the same layout as zamba2's shared block
-        x = shared_attn_fwd(cfg, p, x)
+def block_fwd(cfg: ModelConfig, p, x, *, prefix_len=None):
+    """Returns (x, aux_loss); aux_loss is None but for the MoE."""
+    aux = None
+    if cfg.family in ("dense", "vlm"):  # the layout of zamba2's shared block
+        x = shared_attn_fwd(cfg, p, x, prefix_len=prefix_len)
+    elif cfg.family == "moe":
+        x = x + attn.self_attention(cfg, p["attn"], L.norm(cfg, p["ln1"], x),
+                                    causal=True)
+        y, aux = moe_mod.moe_ffn(cfg, p["moe"], L.norm(cfg, p["ln2"], x))
+        x = x + y
     elif cfg.family == "ssm":
         x = x + r6.rwkv_time_mix(cfg, p["rwkv"], L.norm(cfg, p["ln1"], x))
         x = x + r6.rwkv_channel_mix(cfg, p["cmix"], L.norm(cfg, p["ln2"], x))
@@ -76,20 +88,26 @@ def block_fwd(cfg: ModelConfig, p, x):
         x = x + m2.mamba2_block(cfg, p["ssm"], L.norm(cfg, p["ln"], x))
     else:
         raise ValueError(cfg.family)
-    return x
+    return x, aux
 
 
-def shared_attn_fwd(cfg: ModelConfig, p, x):
+def shared_attn_fwd(cfg: ModelConfig, p, x, *, prefix_len=None):
     x = x + attn.self_attention(cfg, p["attn"], L.norm(cfg, p["ln1"], x),
-                                causal=True)
+                                causal=True, prefix_len=prefix_len)
     return x + L.mlp(cfg, p["mlp"], L.norm(cfg, p["ln2"], x))
 
 
 def block_decode(cfg: ModelConfig, p, x, cache, pos: int):
     """Returns (x, cache): the layer's cache tensors, new or updated."""
     c = cache["cache"]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         x, c = shared_attn_decode(cfg, p, x, c, pos)
+    elif cfg.family == "moe":
+        y, c = attn.decode_self_attention(cfg, p["attn"],
+                                          L.norm(cfg, p["ln1"], x), c, pos)
+        x = x + y
+        y, _ = moe_mod.moe_ffn(cfg, p["moe"], L.norm(cfg, p["ln2"], x))
+        x = x + y
     elif cfg.family == "ssm":
         xn = L.norm(cfg, p["ln1"], x)
         y, tc = r6.rwkv_time_mix_decode(cfg, p["rwkv"], xn,
@@ -121,7 +139,7 @@ def shared_attn_decode(cfg: ModelConfig, p, x, kv_cache, pos: int):
 def init_block_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
     """One layer's decode cache, as the JAX package lays it out."""
     cd = L.dt(cfg.compute_dtype)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "moe"):
         return {"cache": attn.init_decode_cache(
             cfg, batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim,
             device=device)}
@@ -152,7 +170,6 @@ def init_block_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
 def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> nn.ModuleDict:
     """Parameters with the JAX package's names and shapes, drawn from ``gen``
     with the same distributions and scales (not the same numbers)."""
-    _check_family(cfg)
     params = nn.ModuleDict({
         "embed": L.init_embed(cfg, gen, cfg.vocab_size, cfg.d_model, device),
         "layers": nn.ModuleList(
@@ -164,6 +181,10 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> nn.ModuleDict:
                                            cfg.vocab_size, device)
     if cfg.family == "hybrid" and cfg.attn_every:
         params["shared_attn"] = init_shared_attn(cfg, gen, device)
+    if cfg.family == "vlm" and cfg.frontend is not None:
+        params["img_proj"] = nn.ParameterDict({"kernel": L._normal(
+            gen, (cfg.frontend.embed_dim, cfg.d_model),
+            cfg.frontend.embed_dim ** -0.5, L.dt(cfg.param_dtype), device)})
     return params
 
 
@@ -183,10 +204,10 @@ def _hybrid_fwd(cfg: ModelConfig, params, x):
     layers = params["layers"]
     for g in range(full):
         for lp in layers[g * k:(g + 1) * k]:
-            x = block_fwd(cfg, lp, x)
+            x, _ = block_fwd(cfg, lp, x)
         x = shared_attn_fwd(cfg, params["shared_attn"], x)
     for lp in layers[full * k:]:
-        x = block_fwd(cfg, lp, x)
+        x, _ = block_fwd(cfg, lp, x)
     return x
 
 
@@ -197,21 +218,46 @@ def _head(cfg: ModelConfig, params, x):
     return L.unembed(cfg, head, x, tied_table=tied)
 
 
-def lm_forward(cfg: ModelConfig, params, tokens: torch.Tensor):
-    """tokens: [B,S] -> (logits [B,S,V] f32, aux_loss)."""
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     x = L.embed(cfg, params["embed"], tokens)
+    if cfg.family == "vlm":  # gemma convention
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def lm_forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
+               extra_embed: Optional[torch.Tensor] = None,
+               prefix_len: Optional[int] = None):
+    """tokens: [B,S] -> (logits [B,S,V] f32, aux_loss). ``extra_embed``
+    (the VLM's image patches [B,N,E]) is projected and prepended, so the
+    logits cover N + S positions; ``prefix_len`` makes attention
+    bidirectional over the first positions, which keeps those calls off the
+    flash kernel (it has no prefix mask), as in the reference."""
+    x = _embed(cfg, params, tokens)
+    if extra_embed is not None:
+        proj = extra_embed.to(x.dtype) @ params["img_proj"]["kernel"].to(x.dtype)
+        x = torch.cat([proj, x], dim=1)
+    aux = torch.zeros((), device=x.device)
     if cfg.family == "hybrid":
         x = _hybrid_fwd(cfg, params, x)
     else:
         for lp in params["layers"]:
-            x = block_fwd(cfg, lp, x)
-    aux = torch.zeros((), device=x.device)
+            x, a = block_fwd(cfg, lp, x, prefix_len=prefix_len)
+            if a is not None:
+                aux = aux + a
     return _head(cfg, params, x), aux
 
 
 def lm_loss(cfg: ModelConfig, params, batch: dict):
-    """batch: {tokens [B,S], labels [B,S], mask [B,S]} -> (loss, metrics)."""
-    logits, aux = lm_forward(cfg, params, batch["tokens"])
+    """batch: {tokens [B,S], labels [B,S], mask [B,S], patches [B,N,E] (VLM,
+    optional)} -> (loss, metrics); with patches, the loss is over the text
+    positions only."""
+    extra = batch.get("patches")
+    logits, aux = lm_forward(
+        cfg, params, batch["tokens"], extra_embed=extra,
+        prefix_len=(extra.shape[1] if extra is not None else None))
+    if extra is not None:
+        logits = logits[:, extra.shape[1]:]
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -235,7 +281,6 @@ def init_lm_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
     shift_state, cmix_shift_state, wkv_state; hybrid: conv_state, ssm_state)
     and, for the hybrid, {"shared_attn": {"k"/"v": [G,B,T,Kv,Dh]}} over its
     G full groups."""
-    _check_family(cfg)
     one = init_block_cache(cfg, batch, cache_len, device)["cache"]
     out = {"layers": {"cache": _stacked(one, cfg.n_layers)}}
     if cfg.family == "hybrid" and cfg.attn_every:
@@ -262,7 +307,7 @@ def lm_decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
                    pos: int):
     """One decode step. tokens: [B,1]; pos: int -> (logits [B,1,V], cache).
     Each layer's slice of the stacked cache is updated in place."""
-    x = L.embed(cfg, params["embed"], tokens)
+    x = _embed(cfg, params, tokens)
     stacked = cache["layers"]["cache"]
     if cfg.family == "hybrid":
         full, _ = _hybrid_groups(cfg)

@@ -1,0 +1,143 @@
+"""Top-k routed mixture-of-experts with capacity-based dispatch: the JAX
+package's ``models/moe.py`` on tensors.
+
+As in the reference, there is no dense one-hot dispatch product: routing
+builds a ``[B,E,C]`` table of token indices (a masked cumulative count gives
+each (token, choice) its slot in its expert's buffer, one scatter writes the
+table) and gathers both dispatch and combine, so the work stays at
+``top_k * cf * T * D * F``. A group is one batch row. The experts are stacked
+``[E, D, F]`` and run as one batched product over E.
+
+The reference's ``shard_act`` annotations place the expert buffers on a
+mesh; on one device they do nothing, and they are dropped here.
+
+Ties in the top-k: ``jax.lax.top_k`` puts the lower expert index first among
+equal gates, and a slot depends on the order of a token's choices.
+``torch.topk`` promises no order among equal values on CUDA, so the choices
+come from a stable descending sort of the gates (equal gates keep their
+index order), which is the reference's order on every device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.layers import _act, _normal, dt, init_mlp, mlp
+
+
+def _normal_stack(gen: torch.Generator, shape, scale, dtype, device) -> nn.Parameter:
+    """``_normal`` drawn one leading slice at a time straight into the
+    parameter on ``device``: the host holds one expert's f32 draw, never the
+    whole stack (arctic's [128, 7168, 4864] would be 17.8 GB in f32)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        x = scale * torch.randn(shape[1:], generator=gen, dtype=torch.float32)
+        out[i].copy_(x.to(dtype))
+    return nn.Parameter(out)
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, device) -> nn.ParameterDict:
+    """router [D,E], stacked w_gate/w_up [E,D,F] and w_down [E,F,D], and the
+    shared expert or dense residual MLP under ``shared``."""
+    mc = cfg.moe
+    assert mc is not None
+    pd = dt(cfg.param_dtype)
+    d, f, e = cfg.d_model, mc.d_ff, mc.n_experts
+    p = nn.ParameterDict({
+        "router": _normal(gen, (d, e), d ** -0.5, pd, device),
+        "w_gate": _normal_stack(gen, (e, d, f), d ** -0.5, pd, device),
+        "w_up": _normal_stack(gen, (e, d, f), d ** -0.5, pd, device),
+        "w_down": _normal_stack(gen, (e, f, d), f ** -0.5, pd, device),
+    })
+    if mc.shared_expert or mc.dense_residual:
+        p["shared"] = init_mlp(cfg, gen, d, f if mc.shared_expert else cfg.d_ff,
+                               device)
+    return p
+
+
+def _capacity(mc: MoEConfig, tokens_per_group: int) -> int:
+    c = int(mc.top_k * tokens_per_group * mc.capacity_factor / mc.n_experts)
+    return max(c, 4)
+
+
+def route(mc: MoEConfig, logits: torch.Tensor, capacity: int):
+    """logits: [B,S,E] -> routing tables.
+
+    Returns (expert_idx [B,S,K], probs [B,S,K], slot [B,S,K], keep [B,S,K],
+    aux_loss scalar); indices are int64.
+    """
+    e = logits.shape[-1]
+    gates = torch.softmax(logits.float(), dim=-1)
+    order = torch.sort(gates, dim=-1, descending=True, stable=True)
+    probs = order.values[..., :mc.top_k]                         # [B,S,K]
+    expert_idx = order.indices[..., :mc.top_k]
+
+    # Position of each (token, choice) inside its expert's buffer: masked
+    # cumulative count over the sequence, counting earlier top-k slots first.
+    onehot = F.one_hot(expert_idx, e)                            # [B,S,K,E]
+    prior_slots = torch.cumsum(onehot, dim=2) - onehot           # same token
+    per_token = onehot.sum(2)                                    # [B,S,E]
+    prior_tokens = torch.cumsum(per_token, dim=1) - per_token    # earlier tokens
+    pos = prior_tokens[:, :, None, :] + prior_slots              # [B,S,K,E]
+    slot = (pos * onehot).sum(-1)                                # [B,S,K]
+    keep = slot < capacity
+
+    # Load-balance aux loss (Switch-style).
+    me = gates.mean(dim=(0, 1))                                  # [E]
+    ce = per_token.float().mean(dim=(0, 1)) / mc.top_k
+    aux = e * torch.sum(me * ce)
+    return expert_idx, probs, slot, keep, aux
+
+
+def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,D] -> (y [B,S,D], aux_loss)."""
+    mc = cfg.moe
+    cd = dt(cfg.compute_dtype)
+    b, s, d = x.shape
+    e, k = mc.n_experts, mc.top_k
+    cap = _capacity(mc, s)
+
+    logits = torch.einsum("bsd,de->bse", x.to(cd), p["router"].to(cd))
+    expert_idx, probs, slot, keep, aux = route(mc, logits, cap)
+
+    # ----- dispatch: a [B,E,C] token-index table, then one gather ----------
+    # Dropped (overflow) choices all write column ``cap``, which is sliced
+    # off (which of them lands there is arbitrary on CUDA and never read).
+    # Empty slots hold token 0: their expert rows are computed and never
+    # combined, as in the reference.
+    flat_e = expert_idx.reshape(b, s * k)
+    flat_slot = torch.where(keep, slot, cap).reshape(b, s * k)
+    token_of_choice = torch.arange(s, device=x.device).repeat_interleave(k)
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
+    table = torch.zeros((b, e, cap + 1), dtype=torch.long, device=x.device)
+    table.index_put_((rows, flat_e, flat_slot),
+                     token_of_choice.expand(b, s * k))
+    idx = table[:, :, :cap].reshape(b, e * cap)                  # [B,E*C]
+    x_e = torch.gather(x, 1, idx[..., None].expand(b, e * cap, d))
+    xc = x_e.reshape(b, e, cap, d).to(cd)
+
+    # ----- expert FFNs (batched over E) -------------------------------------
+    up = torch.einsum("becd,edf->becf", xc, p["w_up"].to(cd))
+    gate = _act(cfg.act, torch.einsum("becd,edf->becf", xc, p["w_gate"].to(cd)))
+    y_e = torch.einsum("becf,efd->becd", gate * up, p["w_down"].to(cd))
+
+    # ----- combine: K gathers back to token order ---------------------------
+    y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
+    flat_ec = expert_idx * cap + torch.clamp(slot, max=cap - 1)  # [B,S,K]
+    y_flat = y_e.reshape(b, e * cap, d)
+    for j in range(k):
+        gj = torch.gather(y_flat, 1, flat_ec[:, :, j, None].expand(b, s, d))
+        wj = (probs[:, :, j] * keep[:, :, j]).float()
+        y = y + wj[..., None] * gj.float()
+
+    # normalize combined top-k weights (llama4/arctic convention)
+    denom = (probs * keep).sum(-1, keepdim=True)
+    y = (y / torch.clamp(denom, min=1e-9)).to(x.dtype)
+    if "shared" in p:
+        y = y + mlp(cfg, p["shared"], x)
+    return y, aux * mc.aux_loss_weight

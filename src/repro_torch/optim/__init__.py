@@ -1,5 +1,6 @@
-"""Optimizers of the port: AdamW (the JAX package's ``optim/adamw.py``).
-Adafactor and gradient compression are queued in ROADMAP.md."""
+"""Optimizers of the port: AdamW (the JAX package's ``optim/adamw.py``) and
+Adafactor (``optim/adafactor.py``); gradient compression is
+``optim/compression.py``."""
 
 from repro_torch.optim.adamw import (  # noqa: F401
     OptConfig,
@@ -8,4 +9,10 @@ from repro_torch.optim.adamw import (  # noqa: F401
     global_norm,
     init_opt_state,
     schedule,
+)
+from repro_torch.optim.adafactor import (  # noqa: F401
+    AdafactorConfig,
+    adafactor_update,
+    init_adafactor_state,
+    state_bytes,
 )

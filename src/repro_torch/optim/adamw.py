@@ -32,7 +32,7 @@ class OptConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
-    compress_grads: bool = False   # int8+error-feedback (not ported yet)
+    compress_grads: bool = False   # int8+error-feedback gradient compression
     grad_accum: int = 1            # microbatches per optimizer step
 
 

@@ -297,9 +297,20 @@ def test_port_init_matches_reference_shapes_and_scales(jparams):
                                    rtol=0.2, atol=1e-6, err_msg=str(path))
 
 
-def test_unported_arch_and_family_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("granite_8b")
-    cfg = get_config("relic_tiny", smoke=True).replace(family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+def test_unknown_arch_raises_and_the_vlm_branch_matches(rng, jparams):
+    """An unknown arch raises as the reference's ``get_config`` does; the
+    dense block under the VLM family (embeddings scaled by sqrt(d_model),
+    the gemma convention) matches the reference on relic_tiny's weights,
+    where the scale moves every logit."""
+    with pytest.raises(ModuleNotFoundError):
+        get_config("no_such_arch")
+    jcfg, tcfg = _cfgs(family="vlm", frontend=None, **F32)
+    tparams = _port(tcfg, jparams)
+    toks = _tokens(tcfg, rng)
+    want, _ = jlm.lm_forward(jcfg, jparams, jnp.asarray(toks))
+    dense, _ = jlm.lm_forward(_cfgs(**F32)[0], jparams, jnp.asarray(toks))
+    with torch.no_grad():
+        got, aux = lm.lm_forward(tcfg, tparams, torch.from_numpy(toks))
+    _close(got, want, F32_TOL)
+    assert float(aux) == 0.0
+    assert np.abs(np.asarray(want) - np.asarray(dense)).max() > 1e-2

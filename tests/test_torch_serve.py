@@ -30,8 +30,11 @@ from repro_torch.models.convert import params_from_numpy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 COPIED = [
-    "configs/base.py", "configs/relic_tiny.py", "configs/rwkv6_1p6b.py",
-    "configs/zamba2_1p2b.py",
+    "configs/__init__.py", "configs/base.py", "configs/relic_tiny.py",
+    "configs/rwkv6_1p6b.py", "configs/zamba2_1p2b.py", "configs/granite_8b.py",
+    "configs/qwen3_14b.py", "configs/phi3_mini_3p8b.py", "configs/llama3_405b.py",
+    "configs/arctic_480b.py", "configs/llama4_maverick_400b_a17b.py",
+    "configs/whisper_large_v3.py", "configs/paligemma_3b.py",
     "core/spsc.py", "core/relic.py", "core/relic_pool.py", "core/schedulers.py",
     "runtime/__init__.py", "runtime/config.py", "runtime/fault.py",
     "runtime/metrics.py", "runtime/chaos.py",
@@ -61,7 +64,11 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.kernels.relic_matmul, repro_torch.launch.train, "
         "repro_torch.checkpoint, repro_torch.data, repro_torch.stream, "
         "repro_torch.tasks.graph, repro_torch.tasks.jsonparse, "
-        "repro_torch.workloads\n"
+        "repro_torch.workloads, repro_torch.models.moe, "
+        "repro_torch.models.encdec, repro_torch.models.convert, "
+        "repro_torch.optim.adafactor, repro_torch.optim.compression\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "[get_config(a, smoke) for a in ARCH_IDS for smoke in (0, 1)]\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "assert not bad, bad\n"
@@ -169,9 +176,22 @@ def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
         serve.main(["--smoke", "--device", "cuda"])
 
 
-def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("arctic-480b", smoke=True)
+def test_serve_cli_raises_for_an_unknown_arch():
+    with pytest.raises(ModuleNotFoundError):
+        serve.main(["--arch", "no_such_arch", "--smoke", "--device", "cpu"])
+    assert get_config("arctic-480b", smoke=True).family == "moe"
+
+
+@pytest.mark.parametrize("arch", [
+    "granite_8b", "qwen3_14b", "phi3_mini_3p8b", "llama3_405b", "arctic_480b",
+    "llama4_maverick_400b_a17b", "whisper_large_v3", "paligemma_3b"])
+def test_serve_cli_serves_the_other_families(arch):
+    """The dense configs, the MoE, the encoder-decoder (frames encoded and
+    the cross K/V written before the prefill) and the VLM (text only)."""
+    toks = serve.main(["--arch", arch, "--smoke", "--batch", "2",
+                       "--prompt-len", "4", "--gen", "6", "--device", "cpu"])
+    assert toks.shape == (2, 6)
+    assert int(toks.min()) >= 0 and int(toks.max()) < 512
 
 
 # ---------------------------------------------------------------------------

@@ -276,14 +276,24 @@ def test_training_reduces_loss():
     assert float(m["loss"]) < 5.0, float(m["loss"])
 
 
-def test_gradient_compression_is_not_ported():
+def test_gradient_compression_step_keeps_a_residual(rng):
+    """compress_grads=True: the state holds opt.residual (f32 zeros by
+    parameter name, as the reference's holds a zero tree), and a step fills
+    it with the quantization error while the loss stays finite;
+    tests/test_torch_optim.py holds the step against the reference's."""
     _, tcfg = _cfgs()
     model = build_model(tcfg, "cpu")
-    oc = optim.OptConfig(compress_grads=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(model, oc)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_state(model, torch.Generator().manual_seed(0), oc)
+    oc = optim.OptConfig(warmup_steps=2, total_steps=10, compress_grads=True)
+    state = make_train_state(model, torch.Generator().manual_seed(0), oc)
+    assert set(state["opt"]) == {"mu", "nu", "residual"}
+    assert not any(r.any() for r in state["opt"]["residual"].values())
+    _, tb = _batch(tcfg, rng)
+    state, metrics = make_train_step(model, oc)(state, tb)
+    assert np.isfinite(float(metrics["loss"])) and state["step"] == 1
+    res = state["opt"]["residual"]
+    assert set(res) == {n for n, _ in state["params"].named_parameters()}
+    assert all(torch.isfinite(r).all() for r in res.values())
+    assert max(float(r.abs().max()) for r in res.values()) > 0
 
 
 @pytest.mark.parametrize("arch", ["relic_tiny", "rwkv6_1p6b", "zamba2_1p2b"])
