@@ -33,13 +33,14 @@ Phases (any failure exits non-zero):
      device kernel, no copy), and the first one at K = 16, 32 and 6. The
      CUDA-core flash kernel is held at head_dim 48, 96, 256, 320 and 512
      (GQA, f32 and bf16; above 256 in slabs of 128 columns) and timed
-     there, and at granite_8b's attention (q [8, 32, 192, 128], 8 kv
-     heads); the wgmma design at whisper_large_v3's three (the encoder's
+     there, and at granite_8b's and arctic_480b's attention (q [8, 32,
+     192, 128] and [8, 56, 192, 128], 8 kv heads); the wgmma design at whisper_large_v3's three (the encoder's
      [8, 20, 1500, 64] and the cross-attention's Sq 192 against Sk 1500,
      non-causal; the decoder's causal [8, 20, 192, 64]). Device times come
      from the profiler beside the CUDA-event times;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
-     ``repro_torch.launch.serve.main`` plus three more requests through one
+     ``repro_torch.launch.serve`` (``load_model`` then ``run``, the two
+     parts of its ``main``) plus three more requests through one
      ``ServeScheduler``;
   4. run the teacher-forced forward over the served tokens with
      ``use_kernels=True`` and check it against the plain forward and the
@@ -103,7 +104,6 @@ import dataclasses
 import io
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -248,6 +248,7 @@ GRANITE, WHISPER, ARCTIC, PALIGEMMA = ("granite_8b", "whisper_large_v3",
 ARCTIC_LAYERS = 1
 TEXT_LEN = PROMPT_LEN + GEN
 GRANITE_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 8, 128)   # (b, s, h, kv, d)
+ARCTIC_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 56, 8, 128)    # GQA 7:1
 # whisper_large_v3's attentions: (label, (b, s, h, kv, d), causal, sk)
 WHISPER_ATTN = [("encoder self-attention", (SERVE_BATCH, 1500, 20, 20, 64),
                  False, None),
@@ -676,14 +677,17 @@ def phase_kernel(device):
                                   ZAMBA_ATTN_SHAPE, dtype, True, device)
     zamba = {**time_flash("zamba2 shared-attention shape", q, k, v, 50),
              "max_abs_err": err}
-    # granite_8b's attention (head_dim 128: the CUDA-core kernel) and
-    # whisper_large_v3's (20 heads, 1500 frames, Sq 192 against Sk 1500:
-    # shapes new to the wgmma design), each held against the plain version
-    # before its path relies on it, and timed.
-    (q, k, v), err = check_kernel(fa.flash_attention_fma, gen,
-                                  GRANITE_ATTN_SHAPE, dtype, True, device)
-    granite = {**time_fma(q, k, v), "max_abs_err": err,
-               "design": "CUDA-core kernel", "path": GRANITE}
+    # granite_8b's and arctic_480b's attention (head_dim 128: the CUDA-core
+    # kernel; GQA 4:1 and 7:1) and whisper_large_v3's (20 heads, 1500
+    # frames, Sq 192 against Sk 1500: shapes new to the wgmma design), each
+    # held against the plain version before its path relies on it, and
+    # timed.
+    fma_paths = []
+    for path, shape in ((GRANITE, GRANITE_ATTN_SHAPE), (ARCTIC, ARCTIC_ATTN_SHAPE)):
+        (q, k, v), err = check_kernel(fa.flash_attention_fma, gen, shape, dtype,
+                                      True, device)
+        fma_paths.append({**time_fma(q, k, v), "max_abs_err": err,
+                          "design": "CUDA-core kernel", "path": path})
     whisper = []
     for label, shape, causal, sk in WHISPER_ATTN:
         (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
@@ -715,7 +719,7 @@ def phase_kernel(device):
                        "non-TMA layouts: "
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
             "launches": None, "max_abs_err": max_err, **main,
-            "other_shapes": [teacher, zamba, granite, *whisper],
+            "other_shapes": [teacher, zamba, *fma_paths, *whisper],
             "head_dims": head_dims}
 
 
@@ -1065,57 +1069,36 @@ def decode_outside(cfg, model, params, device):
     return ms
 
 
-class _Tee(io.TextIOBase):
-    """A stdout that also keeps what is written to it."""
-
-    def __init__(self, out):
-        self.out, self.parts = out, []
-
-    def write(self, text):
-        self.out.write(text)
-        self.parts.append(text)
-        return len(text)
-
-
 def serve_main(arch, gen, device):
-    """``serve.main`` as a user runs it, at full width. Returns the served
-    tokens, the (cfg, model, params) it served with, kept from its call of
+    """``serve.main`` as a user runs it, at full width, in its two parts:
     ``serve.load_model`` (timed here: the weights drawn from the host
-    generator, then moved to the card), so the checks that follow run on
-    the served weights without drawing them again, and {"init_s",
-    "ms_per_step", "ttft_ms"} as the run printed them."""
+    generator, then moved to the card) and ``serve.run``. Returns the
+    served tokens, the (cfg, model, params) it served with, so the checks
+    that follow run on the served weights without drawing them again, and
+    {"init_s", "encode_ms", "prefill_ms", "handoff_ms", "ttft_ms",
+    "ms_per_step"}: the time to the first token is the encode (whisper),
+    the prefill and the scheduler's hand-off."""
     argv = ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
             str(PROMPT_LEN), "--gen", str(gen), "--device", device.type]
-    load, loaded = serve.load_model, []
-
-    def timed_load(*args, **kw):
-        t = time.perf_counter()
-        out = load(*args, **kw)
-        synchronize(device)
-        loaded.append((out, time.perf_counter() - t))
-        return out
-
-    serve.load_model = timed_load
-    tee = _Tee(sys.stdout)
-    try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            gen_toks = serve.main(argv)
-    finally:
-        serve.load_model = load
-    (cfg, model, params), init_s = loaded[0]
-    ms_step, ttft = map(float, re.search(r"\(([\d.]+) ms/step, ttft ([\d.]+) ms",
-                                         "".join(tee.parts)).groups())
+    args = serve.parse_args(argv)
+    t0 = time.perf_counter()
+    cfg, model, params = serve.load_model(arch, smoke=False, device=device)
+    synchronize(device)
+    init_s = time.perf_counter() - t0
+    gen_toks, st = serve.run(args, cfg, model, params, device)
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"[serve] main({' '.join(argv)}) took {time.perf_counter() - t0:.1f} "
-          f"s, of which the init {init_s:.1f} s ({n_params / 1e9:.3f} B "
-          f"parameters, {n_params * 2 / 1e9:.2f} GB in bf16, drawn from "
-          f"torch.Generator().manual_seed(0) on the host)")
+    print(f"[serve] {arch} ({' '.join(argv)}): init {init_s:.1f} s "
+          f"({n_params / 1e9:.3f} B parameters, {n_params * 2 / 1e9:.2f} GB in "
+          f"bf16, drawn from torch.Generator().manual_seed(0) on the host); "
+          f"{st['ms_per_step']:.2f} ms/step, {st['tok_s']:.1f} tok/s; time to "
+          f"first token {st['ttft_ms']:.1f} ms = encode {st['encode_ms']:.1f} + "
+          f"prefill {st['prefill_ms']:.1f} + scheduler hand-off "
+          f"{st['handoff_ms']:.2f} ms")
     if tuple(gen_toks.shape) != (SERVE_BATCH, gen):
         raise AssertionError(f"served shape {tuple(gen_toks.shape)}")
-    return gen_toks, (cfg, model, params), {"init_s": init_s,
-                                            "ms_per_step": ms_step,
-                                            "ttft_ms": ttft}
+    return gen_toks, (cfg, model, params), {
+        "init_s": init_s, **{k: st[k] for k in (
+            "encode_ms", "prefill_ms", "handoff_ms", "ttft_ms", "ms_per_step")}}
 
 
 def phase_serve(device):

@@ -2,9 +2,12 @@
 request through ``repro_torch.serve.ServeScheduler``.
 
 The decode loop is a *generator* work function — each generated token is
-one yielded item, so the response's ``first_result_t`` is the
-time-to-first-token and the subsystem's latency accounting applies unchanged
-to token serving. It runs on the card unless ``--device cpu`` is given.
+one yielded item, so the subsystem's latency accounting applies unchanged
+to token serving. The prefill (and the encoder-decoder's encode) runs
+before the request is submitted, so the response's ``first_result_t`` is
+only the scheduler's hand-off of a token already computed; the time to the
+first token that ``main`` prints adds the encode and the prefill to it. It
+runs on the card unless ``--device cpu`` is given.
 
 The encoder-decoder (``--arch whisper_large_v3``) first encodes frames drawn
 from the same seeded generator as the prompts and writes each decoder
@@ -19,6 +22,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -70,7 +74,7 @@ def decode_stream(serve_step, params, first_tok, cache, start: int, n: int,
     synchronize(device)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="relic_tiny")
     ap.add_argument("--smoke", action="store_true")
@@ -81,20 +85,24 @@ def main(argv=None):
                     help="RelicPool lanes backing the request server")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' only when asked for")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    cfg, model, params = load_model(args.arch, smoke=args.smoke, device=device)
+
+def run(args: argparse.Namespace, cfg, model, params, device: torch.device):
+    """Serve one request of ``args.batch`` prompts on loaded weights.
+
+    Returns the generated tokens [batch, gen] and the host-clock times in
+    ms: ``encode_ms`` (the encoder-decoder's encode and cross-cache write;
+    nothing runs there for the other families), ``prefill_ms``, ``handoff_ms`` (from the
+    request's submission to its first token, which the prefill has already
+    computed: the scheduler's hand-off, the reference's "ttft"), ``ttft_ms``
+    (the three together: what a user waits for the first token) and
+    ``ms_per_step`` (the decode steps inside the scheduler)."""
     cache_len = args.prompt_len + args.gen
     cache = model.init_cache(args.batch, cache_len)
     serve_step = make_serve_step(model)
     prefill = make_prefill_step(model)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, device)
-    if cfg.family == "encdec":
-        frames = make_frames(cfg, args.batch, args.prompt_len, device)
-        with torch.no_grad():
-            cache = prefill_cross_cache(cfg, params, cache,
-                                        encode(cfg, params, frames))
 
     # Warm decode off the served path (its own throwaway cache), so the
     # served request measures steady-state steps, not first-call set-up.
@@ -103,8 +111,17 @@ def main(argv=None):
     serve_step(params, warm_cache, warm_tok, 0)
     synchronize(device)
 
+    t0 = time.perf_counter()
+    if cfg.family == "encdec":
+        frames = make_frames(cfg, args.batch, args.prompt_len, device)
+        with torch.no_grad():
+            cache = prefill_cross_cache(cfg, params, cache,
+                                        encode(cfg, params, frames))
+        synchronize(device)
+    t1 = time.perf_counter()
     tok, cache = prefill(params, cache, prompts)
     synchronize(device)
+    t2 = time.perf_counter()
 
     steps_timed = [0]  # decode-loop accounting, asserted against gen below
     with ServeScheduler(lanes=args.lanes) as server:
@@ -117,15 +134,28 @@ def main(argv=None):
     # prediction + one token per timed decode step.
     assert steps_timed[0] == args.gen - 1, (steps_timed[0], args.gen)
     assert len(out) == 1 + steps_timed[0], (len(out), steps_timed[0])
-
-    gen_toks = torch.cat(out, dim=1)
     assert resp.first_result_t is not None and resp.complete_t is not None
-    ttft = resp.first_result_t - resp.request.arrival_t
+    handoff = resp.first_result_t - resp.request.arrival_t
     dt = max(resp.complete_t - resp.first_result_t, 1e-9)
-    tps = args.batch * (args.gen - 1) / dt
+    stats = {"encode_ms": (t1 - t0) * 1e3, "prefill_ms": (t2 - t1) * 1e3,
+             "handoff_ms": handoff * 1e3,
+             "ttft_ms": (t2 - t0 + handoff) * 1e3,
+             "ms_per_step": dt / max(args.gen - 1, 1) * 1e3,
+             "tok_s": args.batch * (args.gen - 1) / dt}
+    return torch.cat(out, dim=1), stats
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg, model, params = load_model(args.arch, smoke=args.smoke, device=device)
+    gen_toks, st = run(args, cfg, model, params, device)
+    encode_part = (f"encode {st['encode_ms']:.1f} ms, "
+                   if cfg.family == "encdec" else "")
     print(f"generated {tuple(gen_toks.shape)} tokens on {device}; "
-          f"{tps:.1f} tok/s ({dt / max(args.gen - 1, 1) * 1e3:.1f} ms/step, "
-          f"ttft {ttft * 1e3:.1f} ms, lanes {args.lanes})")
+          f"{st['tok_s']:.1f} tok/s ({st['ms_per_step']:.1f} ms/step, ttft "
+          f"{st['ttft_ms']:.1f} ms: {encode_part}prefill {st['prefill_ms']:.1f} "
+          f"ms, hand-off {st['handoff_ms']:.1f} ms; lanes {args.lanes})")
     print("sample row:", gen_toks[0][:16].cpu().numpy())
     return gen_toks
 

@@ -13,17 +13,11 @@ a copy and an unstack, never a reshape. The optimizer's state (AdamW's
 ``mu``/``nu``, the compression ``residual``) follows the parameters' key
 paths on both sides (``repro_torch.optim``).
 
-``leaves`` gives the reference's leaves over the port's parameter names.
-Elementwise updates (AdamW) do not see the layer stacks; Adafactor does (a
-stacked [L, D] norm scale is factored, and the update is clipped by the RMS
-of the whole leaf), and so does block quantization (blocks of 256 run
-across layer boundaries), so those two stack the port's tensors into the
-reference's leaves with ``gather`` and split them back with ``scatter``.
+The grouping of the port's names into the reference's leaves is
+``optim.stacks.leaves``, which the optimizers share.
 """
 
 from __future__ import annotations
-
-from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +26,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, lm
 from repro_torch.models.layers import dt
+from repro_torch.optim.stacks import leaves
 
 
 def _tree_leaves(tree: dict, prefix=()):
@@ -40,38 +35,6 @@ def _tree_leaves(tree: dict, prefix=()):
             yield from _tree_leaves(val, prefix + (key,))
         else:
             yield prefix + (key,), val
-
-
-def leaves(names: Iterable[str]) -> List[Tuple[str, bool, List[str]]]:
-    """(leaf key, stacked over layers, the port's names in layer order) of
-    every leaf of the reference's tree: ``layers.<i>.<rest>`` (likewise
-    ``enc_layers``, ``dec_layers``) go to leaf ``layers.<rest>``."""
-    stacks: Dict[str, List[Tuple[int, str]]] = {}
-    out = []
-    for name in names:
-        parts = name.split(".")
-        if len(parts) > 2 and parts[1].isdigit():
-            key = ".".join(parts[:1] + parts[2:])
-            if key not in stacks:
-                stacks[key] = []
-                out.append((key, True, stacks[key]))
-            stacks[key].append((int(parts[1]), name))
-        else:
-            out.append((name, False, [(0, name)]))
-    return [(key, stacked, [n for _, n in sorted(group)])
-            for key, stacked, group in out]
-
-
-def gather(named: Dict[str, torch.Tensor], stacked: bool,
-           names: List[str]) -> torch.Tensor:
-    """A leaf's tensor: the layers' tensors stacked on axis 0."""
-    return torch.stack([named[n] for n in names]) if stacked else named[names[0]]
-
-
-def scatter(leaf: torch.Tensor, stacked: bool,
-            names: List[str]) -> Dict[str, torch.Tensor]:
-    """Inverse of ``gather``: the leaf's slices by the port's names."""
-    return dict(zip(names, leaf.unbind(0))) if stacked else {names[0]: leaf}
 
 
 def _leaf_paths(params):

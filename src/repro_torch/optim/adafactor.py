@@ -8,12 +8,16 @@ clipping by RMS, no first moment, relative step sizing off (the caller
 passes the learning rate, e.g. ``optim.schedule``).
 
 Parameters are the model's ``nn.Module`` and gradients are keyed by the
-parameters' names. The update runs on the reference's leaves
-(``models.convert.leaves``: the layers of a stack stacked on axis 0),
-since both the factoring and the RMS clipping see a whole leaf, and the
-state is keyed by leaf (``{"v": {"layers.attn.wq": {"vr", "vc"},
-"embed.table": ...}}``, a vector's ``{"v"}``). Parameters are written
-back in place under ``torch.no_grad()``.
+parameters' names. The update is the reference's on its leaves
+(``optim.stacks.leaves``: the layers of a stack stacked on axis 0), and
+the state is keyed by leaf (``{"v": {"layers.attn.wq": {"vr", "vc"},
+"embed.table": ...}}``, a vector's ``{"v"}``). A stack of matrices is
+never stacked: its factors are the layers' own (slice i of the leaf's
+``vr``/``vc``), and the RMS clip of the whole leaf sums the layers'
+squares in a first pass and scales in a second, which recomputes each
+layer's update rather than keep them all. Only a stack of vectors (a norm
+scale [L, D], factored across the layers) is stacked, which is small.
+Parameters are written back in place under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from repro_torch.models.convert import gather, leaves, scatter
+from repro_torch.optim.stacks import gather, leaves, scatter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +67,29 @@ def init_adafactor_state(params: nn.Module) -> dict:
     return {"v": state}
 
 
+def _second_moment(v: dict, gf: torch.Tensor, ac: AdafactorConfig,
+                   beta2: float):
+    """One tensor's second moment (its factors, or all of it) updated in
+    place with the gradient ``gf``."""
+    g2 = gf * gf + ac.eps
+    if "vr" in v:
+        v["vr"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-1))
+        v["vc"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-2))
+    else:
+        v["v"].mul_(beta2).add_((1 - beta2) * g2)
+
+
+def _scaled(v: dict, gf: torch.Tensor, ac: AdafactorConfig) -> torch.Tensor:
+    """``gf`` over the square root of its second moment; a factored one is
+    the rank-1 reconstruction from its factors."""
+    if "vr" in v:
+        vr, vc = v["vr"], v["vc"]
+        denom = ((vr / torch.clamp(vr.mean(dim=-1, keepdim=True),
+                                   min=ac.eps))[..., None] * vc[..., None, :])
+        return gf / torch.sqrt(torch.clamp(denom, min=ac.eps))
+    return gf / torch.sqrt(torch.clamp(v["v"], min=ac.eps))
+
+
 @torch.no_grad()
 def adafactor_update(ac: AdafactorConfig, grads: Dict[str, torch.Tensor],
                      opt_state: dict, params: nn.Module, step: int, lr: float):
@@ -72,31 +99,32 @@ def adafactor_update(ac: AdafactorConfig, grads: Dict[str, torch.Tensor],
     beta2 = 1.0 - t ** (-ac.decay)
     named = dict(params.named_parameters())
     for key, stacked, names in leaves(named):
-        p = gather(named, stacked, names)
-        gf = gather(grads, stacked, names).float()
-        g2 = gf * gf + ac.eps
         v = opt_state["v"][key]
-        if _factored(p.shape):
-            vr = beta2 * v["vr"] + (1 - beta2) * g2.mean(dim=-1)
-            vc = beta2 * v["vc"] + (1 - beta2) * g2.mean(dim=-2)
-            # rank-1 reconstruction of the second moment
-            denom = ((vr / torch.clamp(vr.mean(dim=-1, keepdim=True),
-                                       min=ac.eps))[..., None]
-                     * vc[..., None, :])
-            update = gf / torch.sqrt(torch.clamp(denom, min=ac.eps))
-            v["vr"], v["vc"] = vr, vc
+        by_layer = stacked and named[names[0]].dim() >= 2
+        if by_layer:   # (parameter, gradient, the layer's slice of the state)
+            parts = [(named[n], grads[n], {k: x[i] for k, x in v.items()})
+                     for i, n in enumerate(names)]
         else:
-            vv = beta2 * v["v"] + (1 - beta2) * g2
-            update = gf / torch.sqrt(torch.clamp(vv, min=ac.eps))
-            v["v"] = vv
-        # update clipping by RMS (the Adafactor stabilizer)
-        rms = torch.sqrt(torch.mean(update * update))
-        update = update / torch.clamp(rms / ac.clip_threshold, min=1.0)
-        if ac.weight_decay:
-            update = update + ac.weight_decay * p.float()
-        new = scatter((p.float() - lr * update).to(p.dtype), stacked, names)
-        for name, t_new in new.items():
-            named[name].copy_(t_new)
+            parts = [(gather(named, stacked, names),
+                      gather(grads, stacked, names), v)]
+        sumsq = 0.0
+        for _, g, vi in parts:
+            _second_moment(vi, g.float(), ac, beta2)
+            sumsq = sumsq + torch.sum(torch.square(_scaled(vi, g.float(), ac)))
+        # update clipping by the RMS of the whole leaf (the Adafactor
+        # stabilizer)
+        n = sum(p.numel() for p, _, _ in parts)
+        clip = torch.clamp(torch.sqrt(sumsq / n) / ac.clip_threshold, min=1.0)
+        for p, g, vi in parts:
+            update = _scaled(vi, g.float(), ac) / clip
+            if ac.weight_decay:
+                update = update + ac.weight_decay * p.float()
+            new = (p.float() - lr * update).to(p.dtype)
+            if by_layer:
+                p.copy_(new)
+            else:
+                for name, t_new in scatter(new, stacked, names).items():
+                    named[name].copy_(t_new)
     return params, opt_state
 
 

@@ -10,8 +10,10 @@ does), clipped to ±127.
 
 Gradients and the residual are dicts keyed by the parameters' names, as
 ``optim.adamw`` keeps its state; each is quantized as the reference's leaf
-it belongs to (the layers of a stack together,
-``models.convert.leaves``), so the blocks of 256 are the reference's.
+it belongs to (the layers of a stack together, ``optim.stacks.leaves``), so
+the blocks of 256 are the reference's: a layer whose size is a multiple of
+256 is its own blocks and is quantized alone; only the other stacks (small
+vectors, whose blocks cross layer boundaries) are stacked first.
 ``compressed_psum``, the reference's all-reduce of int8 levels, needs a
 collective and waits for the multi-device part of the port (ROADMAP.md).
 """
@@ -23,7 +25,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.convert import gather, leaves, scatter
+from repro_torch.optim.stacks import gather, leaves, scatter
 
 BLOCK = 256
 
@@ -55,12 +57,17 @@ def compress_with_feedback(grads: Dict[str, torch.Tensor],
     """EF step: g' = Q(g + r); r' = (g + r) - g'. Returns (g', r')."""
     out, res = {}, {}
     for _, stacked, names in leaves(grads):
-        g = gather(grads, stacked, names)
-        gf = g.float() + gather(residual, stacked, names)
-        q, s, n = quantize(gf)
-        gq = dequantize(q, s, n, g.shape)
-        out.update(scatter(gq.to(g.dtype), stacked, names))
-        res.update(scatter(gf - gq, stacked, names))
+        if stacked and grads[names[0]].numel() % BLOCK == 0:
+            groups = [(False, [name]) for name in names]
+        else:
+            groups = [(stacked, names)]
+        for whole, group in groups:
+            g = gather(grads, whole, group)
+            gf = g.float() + gather(residual, whole, group)
+            q, s, n = quantize(gf)
+            gq = dequantize(q, s, n, g.shape)
+            out.update(scatter(gq.to(g.dtype), whole, group))
+            res.update(scatter(gf - gq, whole, group))
     return out, res
 
 

@@ -66,7 +66,8 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.tasks.graph, repro_torch.tasks.jsonparse, "
         "repro_torch.workloads, repro_torch.models.moe, "
         "repro_torch.models.encdec, repro_torch.models.convert, "
-        "repro_torch.optim.adafactor, repro_torch.optim.compression\n"
+        "repro_torch.optim.adafactor, repro_torch.optim.compression, "
+        "repro_torch.optim.stacks\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a, smoke) for a in ARCH_IDS for smoke in (0, 1)]\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
