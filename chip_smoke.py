@@ -14,11 +14,11 @@ Phases (any failure exits non-zero):
      library call; check that ``ops.flash_attention`` and ``ops.matmul``
      launch their kernels at shapes no multiple of the TPU tiles. Flash
      attention has two designs, chosen by ``fa.wgmma_eligible``: the wgmma
-     one (bf16, head_dim 64, TMA-describable layouts) is held on MHA, GQA
-     and MQA at ragged lengths, Sq != Sk and the model layout, and one
-     ``ops.flash_attention`` call at [4, 2048] must run exactly one device
-     kernel and no copy; the CUDA-core kernel is held on f32 and small
-     head dims. relic_matmul has three designs (``rm.wgmma_eligible``,
+     one (bf16, head_dim 64 or 128, TMA-describable layouts) is held on
+     MHA, GQA and MQA at ragged lengths, Sq != Sk and the model layout at
+     both head sizes, and one ``ops.flash_attention`` call at [4, 2048]
+     must run exactly one device kernel and no copy; the CUDA-core kernel
+     is held on f32 and the other head dims. relic_matmul has three designs (``rm.wgmma_eligible``,
      ``rm.f32_tile``): the wgmma one (bf16 that TMA can describe) is held
      on the test shapes and ragged ones, and one call at 4096^3 must run
      one device kernel; ragged K goes to the mma.sync kernel; f32 to the
@@ -33,8 +33,10 @@ Phases (any failure exits non-zero):
      device kernel, no copy), and the first one at K = 16, 32 and 6. The
      CUDA-core flash kernel is held at head_dim 48, 96, 256, 320 and 512
      (GQA, f32 and bf16; above 256 in slabs of 128 columns) and timed
-     there, and at granite_8b's and arctic_480b's attention (q [8, 32,
-     192, 128] and [8, 56, 192, 128], 8 kv heads); the wgmma design at whisper_large_v3's three (the encoder's
+     there; the wgmma design at head_dim 128 at granite_8b's, arctic_480b's,
+     qwen3_14b's and llama3_405b's attention (q [8, 32 | 56 | 40 | 128,
+     192, 128], 8 kv heads) and at q [4, 32, 2048, 128], each timed beside
+     the CUDA-core kernel, and at whisper_large_v3's three (the encoder's
      [8, 20, 1500, 64] and the cross-attention's Sq 192 against Sk 1500,
      non-causal; the decoder's causal [8, 20, 192, 64]). Device times come
      from the profiler beside the CUDA-event times;
@@ -53,8 +55,8 @@ Phases (any failure exits non-zero):
      through the ssd and flash-attention kernels, the same way;
   7. the other families at full width, each a main path of its own:
      granite_8b (36 layers, head_dim 128) served through ``serve.main``,
-     its teacher-forced forward through 36 launches of the CUDA-core flash
-     kernel at the dense bf16 bars; whisper_large_v3 (32 + 32 layers)
+     its teacher-forced forward through 36 launches of the wgmma flash
+     design (head_dim 128) at the dense bf16 bars; whisper_large_v3 (32 + 32 layers)
      served (frames -> encode -> cross K/V -> prefill -> decode), its
      forward over the served frames through 96 wgmma launches (encoder,
      decoder and cross-attention; held first at its own shapes in phase
@@ -86,8 +88,8 @@ Phases (any failure exits non-zero):
 Phases 3-4, 5, 6, each family of 7, and 8 are the main paths: each starts
 with every kernel's launch count at 0 and its counts are read when it ends;
 every flash launch there and in phase 12 must go through the wgmma design
-(granite's and arctic's, head_dim 128, through the CUDA-core kernel) and
-every ssd and wkv6 launch through the tensor-core one, and the
+(none through the CUDA-core kernel) and every ssd and wkv6 launch through
+the tensor-core one, and the
 quickstart's one relic_matmul launch through the f32 design; phases 9, 10
 and 11 must launch no kernel (training runs the plain paths, as the
 reference's does, and the workloads' kernels were never Pallas ones).
@@ -170,7 +172,14 @@ KERNEL_SHAPES = [  # (b, s, h, kv, d): tests/test_kernels.py:55-60
 WGMMA_HEADS = [(4, 4), (12, 4), (8, 2), (8, 1)]
 WGMMA_LENGTHS = (96, 300, 1000)
 WGMMA_CROSS = (2, 128, 12, 4, 64, 320)   # (b, sq, h, kv, d, sk), non-causal
+# Its head_dim-128 instance: (b, s, h, kv) at MHA, GQA 4:1 and 7:1 (the
+# dense configs' and arctic's ratios) at ragged S, causal and not, and
+# Sq 128 against Sk 320.
+WGMMA_128_SHAPES = [(2, 200, 4, 4), (2, 200, 8, 2), (2, 200, 7, 1),
+                    (1, 1000, 8, 2)]
+WGMMA_128_CROSS = (2, 128, 8, 2, 128, 320)
 MAIN_SHAPE = (4, 2048, 12, 4, 64)  # relic_tiny's attention in the long forward
+LONG_128_SHAPE = (4, 2048, 32, 8, 128)   # granite's heads at [4, 2048]: D=128 bound by operations
 # relic_tiny's attention in the teacher-forced forward of the counted main path
 TEACHER_SHAPE = (SERVE_BATCH, PROMPT_LEN + GEN, 12, 4, 64)
 # zamba2_1p2b's shared attention in its teacher-forced forward (no GQA)
@@ -235,8 +244,8 @@ MAIN_PATHS = [(ARCH, GEN, {"flash_attention": 12}, True),
 QUICKSTART_LAUNCHES = {"relic_matmul": 1}   # its ops.matmul (quickstart.py)
 # The other families at full width, served and forwarded as the paths above
 # (batch 8, prompt 128, 64 tokens; the teacher-forced forwards over 192
-# tokens). granite_8b is full depth (36 layers, head_dim 128: the CUDA-core
-# flash kernel); whisper_large_v3 full depth (32 + 32 layers, 20 heads of 64
+# tokens). granite_8b is full depth (36 layers, head_dim 128: the wgmma
+# design's second instance); whisper_large_v3 full depth (32 + 32 layers, 20 heads of 64
 # over 1500 frames: the wgmma design in the encoder, the decoder and its
 # cross-attention); paligemma_3b full depth (its image prefix keeps every
 # attention off the kernels); arctic_480b full width with its depth cut to
@@ -249,6 +258,10 @@ ARCTIC_LAYERS = 1
 TEXT_LEN = PROMPT_LEN + GEN
 GRANITE_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 8, 128)   # (b, s, h, kv, d)
 ARCTIC_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 56, 8, 128)    # GQA 7:1
+# The other head_dim-128 configs' attention at the same [8, 192]: held and
+# timed in the kernel phase; their families are on no path of this script.
+HEAD_DIM_128_SHAPES = [("qwen3_14b", (SERVE_BATCH, TEXT_LEN, 40, 8, 128)),
+                       ("llama3_405b", (SERVE_BATCH, TEXT_LEN, 128, 8, 128))]
 # whisper_large_v3's attentions: (label, (b, s, h, kv, d), causal, sk)
 WHISPER_ATTN = [("encoder self-attention", (SERVE_BATCH, 1500, 20, 20, 64),
                  False, None),
@@ -257,8 +270,8 @@ WHISPER_ATTN = [("encoder self-attention", (SERVE_BATCH, 1500, 20, 20, 64),
                 ("decoder self-attention", (SERVE_BATCH, TEXT_LEN, 20, 20, 64),
                  True, None)]
 # Flash launches of each new path's counted forward: one a layer and
-# attention (whisper: 32 encoder, 32 decoder self, 32 cross), and how many
-# of them run the CUDA-core kernel (head_dim 128) rather than the wgmma one.
+# attention (whisper: 32 encoder, 32 decoder self, 32 cross), all through
+# the wgmma design.
 GRANITE_LAUNCHES, WHISPER_LAUNCHES = 36, 96
 ARCTIC_DECODE = 16   # forced tokens of arctic's decode check
 OPTIM_STEPS = 5      # train steps of relic_tiny with gradient compression
@@ -628,9 +641,22 @@ def phase_kernel(device):
     check_kernel(fa.flash_attention_wgmma, gen, (b, sq, h, kv, d), dtype, False,
                  device, sk=sk)
 
-    # The dispatch: bf16 D=64 goes to the wgmma design, f32 and D=32 do not.
-    for dt, d, n in ((torch.bfloat16, 64, 1), (torch.float32, 64, 0),
-                     (torch.bfloat16, 32, 0)):
+    # Its head_dim-128 instance: MHA, GQA 4:1 and 7:1 at ragged S, causal
+    # and not; Sq != Sk.
+    for b, s, h, kv in WGMMA_128_SHAPES:
+        for causal in (True, False):
+            check_kernel(fa.flash_attention_wgmma, gen, (b, s, h, kv, 128),
+                         dtype, causal, device)
+    b, sq, h, kv, d, sk = WGMMA_128_CROSS
+    for causal in (True, False):
+        check_kernel(fa.flash_attention_wgmma, gen, (b, sq, h, kv, d), dtype,
+                     causal, device, sk=sk)
+
+    # The dispatch: bf16 D=64 and 128 go to the wgmma design, f32 and D=32
+    # and 96 do not.
+    for dt, d, n in ((torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1),
+                     (torch.float32, 64, 0), (torch.float32, 128, 0),
+                     (torch.bfloat16, 32, 0), (torch.bfloat16, 96, 0)):
         q, k, v = _qkv(gen, 1, 96, 4, 2, d, dt, device)
         got = _launched("wgmma_launches", n, lambda: _launched(
             "launches", 1, lambda: fa.flash_attention_cuda(q, k, v),
@@ -658,16 +684,19 @@ def phase_kernel(device):
         head_dims.append(time_fma(q, k, v))
 
     # ops.flash_attention hands the model layout [B, S, H, D] to the wgmma
-    # design as it is, at lengths no multiple of its tiles.
-    for s in (96, 300):
-        q, k, v = (x.transpose(1, 2).contiguous()
-                   for x in _qkv(gen, 1, s, 4, 2, 64, dtype, device))
-        got = _launched("wgmma_launches", 1, lambda: ops.flash_attention(
-            q, k, v, causal=True), f"ops.flash_attention at S={s}")
-        want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                        v.transpose(1, 2)).transpose(1, 2)
-        _hold(f"ops.flash_attention model layout S={s}", got, want,
-              TOL[dtype], TOL[dtype])
+    # design as it is, at lengths no multiple of its tiles, at both head
+    # sizes.
+    for d in fa.WGMMA_HEAD_DIMS:
+        for s in (96, 300):
+            q, k, v = (x.transpose(1, 2).contiguous()
+                       for x in _qkv(gen, 1, s, 4, 2, d, dtype, device))
+            got = _launched("wgmma_launches", 1, lambda: ops.flash_attention(
+                q, k, v, causal=True), f"ops.flash_attention at S={s} d{d}")
+            want = fa.flash_attention_plain(
+                q.transpose(1, 2), k.transpose(1, 2),
+                v.transpose(1, 2)).transpose(1, 2)
+            _hold(f"ops.flash_attention model layout S={s} d{d}", got, want,
+                  TOL[dtype], TOL[dtype])
 
     (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, TEACHER_SHAPE,
                                   dtype, True, device)
@@ -677,17 +706,22 @@ def phase_kernel(device):
                                   ZAMBA_ATTN_SHAPE, dtype, True, device)
     zamba = {**time_flash("zamba2 shared-attention shape", q, k, v, 50),
              "max_abs_err": err}
-    # granite_8b's and arctic_480b's attention (head_dim 128: the CUDA-core
-    # kernel; GQA 4:1 and 7:1) and whisper_large_v3's (20 heads, 1500
-    # frames, Sq 192 against Sk 1500: shapes new to the wgmma design), each
-    # held against the plain version before its path relies on it, and
-    # timed.
-    fma_paths = []
-    for path, shape in ((GRANITE, GRANITE_ATTN_SHAPE), (ARCTIC, ARCTIC_ATTN_SHAPE)):
-        (q, k, v), err = check_kernel(fa.flash_attention_fma, gen, shape, dtype,
-                                      True, device)
-        fma_paths.append({**time_fma(q, k, v), "max_abs_err": err,
-                          "design": "CUDA-core kernel", "path": path})
+    # The head_dim-128 configs' attention (the wgmma design's second
+    # instance; granite_8b GQA 4:1, arctic_480b 7:1, qwen3_14b 5:1,
+    # llama3_405b 16:1) and whisper_large_v3's (20 heads, 1500 frames, Sq
+    # 192 against Sk 1500), each held against the plain version before a
+    # path relies on it, and timed beside the CUDA-core kernel.
+    d128 = []
+    for path, shape in ((GRANITE, GRANITE_ATTN_SHAPE), (ARCTIC, ARCTIC_ATTN_SHAPE),
+                        *HEAD_DIM_128_SHAPES):
+        (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
+                                      dtype, True, device)
+        d128.append({**time_flash(f"{path} attention", q, k, v, 20),
+                     "max_abs_err": err, "path": path})
+    (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, LONG_128_SHAPE,
+                                  dtype, True, device)
+    d128.append({**time_flash("long head_dim-128 shape", q, k, v, 20),
+                 "max_abs_err": err})
     whisper = []
     for label, shape, causal, sk in WHISPER_ATTN:
         (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
@@ -713,13 +747,15 @@ def phase_kernel(device):
                        "heaviest first; wgmma for both products (P from "
                        "registers); K/V by TMA into a 2-stage mbarrier ring "
                        "fed by one producer thread; 4-D tensor maps over the "
-                       "caller's strides; bf16 D=64. f32, every other D "
+                       "caller's strides, one box per 64-column swizzle "
+                       "atom; bf16, one template with instances at D=64 "
+                       "and D=128. f32, every other D "
                        "(instances 16/32/64/96/128/256, the next one up for "
                        "any other up to 256, slabs of 128 columns above) and "
                        "non-TMA layouts: "
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
             "launches": None, "max_abs_err": max_err, **main,
-            "other_shapes": [teacher, zamba, *fma_paths, *whisper],
+            "other_shapes": [teacher, zamba, *d128, *whisper],
             "head_dims": head_dims}
 
 
@@ -1143,12 +1179,11 @@ def _reset_launches():
         setattr(mod, attr, 0)
 
 
-def _count_path(label, want, entries, fma_flash=0):
+def _count_path(label, want, entries):
     """The launches since the last reset must be exactly ``want`` ({kernel:
     count}); every ssd and wkv6 launch must take its redesigned design
-    (tensor cores), every flash launch the wgmma one but ``fma_flash`` (the
-    CUDA-core kernel: head_dim 128 of granite and arctic), and no
-    relic_matmul launch the wgmma one (the only product on a main path, the
+    (tensor cores), every flash launch the wgmma one, and no relic_matmul
+    launch the wgmma one (the only product on a main path, the
     quickstart's, is f32). The counts are added to the kernels' entries of
     the numbers line, in total and by path."""
     got = {n: c for n, c in _launches().items() if c}
@@ -1157,7 +1192,7 @@ def _count_path(label, want, entries, fma_flash=0):
           f"designs {redesigned}")
     if got != want:
         raise AssertionError(f"{label} launched {got}, want {want}")
-    expect = {"flash_attention": got.get("flash_attention", 0) - fma_flash,
+    expect = {"flash_attention": got.get("flash_attention", 0),
               "ssd": got.get("ssd", 0), "wkv6": got.get("wkv6", 0),
               "relic_matmul": 0, "relic_matmul_gated": 0}
     if redesigned != expect:
@@ -1705,14 +1740,13 @@ def phase_card_vs_cpu(device):
 def phase_granite(device, entries):
     """granite_8b at full width and depth: served through ``serve.main``,
     then its teacher-forced forward [8, 192] through 36 launches of the
-    CUDA-core flash kernel (head_dim 128), held at the dense family's bf16
-    bars against the plain forward and the served tokens."""
+    wgmma flash design (head_dim 128), held at the dense family's bf16 bars
+    against the plain forward and the served tokens."""
     _reset_launches()
     gen_toks, (cfg, model, params), served = serve_main(GRANITE, GEN, device)
     tokens, logits_k, logits_p = phase_forward(
         cfg, params, gen_toks, {"flash_attention": GRANITE_LAUNCHES}, True, device)
-    _count_path(GRANITE, {"flash_attention": GRANITE_LAUNCHES}, entries,
-                fma_flash=GRANITE_LAUNCHES)
+    _count_path(GRANITE, {"flash_attention": GRANITE_LAUNCHES}, entries)
     del logits_k, logits_p
     return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
                                                             device),
@@ -1851,7 +1885,7 @@ def phase_arctic(device, entries):
     held against the reference's shapes and scales (the expert stacks drawn
     one expert at a time from the host generator into the bf16 tensor on
     the card), the forward [8, 192] through one flash launch (head_dim 128,
-    the CUDA-core kernel) held at the bf16 bars against the plain one with
+    the wgmma design) held at the bf16 bars against the plain one with
     its routing tables checked, then ARCTIC_DECODE decode steps against the
     teacher-forced forward in the drop-free regime (capacity_factor
     n_experts / top_k: every expert can take every token), as
@@ -1920,8 +1954,7 @@ def phase_arctic(device, entries):
     torch.testing.assert_close(got, forced, rtol=MODEL_TOL, atol=MODEL_TOL)
     if not agree > 0.9:
         raise AssertionError(f"{cfg.name}: decode agreement {agree} <= 0.9")
-    _count_path(ARCTIC, {"flash_attention": cfg.n_layers}, entries,
-                fma_flash=cfg.n_layers)
+    _count_path(ARCTIC, {"flash_attention": cfg.n_layers}, entries)
     return {"init_s": init_s, "decode_ms_per_step": step_ms,
             **time_forwards(cfg, params, tokens)}
 

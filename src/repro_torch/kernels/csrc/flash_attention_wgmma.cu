@@ -1,5 +1,6 @@
-// Flash attention forward (GQA, optional causal) for Hopper, sm_90a: the bf16,
-// head_dim 64 design on TMA and wgmma.
+// Flash attention forward (GQA, optional causal) for Hopper, sm_90a: the bf16
+// design on TMA and wgmma, at head_dim 64 and 128 (one template, two
+// instances).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_fa_kernel / flash_attention_bhsd). Computes
@@ -9,7 +10,9 @@
 // What bounds it on the H100: operations. Causal attention at the models'
 // widths does about 4 * S^2/2 * D flops per head against 8 * S * D bytes, far
 // above the card's 295 flop/byte ridge in bf16, so the time goes to the two
-// products, and only the tensor cores (wgmma) reach their rate.
+// products, and only the tensor cores (wgmma) reach their rate. (At the
+// served shapes, S = 192, it is bound by bytes, and the time goes to the
+// loads and the launch.)
 //
 // Design:
 //  - A work item is one (128-row q tile, head, batch). The kernel is
@@ -26,29 +29,42 @@
 //    and keeps K and V tiles of 128 kv rows in flight by TMA
 //    (cp.async.bulk.tensor) into a ring of STAGES stages, each with `full`
 //    mbarriers (K, V) and an `empty` one that both consumers release; the
-//    ring runs on across items. Tiles are 128-byte swizzled: at D = 64 a
-//    bf16 row is exactly 128 bytes.
+//    ring runs on across items.
+//  - Tiles are 128-byte swizzled, and a swizzled row holds 64 bf16: a tile
+//    of R rows is D / 64 atoms of [R rows x 128 bytes], one after the other,
+//    each 1024-byte aligned and each loaded (and the output stored) by a TMA
+//    box of its own at column 0 or 64. At D = 64 a tile is one atom.
 //  - The tensor maps are 4-D (D, H, S, B) over the caller's own byte
 //    strides, so [B, S, H, D] (the models' layout) and [B, H, S, D] load with
 //    no copy; a box never crosses a head, the hardware zero-fills rows past
 //    S, and the kernel masks them to -1e30. The output goes out through its
-//    own shared tile by a TMA store in the caller's layout, which drops rows
+//    own shared tile by TMA stores in the caller's layout, which drop rows
 //    past Sq.
 //  - S = Q K^T: wgmma m64n128k16 from shared memory (K stored [kv][D] is the
-//    K-major B operand). The online softmax (m, l) stays in registers; the
-//    row max is taken on the raw scores and reduced over the 4 lanes that
-//    share a row, then p = exp2(s * scale * log2 e - m * scale * log2 e) is
-//    one FFMA and one exp2 per score.
-//  - O += P V: wgmma m64n64k16 with P from registers: the S accumulator's
+//    K-major B operand); the k16 steps advance 32 bytes inside an atom and
+//    move to the next atom's base after four. The online softmax (m, l)
+//    stays in registers; the row max is taken on the raw scores and reduced
+//    over the 4 lanes that share a row, then p = exp2(s * scale * log2 e -
+//    m * scale * log2 e) is one FFMA and one exp2 per score.
+//  - O += P V: wgmma m64nDk16 with P from registers: the S accumulator's
 //    fragments are rounded to bf16 pairs in place, with no trip through
-//    shared memory. V is the MN-major B operand (transpose bit).
-//    Unlike the TPU kernel, which keeps P in f32 for this product
-//    (flash_attention.py:58), P is rounded to bf16 here; l sums the f32 p.
+//    shared memory. V is the MN-major B operand (transpose bit); at D = 128
+//    it spans two atoms, a tile's bytes apart (the descriptor's LBO).
+//    The TPU kernel keeps P in f32 for this product (flash_attention.py:58).
+//    At D = 64 P is rounded to bf16 (2^-9), which every D = 64 path holds
+//    its bars with. At D = 128 P goes in as two bf16 terms, hi = bf16(p)
+//    and lo = bf16(p - hi), in two wgmmas a k16 step: p to about 2^-17, for
+//    1.5x the tensor work. The D = 128 paths include the MoE families, whose
+//    routers are not continuous: on an H100 with bf16 P, arctic_480b's
+//    one-layer forward at [8, 192] took other routes and drops and its
+//    logits lay 4.53 from the plain forward's (0.03 with f32 P). l sums the
+//    f32 p.
 //  - Causal: kv tiles wholly above the diagonal are never loaded, and only
 //    tiles that cross it (or the ragged end of S) are masked.
-//  - Shared memory: q and o tiles (16 KB each) and STAGES x (K, V) (32 KB
-//    each), 97 KB at two stages. Registers, not shared memory, hold a CTA to
-//    one per SM: 168 a thread at launch.
+//  - Shared memory: q and o tiles (BQ x D each) and STAGES x (K, V) (BK x D
+//    each): 97 KB at D = 64, 193 KB at D = 128. Registers, not shared
+//    memory, hold a CTA to one per SM: 168 a thread at launch, 240 for a
+//    consumer (O is D / 2 floats a thread, S 64, P 32 words, 64 at D = 128).
 //
 // C interface (bound with ctypes): fa_wgmma_forward returns
 // cudaGetLastError() after the launch, or a negative code for a failure
@@ -65,18 +81,17 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 64;            // head_dim: one 128-byte bf16 row
+constexpr int ATOM = 64;         // bf16 columns of a 128-byte swizzled row
+constexpr int ATOM_ROW = 128;    // bytes of that row
 constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int WG_ROWS = 64;      // q rows per consumer warpgroup
 constexpr int BQ = CONSUMERS * WG_ROWS;          // q rows per CTA
 constexpr int BK = 128;          // kv rows per tile
 constexpr int STAGES = 2;        // kv ring depth
 constexpr int THREADS = 128 * (1 + CONSUMERS);   // producer warpgroup + consumers
-constexpr int Q_BYTES = BQ * D * 2;              // the q tile
-constexpr int TILE_BYTES = BK * D * 2;           // one K or V tile: 16 KB
+constexpr int Q_ATOM = BQ * ATOM_ROW;            // one atom of the q (or o) tile
+constexpr int KV_ATOM = BK * ATOM_ROW;           // one atom of a K or V tile
 constexpr int N_BARS = 2 + 3 * STAGES;   // q_full, q_empty, k_full[], v_full[], empty[]
-constexpr size_t SMEM_BYTES = 1024 /* alignment slack */ + 2 * Q_BYTES /* q, o */ +
-                              (size_t)TILE_BYTES * 2 * STAGES + 8 * N_BARS;
 // Registers: the launch gives every thread 65536 / THREADS (a multiple of
 // 8); the producer drops to 24 and hands the rest to the consumers.
 constexpr int LAUNCH_REGS = (65536 / THREADS) / 8 * 8;
@@ -84,7 +99,19 @@ constexpr int CONSUMER_REGS = ((LAUNCH_REGS * THREADS - 24 * 128) / (128 * CONSU
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-static_assert(BQ <= 256 && CONSUMER_REGS <= 256, "one TMA box, setmaxnreg range");
+static_assert(BQ <= 256 && BK <= 256 && CONSUMER_REGS <= 256, "one TMA box, setmaxnreg range");
+
+// The tiles of the instance at head_dim D, D / 64 atoms each.
+template <int D>
+struct Tiles {
+  static_assert(D == 64 || D == 128, "an instance at head_dim 64 or 128");
+  static constexpr int ATOMS = D / ATOM;
+  static constexpr int Q_BYTES = ATOMS * Q_ATOM;     // the q tile; the o tile alike
+  static constexpr int KV_BYTES = ATOMS * KV_ATOM;   // one K or V tile
+  static constexpr bool P_HI_LO = D == 128;          // P as two bf16 terms
+  static constexpr size_t SMEM_BYTES = 1024 /* alignment slack */ + 2 * Q_BYTES /* q, o */ +
+                                       (size_t)KV_BYTES * 2 * STAGES + 8 * N_BARS;
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -97,6 +124,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// What rounding (lo, hi) to the bf16 pair `packed` left, as a bf16 pair
+// (the differences are exact in f32).
+__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi, uint32_t packed) {
+  return pack_bf16(lo - __uint_as_float(packed << 16),
+                   hi - __uint_as_float(packed & 0xffff0000u));
+}
+
+// O[64 x D] += P[64 x 16] V[16 x D]: P from registers, V MN-major.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t desc_v) {
+  if constexpr (D == 64)
+    wgmma_m64n64k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
+  else
+    wgmma_m64n128k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
+}
+
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -104,15 +149,17 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_o,
                 int B, int H, int Hkv, int Sq, int Sk, float scale_log2,
                 int causal) {
+  using T = Tiles<D>;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: tiles start 1024-aligned.
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* q_tile = base;
-  uint8_t* o_tile = base + Q_BYTES;
-  auto k_tile = [&](int s) { return base + 2 * Q_BYTES + TILE_BYTES * 2 * s; };
-  auto v_tile = [&](int s) { return base + 2 * Q_BYTES + TILE_BYTES * (2 * s + 1); };
-  uint64_t* bars = reinterpret_cast<uint64_t*>(base + 2 * Q_BYTES + TILE_BYTES * 2 * STAGES);
+  uint8_t* o_tile = base + T::Q_BYTES;
+  auto k_tile = [&](int s) { return base + 2 * T::Q_BYTES + T::KV_BYTES * 2 * s; };
+  auto v_tile = [&](int s) { return base + 2 * T::Q_BYTES + T::KV_BYTES * (2 * s + 1); };
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(base + 2 * T::Q_BYTES + T::KV_BYTES * 2 * STAGES);
   uint64_t* q_full = bars;
   uint64_t* q_empty = bars + 1;
   uint64_t* k_full = bars + 2;
@@ -160,22 +207,27 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // ---- producer: one thread issues every load --------------------------
+    // ---- producer: one thread issues every load, one box per atom --------
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       int kv_it = 0;
       for (int r = 0; item_of(r) < n_items; ++r) {
         const Work w = work_of(item_of(r));
         mbar_wait(q_empty, (r & 1) ^ 1);   // the consumers are done with the last q
-        mbar_arrive_expect_tx(q_full, Q_BYTES);
-        tma_load_4d(q_tile, &tm_q, q_full, 0, w.h, w.q0, w.b);
+        mbar_arrive_expect_tx(q_full, T::Q_BYTES);
+        for (int a = 0; a < T::ATOMS; ++a)
+          tma_load_4d(q_tile + a * Q_ATOM, &tm_q, q_full, ATOM * a, w.h, w.q0, w.b);
         for (int it = 0; it < w.n_tiles; ++it, ++kv_it) {
           const int s = kv_it % STAGES;
           mbar_wait(empty + s, ((kv_it / STAGES) & 1) ^ 1);
-          mbar_arrive_expect_tx(k_full + s, TILE_BYTES);
-          tma_load_4d(k_tile(s), &tm_k, k_full + s, 0, w.hk, it * BK, w.b);
-          mbar_arrive_expect_tx(v_full + s, TILE_BYTES);
-          tma_load_4d(v_tile(s), &tm_v, v_full + s, 0, w.hk, it * BK, w.b);
+          mbar_arrive_expect_tx(k_full + s, T::KV_BYTES);
+          for (int a = 0; a < T::ATOMS; ++a)
+            tma_load_4d(k_tile(s) + a * KV_ATOM, &tm_k, k_full + s, ATOM * a, w.hk,
+                        it * BK, w.b);
+          mbar_arrive_expect_tx(v_full + s, T::KV_BYTES);
+          for (int a = 0; a < T::ATOMS; ++a)
+            tma_load_4d(v_tile(s) + a * KV_ATOM, &tm_v, v_full + s, ATOM * a, w.hk,
+                        it * BK, w.b);
         }
       }
     }
@@ -190,16 +242,17 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lane = tid % 32;
   const int row_in_wg = 16 * warp + lane / 4;     // and row_in_wg + 8
   const int col = 2 * (lane % 4);                 // within each 8-column block
-  const uint64_t desc_q = desc_sw128(q_tile + c * WG_ROWS * D * 2, 16, 1024);
-  uint8_t* o_part = o_tile + c * WG_ROWS * D * 2;
+  // This warpgroup's rows of the q tile's first atom; the others lie
+  // Q_ATOM bytes on (a descriptor counts 16-byte units).
+  const uint64_t desc_q = desc_sw128(q_tile + c * WG_ROWS * ATOM_ROW, 16, 1024);
 
   int kv_it = 0;
   for (int r = 0; item_of(r) < n_items; ++r) {
     const Work w = work_of(item_of(r));
     const int wg_q0 = w.q0 + c * WG_ROWS;
-    float o[32];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {NEG, NEG};
     float l[2] = {0.f, 0.f};   // this thread's share of each row's sum
 
@@ -209,16 +262,20 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t parity = (kv_it / STAGES) & 1;
       const int k0 = it * BK;
 
-      // S = Q K^T over D = 64: four k16 steps, 32 bytes apart in the swizzled rows.
-      float sc[64];
+      // S = Q K^T over D: k16 steps 32 bytes apart in the swizzled rows of
+      // an atom, four to an atom.
+      float sc[BK / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
       const uint64_t desc_k = desc_sw128(k_tile(s), 16, 1024);
       mbar_wait(k_full + s, parity);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n128k16_ss(sc, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int step = 2 * (kk % 4);
+        wgmma_m64n128k16_ss(sc, desc_q + (Q_ATOM >> 4) * (kk / 4) + step,
+                            desc_k + (KV_ATOM >> 4) * (kk / 4) + step, kk > 0);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -232,7 +289,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int qpos = wg_q0 + row_in_wg + 8 * i;
         float mx = NEG;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             if (masked) {
@@ -250,7 +307,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const float mb = m_new * scale_log2;
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float p = ex2(fmaf(sc[4 * j + 2 * i + e], scale_log2, -mb));
@@ -260,39 +317,49 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         l[i] = l[i] * corr + sum;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           o[4 * j + 2 * i] *= corr;
           o[4 * j + 2 * i + 1] *= corr;
         }
       }
 
-      // P as bf16 A fragments: k16 step kk takes column blocks 2kk and 2kk+1.
-      uint32_t pa[32];
+      // P as bf16 A fragments: k16 step kk takes column blocks 2kk and 2kk+1;
+      // with P_HI_LO, pl holds what that rounding left.
+      uint32_t pa[BK / 4], pl[T::P_HI_LO ? BK / 4 : 1];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        pa[4 * kk + 0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[4 * kk + 1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[4 * kk + 2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[4 * kk + 3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x0 = sc[8 * kk + 2 * e], x1 = sc[8 * kk + 2 * e + 1];
+          pa[4 * kk + e] = pack_bf16(x0, x1);
+          if constexpr (T::P_HI_LO) pl[4 * kk + e] = pack_bf16_rest(x0, x1, pa[4 * kk + e]);
+        }
       }
 
-      // O += P V over 128 kv rows: eight k16 steps of 16 rows (2048 bytes).
-      const uint64_t desc_v = desc_sw128(v_tile(s), 1024, 1024);
+      // O += P V over BK kv rows: k16 steps of 16 rows (2048 bytes); the V
+      // tile's atoms lie KV_ATOM bytes apart along D (LBO).
+      const uint64_t desc_v = desc_sw128(v_tile(s), KV_ATOM, 1024);
       mbar_wait(v_full + s, parity);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n64k16_rs_tb(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                              pa[4 * kk + 3], desc_v + (2048 >> 4) * kk, 1);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_pv<D>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                    desc_v + (2048 >> 4) * kk);
+        if constexpr (T::P_HI_LO)
+          wgmma_pv<D>(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3],
+                      desc_v + (2048 >> 4) * kk);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pa);
+      if constexpr (T::P_HI_LO) fence_regs(pl);
       if (tid == 0) mbar_arrive(empty + s);
     }
 
-    // ---- epilogue: O / l in bf16 through this warpgroup's part of the o
-    // tile, out by one TMA store; the next item's loads run meanwhile.
+    // ---- epilogue: O / l in bf16 through this warpgroup's rows of the o
+    // tile's atoms, out by one TMA store per atom; the next item's loads
+    // run meanwhile.
     float inv[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -301,22 +368,25 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       inv[i] = 1.f / sum;
     }
-    named_barrier(1 + c, 128);   // the last item's store has read the o tile
+    uint8_t* o_part = o_tile + c * WG_ROWS * ATOM_ROW;
+    named_barrier(1 + c, 128);   // the last item's stores have read the o tile
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = row_in_wg + 8 * i;
-        uint32_t off = row * (D * 2) + (8 * j + col) * 2;
+        uint32_t off = row * ATOM_ROW + (8 * (j % 8) + col) * 2;
         off ^= (row & 7) << 4;   // the 128-byte swizzle TMA reads back
-        *reinterpret_cast<uint32_t*>(o_part + off) =
+        *reinterpret_cast<uint32_t*>(o_part + (j / 8) * Q_ATOM + off) =
             pack_bf16(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
       }
     }
     fence_proxy_async();
     named_barrier(1 + c, 128);
     if (tid == 0) {
-      tma_store_4d(&tm_o, o_part, 0, w.h, wg_q0, w.b);
+#pragma unroll
+      for (int a = 0; a < T::ATOMS; ++a)
+        tma_store_4d(&tm_o, o_part + a * Q_ATOM, ATOM * a, w.h, wg_q0, w.b);
       tma_store_commit_and_wait();
     }
   }
@@ -348,13 +418,14 @@ EncodeTiledFn encode_fn() {
 }
 
 // geom: dims (D, H, S, B) then byte strides of H, S, B, as computed by
-// flash_attention.tma_geometry; box_s rows of S per box.
+// flash_attention.tma_geometry; a box is one atom wide (64 columns, the
+// 128-byte swizzle's limit) and box_s rows of S tall.
 bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
             const int64_t* geom, uint32_t box_s) {
   cuuint64_t dims[4], strides[3];
   for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)geom[i];
   for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)geom[4 + i];
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, box_s, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)ATOM, 1, box_s, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -362,16 +433,51 @@ bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+int n_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// The instance at head_dim D; its shared-memory attribute is set once per
+// instance.
+template <int D>
+int launch(const CUtensorMap (&maps)[4], int B, int H, int Hkv, int Sq, int Sk,
+           float scale, int causal, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(fa_wgmma_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)Tiles<D>::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int sms = n_sms();
+  if (sms == 0) return -7;
+  const int n_items = (Sq + BQ - 1) / BQ * B * H;
+  fa_wgmma_kernel<D><<<n_items < sms ? n_items : sms, THREADS, Tiles<D>::SMEM_BYTES,
+                       stream>>>(maps[0], maps[1], maps[2], maps[3], B, H, Hkv, Sq, Sk,
+                                 scale * LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// q [B, H, Sq, 64], k/v [B, Hkv, Sk, 64], o like q, all bf16 in any layout
-// whose last dim is contiguous and other strides are multiples of 16 bytes;
-// geom holds 7 int64 per tensor (q, k, v, o). Returns 0 or cudaGetLastError()
-// after the launch; -2 if cuTensorMapEncodeTiled cannot be found, -3 - i if
-// the map of tensor i (q, k, v, o) cannot be encoded.
+// q [B, H, Sq, d], k/v [B, Hkv, Sk, d], o like q, d = 64 or 128, all bf16 in
+// any layout whose last dim is contiguous and other strides are multiples of
+// 16 bytes; geom holds 7 int64 per tensor (q, k, v, o). Returns 0 or
+// cudaGetLastError() after the launch; -1 for a d it has no instance for, -2
+// if cuTensorMapEncodeTiled cannot be found, -3 - i if the map of tensor i
+// (q, k, v, o) cannot be encoded, -7 if the SM count cannot be read.
 extern "C" int fa_wgmma_forward(const void* q, const void* k, const void* v, void* o,
                                 const int64_t* geom, int B, int H, int Hkv, int Sq,
-                                int Sk, float scale, int causal, void* stream) {
+                                int Sk, int d, float scale, int causal, void* stream) {
+  if (d != 64 && d != 128) return -1;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return -2;
   CUtensorMap maps[4];
@@ -379,24 +485,7 @@ extern "C" int fa_wgmma_forward(const void* q, const void* k, const void* v, voi
   const uint32_t box_s[4] = {BQ, BK, BK, WG_ROWS};
   for (int i = 0; i < 4; ++i)
     if (!encode(fn, &maps[i], ptrs[i], geom + 7 * i, box_s[i])) return -3 - i;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int n_items = (Sq + BQ - 1) / BQ * B * H;
-  fa_wgmma_kernel<<<n_items < n_sm ? n_items : n_sm, THREADS, SMEM_BYTES,
-                    static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], B, H, Hkv, Sq, Sk, scale * LOG2E, causal);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 128) return launch<128>(maps, B, H, Hkv, Sq, Sk, scale, causal, s);
+  return launch<64>(maps, B, H, Hkv, Sq, Sk, scale, causal, s);
 }

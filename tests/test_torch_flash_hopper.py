@@ -1,10 +1,11 @@
 """The wgmma flash-attention design's dispatch and TMA geometry, which are
 plain Python and hold without a card, and the port's flash attention held
 against the JAX package's kernel (interpret-mode Pallas) and its oracle at
-the shapes that design takes (bf16, head_dim 64, GQA, ragged and unequal
-lengths, the model layout). On the CPU the wrappers take the plain version;
+the shapes that design takes (bf16, head_dim 64 and 128, GQA, ragged and
+unequal lengths, the model layout). On the CPU the wrappers take the plain version;
 the CUDA kernels are held against it on the card by ``chip_smoke.py``."""
 
+import contextlib
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -20,6 +21,12 @@ from repro_torch.kernels import ops
 CSRC = Path(fa.__file__).resolve().parent / "csrc"
 TOL = 2e-2   # bf16: tests/test_kernels.py:70-71
 HEADS = [(4, 4), (6, 2), (8, 2), (4, 1)]   # MHA, GQA 3:1, GQA 4:1, MQA
+# The head_dim-128 instance (granite, qwen3, llama3, arctic, llama4) at GQA
+# 4:1 and 7:1, beside HEADS at head_dim 64: (h, kv, d), the old cases keeping
+# their ids.
+HEADS_BY_D = [*(pytest.param(h, kv, 64, id=f"{h}-{kv}") for h, kv in HEADS),
+              *(pytest.param(h, kv, 128, id=f"{h}-{kv}-d128")
+                for h, kv in [(8, 2), (7, 1)])]
 
 
 def _bhsd(b, h, s, d=64, dtype=torch.bfloat16):
@@ -35,12 +42,17 @@ def _model_layout(b, h, s, d=64, dtype=torch.bfloat16):
 LAYOUTS = {"bhsd": _bhsd, "model": _model_layout}
 
 
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
 @pytest.mark.parametrize("h,kv", HEADS)
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
-def test_predicate_takes_bf16_head_dim_64_in_both_layouts(layout, h, kv):
+def test_predicate_takes_bf16_head_dims_64_and_128_in_both_layouts(layout, h, kv, d):
     mk = LAYOUTS[layout]
-    q, k, v = mk(2, h, 300), mk(2, kv, 300), mk(2, kv, 300)
+    q, k, v = mk(2, h, 300, d), mk(2, kv, 300, d), mk(2, kv, 300, d)
     assert fa.wgmma_eligible(q, k, v)
+
+
+def test_wgmma_head_dims_are_the_kernels_instances():
+    assert fa.WGMMA_HEAD_DIMS == (64, 128)
 
 
 def _strided_last_dim():
@@ -61,7 +73,9 @@ def _row_stride_off_16():
     ("f32", lambda: _bhsd(1, 4, 96, dtype=torch.float32)),
     ("d16", lambda: _bhsd(1, 4, 96, 16)),
     ("d32", lambda: _bhsd(1, 4, 96, 32)),
-    ("d128", lambda: _bhsd(1, 4, 96, 128)),
+    ("d96", lambda: _bhsd(1, 4, 96, 96)),
+    ("d256", lambda: _bhsd(1, 4, 96, 256)),
+    ("f32 d128", lambda: _bhsd(1, 4, 96, 128, dtype=torch.float32)),
     ("last-dim stride 2", _strided_last_dim),
     ("storage offset", _misaligned),
     ("row stride 136 bytes", _row_stride_off_16),
@@ -143,12 +157,66 @@ def test_wgmma_source_uses_tma_ring_and_wgmma_for_both_products():
                 "mbarrier.try_wait.parity", "setmaxnreg.dec", "setmaxnreg.inc"):
         assert ptx in hdr, ptx
     for call in ("wgmma_m64n128k16_ss(", "wgmma_m64n64k16_rs_tb(",
-                 "tma_load_4d(", "tma_store_4d(", "setmaxnreg_dec<",
-                 "setmaxnreg_inc<", "mbar_wait(empty"):
+                 "wgmma_m64n128k16_rs_tb(", "tma_load_4d(", "tma_store_4d(",
+                 "setmaxnreg_dec<", "setmaxnreg_inc<", "mbar_wait(empty"):
         assert call in src, call
+    # O += P V at N = 128: the register-A form with B transposed.
+    rs128 = hdr.split("void wgmma_m64n128k16_rs_tb(")[1].split("\n}\n")[0]
+    assert "m64n128k16.f32.bf16.bf16" in rs128
+    assert "{%64, %65, %66, %67}, %68, p, 1, 1, 1;" in rs128
+    # One template, an instance at each head_dim the predicate sends.
+    assert "template <int D>\n__global__" in src
+    for d in fa.WGMMA_HEAD_DIMS:
+        assert f"launch<{d}>(" in src, d
+    # At D = 128 P goes into P V as two bf16 terms (hi and the rest).
+    assert "static constexpr bool P_HI_LO = D == 128;" in src
+    assert src.count("wgmma_pv<D>(o, ") == 2
+    # A box is one 128-byte swizzle atom wide, whatever D.
+    assert "const cuuint32_t box[4] = {(cuuint32_t)ATOM, 1, box_s, 1};" in src
     assert "constexpr int STAGES = " in src
     stages = int(src.split("constexpr int STAGES = ")[1].split(";")[0])
     assert stages >= 2
+
+
+def _c_params(src, name):
+    """The parameter list of the C entry ``name`` in ``src``."""
+    sig = src.split(f'extern "C" int {name}(')[1].split(")")[0]
+    return [" ".join(p.split()) for p in sig.split(",")]
+
+
+@pytest.mark.parametrize("d,want", [(64, "fa_wgmma_forward"),
+                                    (128, "fa_wgmma_forward"),
+                                    (96, "fa_forward"), (256, "fa_forward")])
+def test_card_route_hands_the_head_dim_to_the_entry(monkeypatch, d, want):
+    # The C entry the card would run, recorded instead of launched: the
+    # tensors are made to pass for CUDA ones, so only the predicate decides,
+    # and the wgmma entry is typed as its C signature and given d.
+    calls = []
+
+    def entry(source, name, argtypes):
+        def fn(*args):
+            calls.append((source, name, argtypes, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(fa._build, "entry", entry)
+    monkeypatch.setattr(fa._build, "on_device", lambda t: contextlib.nullcontext())
+    monkeypatch.setattr(fa._build, "stream", lambda t: 0)
+    monkeypatch.setattr(fa, "launches", 0)
+    monkeypatch.setattr(fa, "wgmma_launches", 0)
+    q, kv = _model_layout(2, 8, 200, d), _model_layout(2, 2, 200, d)
+    fa.flash_attention_cuda(q, kv, kv, causal=False)
+    [(source, name, argtypes, args)] = calls
+    assert name == want
+    wgmma = want == "fa_wgmma_forward"
+    assert (fa.launches, fa.wgmma_launches) == (1, int(wgmma))
+    if wgmma:
+        params = _c_params((CSRC / f"{source}.cu").read_text(), name)
+        assert len(params) == len(argtypes) == len(args)
+        assert params[10] == "int d" and args[10] == d
+        assert args[5:10] == (2, 8, 2, 200, 200)          # B, H, Hkv, Sq, Sk
+        assert args[11] == pytest.approx(d ** -0.5) and args[12] == 0
 
 
 # ---- against the JAX package, at the wgmma design's shapes -----------------
@@ -164,10 +232,10 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-def _model_inputs(rng, b, sq, sk, h, kv):
-    qj, qt = _pair(rng, (b, sq, h, 64))
-    kj, kt = _pair(rng, (b, sk, kv, 64))
-    vj, vt = _pair(rng, (b, sk, kv, 64))
+def _model_inputs(rng, b, sq, sk, h, kv, d=64):
+    qj, qt = _pair(rng, (b, sq, h, d))
+    kj, kt = _pair(rng, (b, sk, kv, d))
+    vj, vt = _pair(rng, (b, sk, kv, d))
     return (qj, kj, vj), (qt, kt, vt)
 
 
@@ -183,10 +251,10 @@ def _hold_against_jax(jax_in, torch_in, causal, bq, bk):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h,kv", HEADS)
-def test_model_layout_matches_jax_kernel_at_the_wgmma_tile(rng, h, kv, causal):
+@pytest.mark.parametrize("h,kv,d", HEADS_BY_D)
+def test_model_layout_matches_jax_kernel_at_the_wgmma_tile(rng, h, kv, d, causal):
     # S = 256 at 128-row tiles: the interpret-mode Pallas kernel runs.
-    jax_in, torch_in = _model_inputs(rng, 1, 256, 256, h, kv)
+    jax_in, torch_in = _model_inputs(rng, 1, 256, 256, h, kv, d)
     before = fa.launches
     _hold_against_jax(jax_in, torch_in, causal, 128, 128)
     assert fa.launches == before   # the CPU path launches no kernel
@@ -194,10 +262,12 @@ def test_model_layout_matches_jax_kernel_at_the_wgmma_tile(rng, h, kv, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [96, 300])
-@pytest.mark.parametrize("h,kv", [(6, 2), (4, 1)])
-def test_ragged_lengths_match_jax(rng, h, kv, s, causal):
+@pytest.mark.parametrize("h,kv,d", [
+    *(pytest.param(h, kv, 64, id=f"{h}-{kv}") for h, kv in [(6, 2), (4, 1)]),
+    *(pytest.param(h, kv, 128, id=f"{h}-{kv}-d128") for h, kv in [(8, 2), (7, 1)])])
+def test_ragged_lengths_match_jax(rng, h, kv, d, s, causal):
     # No multiple of the tiles: the JAX side takes its oracle path.
-    jax_in, torch_in = _model_inputs(rng, 2, s, s, h, kv)
+    jax_in, torch_in = _model_inputs(rng, 2, s, s, h, kv, d)
     _hold_against_jax(jax_in, torch_in, causal, 128, 128)
 
 
