@@ -83,15 +83,26 @@ Phases (any failure exits non-zero):
  11. the paper's nine workloads (``repro_torch.workloads``) serial and fused
      outside any substrate, paired and chunked on ``relic``, every result
      through its oracle: µs per instance and paired over serial;
- 12. a long relic_tiny forward and loss at [4, 2048] with the kernel against
+ 12. the multi-device layer over a one-rank NCCL group (``phase_mesh``, after
+     the train driver): a ``(1, 1)`` ``("data", "model")`` mesh; relic_tiny
+     at full width trains 3 steps with its state distributed as DTensors
+     beside 3 plain steps from the same state (the losses and parameters
+     must agree), the Relic rings (``tp_allgather_matmul``,
+     ``tp_matmul_reducescatter``, ``mlp_ring``) at its MLP shape against the
+     plain products, ``compressed_psum`` of its gradients against
+     ``dequantize(quantize(g))``, ``pipeline_apply`` with one stage against
+     the sequential stack, a sharded forward with the kernels refused, and
+     the distributed state saved and ``elastic_restore``d bit for bit. NCCL
+     must initialize; nothing falls back to gloo;
+ 13. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6, each family of 7, and 8 are the main paths: each starts
 with every kernel's launch count at 0 and its counts are read when it ends;
-every flash launch there and in phase 12 must go through the wgmma design
+every flash launch there and in phase 13 must go through the wgmma design
 (none through the CUDA-core kernel) and every ssd and wkv6 launch through
 the tensor-core one, and the
-quickstart's one relic_matmul launch through the f32 design; phases 9, 10
-and 11 must launch no kernel (training runs the plain paths, as the
+quickstart's one relic_matmul launch through the f32 design; phases 9, 10,
+11 and 12 must launch no kernel (training runs the plain paths, as the
 reference's does, and the workloads' kernels were never Pallas ones).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -117,12 +128,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import quickstart  # noqa: E402
-from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch import sharding as shd  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager, elastic_restore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.devices import synchronize  # noqa: E402
@@ -140,8 +153,13 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import rwkv6 as r6  # noqa: E402
 from repro_torch.models.convert import (train_state_from_numpy,  # noqa: E402
                                         train_state_to_numpy)
+from repro_torch.core import collective_matmul as cm  # noqa: E402
+from repro_torch.core.pipeline import pipeline_apply, split_stages  # noqa: E402
+from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
 from repro_torch.models.encdec import encdec_loss  # noqa: E402
 from repro_torch.models.lm import lm_forward, lm_loss  # noqa: E402
+from repro_torch.optim.compression import (compressed_psum,  # noqa: E402
+                                           dequantize, quantize)
 from repro_torch.optim import (AdafactorConfig, OptConfig,  # noqa: E402
                                adafactor_update, clip_by_global_norm,
                                init_adafactor_state, schedule)
@@ -303,6 +321,8 @@ TRAIN_OC = OptConfig(peak_lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 5),
 # The train driver at the same batch: steps and checkpoint interval of the
 # timed runs.
 DRIVER_STEPS, DRIVER_CKPT_EVERY = 30, 10
+MESH_STEPS = 3                 # train steps with DTensor state, and plain
+PIPE_SHAPE = (12, 4, 2, 256)   # (layers, microbatches, mb, seq) at 768 wide
 WORKLOAD_PASSES, WORKLOAD_REPS = 3, 5   # passes over the workloads; runs a pass
 
 
@@ -1642,6 +1662,185 @@ def _flat_numpy(tree, prefix=""):
             yield key, np.asarray(v)
 
 
+def phase_mesh(device, card):
+    """The multi-device layer on the card, over a one-rank NCCL group (the
+    machine has one card): the same code a job of ranks runs, at relic_tiny's
+    full width. Returns the DTensor and plain ms a train step."""
+    init_distributed(device)   # NCCL, eagerly: a broken NCCL fails here
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError("the mesh phase must run over NCCL")
+    mesh = make_mesh((1, 1), ("data", "model"), device)
+    try:
+        return _mesh_checks(device, card, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _mesh_checks(device, card, mesh):
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device)
+    plain = make_train_state(model, torch.Generator().manual_seed(0))
+    dstate = shd.distribute_state(plain, mesh)
+    batches = [_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, device)
+               for s in range(MESH_STEPS)]
+    runs = {}
+    for label, state, step in (
+            ("DTensor", dstate, make_train_step(model, TRAIN_OC, mesh=mesh)),
+            ("plain", plain, make_train_step(model, TRAIN_OC))):
+        losses = []
+        for i, batch in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (MESH_STEPS - 1)
+        runs[label] = (state, losses, ms)
+    (dstate, dl, dms), (plain, pl, pms) = runs["DTensor"], runs["plain"]
+    full = shd.full_state(dstate)
+    worst = 0.0
+    for name, p in plain["params"].named_parameters():
+        q = full["params"].get_parameter(name)
+        if not torch.allclose(q, p, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"[mesh] parameter {name} differs after "
+                                 f"{MESH_STEPS} steps")
+        worst = max(worst, (q - p).abs().max().item())
+    if not np.allclose(dl, pl, rtol=1e-5, atol=0):
+        raise AssertionError(f"[mesh] losses differ: {dl} against {pl}")
+    print(f"[mesh] {cfg.name} on a (1, 1) data x model mesh over NCCL, "
+          f"batch [{TRAIN_BATCH}, {TRAIN_SEQ}], {MESH_STEPS} steps: DTensor "
+          f"{dms:.2f} ms/step, plain {pms:.2f} ms/step over steps 2-"
+          f"{MESH_STEPS} ({dms / pms:.2f}x); losses {dl} against {pl}; "
+          f"largest parameter difference {worst:.3g} (tol 1e-4 relative + "
+          f"1e-6); {card}")
+
+    # The Relic rings at relic_tiny's MLP shape (bf16), against the plain
+    # products; one rank moves nothing, so this is the rings' own cost.
+    gen = torch.Generator().manual_seed(0)
+    d, f, b, s = cfg.d_model, cfg.d_ff, TRAIN_BATCH, TRAIN_SEQ
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(
+            device=device, dtype=torch.bfloat16)
+
+    x = rnd(b, s, d)
+    wg, wu = rnd(d, f, scale=d ** -0.5), rnd(d, f, scale=d ** -0.5)
+    wd = rnd(f, d, scale=f ** -0.5)
+    x2 = x.reshape(b * s, d)
+    h = torch.nn.functional.silu(x2 @ wg) * (x2 @ wu)
+    cases = [
+        ("tp_allgather_matmul", lambda: cm.tp_allgather_matmul(x2, wg, mesh),
+         lambda: x2 @ wg),
+        ("tp_matmul_reducescatter",
+         lambda: cm.tp_matmul_reducescatter(h, wd, mesh), lambda: h @ wd),
+        ("mlp_ring", lambda: cm.mlp_ring(cfg.act, x, wg, wu, wd, mesh),
+         lambda: ((torch.nn.functional.silu(x2 @ wg) * (x2 @ wu)) @ wd
+                  ).reshape(b, s, d)),
+    ]
+    with torch.no_grad():
+        for name, ring, want in cases:
+            err = _rel(ring().full_tensor().float(), want().float())
+            ring_ms, plain_ms = time_ms(ring, 20), time_ms(want, 20)
+            print(f"[mesh] {name} at x [{b * s}, {d}], w [{d}, {f}] / "
+                  f"[{f}, {d}] bf16: {ring_ms:.4f} ms against the plain "
+                  f"product's {plain_ms:.4f} ms, relative error {err:.3g} "
+                  f"(tol {REL_TOL}); {card}")
+            if not err < REL_TOL:
+                raise AssertionError(f"[mesh] {name} disagrees: {err}")
+
+    # compressed_psum of the gradient leaves over NCCL: one member's sum is
+    # its own dequantized levels, exactly.
+    params = plain["params"]
+    params.zero_grad(set_to_none=True)
+    loss, _ = model.loss(params, batches[0])
+    loss.backward()
+    grads = {n: p.grad.detach() for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    group = mesh.get_group("data")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summed = {n: compressed_psum(g, group) for n, g in grads.items()}
+    torch.cuda.synchronize()
+    cp_ms = (time.perf_counter() - t0) * 1e3
+    for n, g in grads.items():
+        q, sc, k = quantize(g)
+        if not torch.equal(summed[n], dequantize(q, sc, k, g.shape, g.dtype)):
+            raise AssertionError(f"[mesh] compressed_psum of {n} differs")
+    print(f"[mesh] compressed_psum of {len(grads)} gradient leaves "
+          f"({sum(g.numel() for g in grads.values()) / 1e6:.1f} M values) "
+          f"over NCCL: {cp_ms:.2f} ms host-clocked, each equal to "
+          f"dequantize(quantize(g)); {card}")
+
+    # GPipe with one stage against the sequential stack, forward and grads.
+    n_layers, m, mb, seq = PIPE_SHAPE
+    pod = make_mesh((1,), ("pod",), device)
+    ws = (torch.randn((n_layers, d, d), generator=gen) * d ** -0.5).to(device)
+    xm = torch.randn((m, mb, seq, d), generator=gen).to(device)
+
+    def stage_fn(stage_ws, hh):
+        for w_ in stage_ws:
+            hh = torch.tanh(hh @ w_)
+        return hh
+
+    stages = split_stages(ws, 1).clone().requires_grad_(True)
+    out = pipeline_apply(stage_fn, stages, xm, pod)
+    (out ** 2).sum().backward()
+    wseq = ws.clone().requires_grad_(True)
+    # the stack microbatch by microbatch, at the pipeline's product shapes
+    # (cuBLAS picks its algorithm by shape, and so its rounding)
+    want = torch.stack([stage_fn(wseq, xm[i]) for i in range(m)])
+    (want ** 2).sum().backward()
+    fwd = (out - want).abs().max().item()
+    # the weight gradients sum the microbatches in another order
+    grad = _rel(stages.grad.reshape(ws.shape), wseq.grad)
+    print(f"[mesh] pipeline_apply, 1 stage of {n_layers} layers, {m} "
+          f"microbatches [{mb}, {seq}, {d}] f32: forward {fwd:.3g} (tol "
+          f"1e-6), gradients' relative error {grad:.3g} (tol 1e-5) from the "
+          f"sequential stack; {card}")
+    if not (fwd < 1e-6 and grad < 1e-5):
+        raise AssertionError("[mesh] pipeline_apply disagrees")
+
+    # A sharded forward with the kernels raises (they take no DTensor).
+    kcfg = get_config(ARCH, smoke=True).replace(use_kernels=True)
+    kmodel = build_model(kcfg, device)
+    kparams = shd.distribute_params(
+        kmodel.init(torch.Generator().manual_seed(0)), mesh)
+    toks = _train_batch(kcfg, 2, 64, 0, device)["tokens"]
+    try:
+        with torch.no_grad(), shd.use_sharding_rules(mesh), \
+                implicit_replication():
+            kmodel.forward(kparams, shd.shard_batch({"t": toks}, mesh)["t"])
+    except RuntimeError as e:
+        if "takes no DTensor" not in str(e):
+            raise
+        print(f"[mesh] a sharded forward with the kernels raises: {e}")
+    else:
+        raise AssertionError("[mesh] a sharded forward ran the kernels")
+
+    # The distributed state saved, then restored onto the mesh bit for bit.
+    ckpt = Path(ROOT) / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(ckpt)
+        mgr.save(train_state_to_numpy(dstate), MESH_STEPS, block=True)
+        back, at = elastic_restore(mgr, dstate, mesh)
+        mgr.close()
+        again = shd.full_state(back)
+        same = at == MESH_STEPS and all(
+            torch.equal(again["params"].get_parameter(n), p)
+            for n, p in full["params"].named_parameters()) and all(
+            torch.equal(again["opt"][k][n], t)
+            for k in full["opt"] for n, t in full["opt"][k].items())
+        print(f"[mesh] distributed state saved at step {at} and restored "
+              f"onto the mesh on the card: bit for bit {same}; {card}")
+        if not same:
+            raise AssertionError("[mesh] the restored state differs")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return dms, pms
+
+
 def phase_workloads(device, card):
     """The paper's table on the card: each of the nine workloads (its
     instances on their own copies of the paper's inputs) run ``serial``
@@ -2170,6 +2369,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train_driver(device, bare_ms)
     _count_path("train driver", {}, entries)
+    torch.cuda.empty_cache()
+    _reset_launches()
+    t_mesh = time.perf_counter()
+    phase_mesh(device, card)
+    _count_path("mesh", {}, entries)
+    print(f"[main] mesh phase {time.perf_counter() - t_mesh:.1f} s")
     torch.cuda.empty_cache()
     _reset_launches()
     t1 = time.perf_counter()

@@ -38,8 +38,12 @@ Design (as the reference's):
     ``<dir>.corrupt`` (kept for post-mortem, never deleted) rather than
     restoring torn state. Crash points are deterministically testable via
     ``repro_torch.runtime.chaos.FsFaultInjector``.
-  * one card, one host (``"hosts": 1`` in the manifest); resharding onto
-    another topology (``checkpoint/reshard.py``) is not ported.
+  * distributed states: ``save`` takes DTensor leaves too; every rank of
+    the job calls it and takes part in gathering each leaf, and rank 0
+    alone writes (``"hosts": 1``: the files hold global arrays, as the
+    reference's do). ``restore(..., mesh=)`` places each leaf on a mesh
+    under the partition rules; ``checkpoint/reshard.py`` restores onto a
+    mesh of another shape.
 """
 
 from __future__ import annotations
@@ -55,7 +59,10 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch import sharding as shd
 from repro_torch.core.schedulers import Scheduler
 from repro_torch.devices import resolve_device
 from repro_torch.runtime.config import resolve_checkpoint_config
@@ -97,7 +104,10 @@ def _unflat_into(template, flat: dict, prefix: str = ""):
 def _host_copy(leaf) -> Tuple[str, np.ndarray]:
     """(logical dtype, a host array this save owns): a tensor on any device
     or an array, copied. bf16, which numpy lacks, becomes a ``uint16``
-    view, as the reference stores its ml_dtypes arrays."""
+    view, as the reference stores its ml_dtypes arrays. A DTensor is
+    gathered first (a collective: every rank of its mesh takes part)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -120,6 +130,14 @@ def _to_tensor(arr: np.ndarray, logical: str, device: torch.device) -> torch.Ten
     if arr.dtype != np.dtype(logical):
         arr = arr.view(np.dtype(logical))
     return torch.from_numpy(arr).to(device)
+
+
+def _place(key: str, t: torch.Tensor, mesh) -> DTensor:
+    """A restored entry on ``mesh`` under the rule of its key path (every
+    rank holds the whole entry, so each keeps its shard with no traffic)."""
+    spec = shd.fit_spec(mesh, shd.param_entries(key, t.ndim), t.shape)
+    return distribute_tensor(t, mesh, shd.placements(mesh, spec),
+                             src_data_rank=None)
 
 
 class CheckpointManager:
@@ -174,9 +192,13 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
 
     def save(self, state, step: int, *, block: bool = False) -> None:
-        """Save ``state`` (nested dicts of tensors or arrays) as ``step``.
-        Every leaf is copied to the host before this returns."""
+        """Save ``state`` (nested dicts of tensors, DTensors or arrays) as
+        ``step``. Every leaf is copied to the host before this returns. In a
+        job of several ranks every rank calls this (DTensor leaves are
+        gathered), and only rank 0 writes."""
         host = {k: _host_copy(v) for k, v in _flat(state).items()}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         seq = self._seq
         self._seq += 1
         if self._pipe is not None:
@@ -375,10 +397,14 @@ class CheckpointManager:
         return _unflat_into(template, out)
 
     def restore(self, template, step: Optional[int] = None, *,
-                device: Any = "cuda") -> Tuple[Any, int]:
+                device: Any = "cuda", mesh=None) -> Tuple[Any, int]:
         """Restore into `template`'s structure (nested dicts; only its keys
         are read), every entry a tensor of its stored dtype on ``device``
-        (the card unless the caller asks for the CPU).
+        (the card unless the caller asks for the CPU). With ``mesh`` each
+        entry becomes a DTensor on it under the partition rules of its key
+        path (``sharding.param_entries``, as the reference's
+        ``named_shardings`` places a restored tree); every rank reads the
+        files and keeps its own shard.
 
         With ``step=None`` (latest wins) a checkpoint that fails validation
         — torn manifest, missing or checksum-mismatched entry — is
@@ -388,6 +414,14 @@ class CheckpointManager:
         :class:`CheckpointCorruptError` instead (the caller asked for that
         exact state; silently substituting another would be worse)."""
         device = resolve_device(device)
+        tree, at = self._restore(template, step, device)
+        if mesh is not None:
+            tree = _unflat_into(template, {
+                k: _place(k, t, mesh) for k, t in _flat(tree).items()})
+        return tree, at
+
+    def _restore(self, template, step: Optional[int],
+                 device: torch.device) -> Tuple[Any, int]:
         if step is not None:
             d = self.dir / f"step_{step:08d}"
             manifest = self._load_manifest(d)

@@ -1,12 +1,25 @@
 """train_step / serve_step / prefill_step builders shared by the entry points,
-the tests and ``chip_smoke.py``."""
+the tests and ``chip_smoke.py``.
+
+The train step takes a plain state on one device, or, given the mesh, a
+state that ``sharding.distribute_state`` made DTensors: then the batch is
+sharded over the batch axes (``sharding.batch_spec``), the activations
+follow the reference's ``shard_act`` points, plain tensors the model makes
+(RoPE tables, masks, constants) act as replicated, and every reduction
+(the loss, the global norm) runs over all shards. The kernels take no
+DTensor, so a distributed state trains on the plain paths
+(``use_kernels=False``, the training default).
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import sharding as shd
 from repro_torch.models.registry import Model
 from repro_torch.optim import (OptConfig, adamw_update, clip_by_global_norm,
                                init_opt_state)
@@ -34,21 +47,54 @@ def _grads(model: Model, params, batch: dict):
         loss.backward()
     grads = {}
     for name, p in params.named_parameters():
-        grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        grads[name] = g
         p.grad = None
-    return {k: v.detach() for k, v in metrics.items()}, grads
+    return {k: _full(v.detach()) for k, v in metrics.items()}, grads
 
 
-def make_train_step(model: Model, oc: OptConfig):
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _on_full(fn: Callable, *named: Dict[str, torch.Tensor]):
+    """``fn`` of dicts of tensors, run on full tensors where they are
+    DTensors (every rank computes the same result), its dict outputs put
+    back on the first input's placements."""
+    like = named[0]
+    outs = fn(*[{k: _full(v) for k, v in d.items()} for d in named])
+
+    def back(d):
+        return {k: (distribute_tensor(v, like[k].device_mesh,
+                                      like[k].placements, src_data_rank=None)
+                    if isinstance(like[k], DTensor) else v)
+                for k, v in d.items()}
+
+    return tuple(back(d) for d in outs)
+
+
+def make_train_step(model: Model, oc: OptConfig, mesh=None):
     """(state, batch) -> (state, metrics): gradients (over ``oc.grad_accum``
     equal slices of the batch, averaged in f32, the last slice's loss
     metrics reported, as the reference's scan does); with
     ``oc.compress_grads`` int8 compression with error feedback (the
     quantized gradients are what a bandwidth-starved axis would all-reduce;
     the residual carries the error to the next step); global-norm clipping;
-    then AdamW in place. Metrics: loss, ce, aux, tokens, grad_norm, lr."""
+    then AdamW in place. Metrics: loss, ce, aux, tokens, grad_norm, lr
+    (full tensors). With ``mesh`` the state must be distributed on it, and
+    a plain batch (the global batch, the same on every rank) is sharded
+    over the batch axes first."""
 
     def train_step(state: dict, batch: dict) -> Tuple[dict, dict]:
+        if mesh is None:
+            return _step(state, batch)
+        batch = shd.shard_batch(batch, mesh)
+        with shd.use_sharding_rules(mesh), implicit_replication():
+            return _step(state, batch)
+
+    def _step(state: dict, batch: dict) -> Tuple[dict, dict]:
         params = state["params"]
         if oc.grad_accum > 1:
             b = batch["tokens"].shape[0]
@@ -56,8 +102,7 @@ def make_train_step(model: Model, oc: OptConfig):
                 raise ValueError(f"batch {b} does not split into "
                                  f"{oc.grad_accum} microbatches")
             size = b // oc.grad_accum
-            grads = {name: torch.zeros(p.shape, dtype=torch.float32,
-                                       device=p.device)
+            grads = {name: torch.zeros_like(p, dtype=torch.float32)
                      for name, p in params.named_parameters()}
             for i in range(oc.grad_accum):
                 mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
@@ -68,8 +113,10 @@ def make_train_step(model: Model, oc: OptConfig):
             metrics, grads = _grads(model, params, batch)
         opt = dict(state["opt"])
         if oc.compress_grads:
-            grads, residual = compress_with_feedback(grads, opt.pop("residual"))
+            grads, residual = _on_full(compress_with_feedback, grads,
+                                       opt.pop("residual"))
         grads, gnorm = clip_by_global_norm(grads, oc.clip_norm)
+        gnorm = _full(gnorm)
         _, opt, lr = adamw_update(oc, grads, opt, params, state["step"])
         if oc.compress_grads:
             opt["residual"] = residual

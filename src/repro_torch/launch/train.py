@@ -1,32 +1,45 @@
 """Training driver: data pipeline (Relic-prefetched) -> train step ->
-async checkpointing -> straggler monitoring, on one card.
+async checkpointing -> straggler monitoring.
 
 The port of ``src/repro/launch/train.py``: the same command line and log,
-without the mesh, the shardings and ``jit`` (PyTorch runs the step
-eagerly). Batches come from ``repro_torch.data.PrefetchPipeline`` (an
-assistant thread produces them while the loop trains), checkpoints go
-through ``repro_torch.checkpoint.CheckpointManager`` (serialize -> publish
-stages on the Relic substrate) in the reference's format, and ``--resume``
-restores onto the device. Weights come from
-``torch.Generator().manual_seed(0)``. It runs on the card unless
-``--device cpu`` is given.
+without ``jit`` (PyTorch runs the step eagerly). Batches come from
+``repro_torch.data.PrefetchPipeline`` (an assistant thread produces them
+while the loop trains), checkpoints go through
+``repro_torch.checkpoint.CheckpointManager`` (serialize -> publish stages on
+the Relic substrate) in the reference's format, and ``--resume`` restores
+onto the device. Weights come from ``torch.Generator().manual_seed(0)``. It
+runs on the card unless ``--device cpu`` is given.
+
+Under ``torchrun`` (or in a job whose process group exists) it trains on
+the reference's mesh: ``make_host_mesh`` over every rank, the state
+distributed as DTensors by the partition rules, the global batch (the same
+on every rank, from the same seed) sharded over ``data``, ``--resume``
+restoring onto the mesh, and only rank 0 printing and writing. One rank
+keeps the state as plain tensors: DTensor dispatch costs host time on every
+operation, and a one-device mesh changes no number.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch relic_tiny \
       --steps 200 --batch 8 --seq 256 --ckpt /tmp/ckpt
+  PYTHONPATH=src torchrun --nproc_per_node 8 -m repro_torch.launch.train \
+      --smoke --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.checkpoint import CheckpointManager
+from repro_torch import sharding as shd
+from repro_torch.checkpoint import CheckpointManager, elastic_restore
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, PrefetchPipeline, SyntheticLM
 from repro_torch.devices import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_state, make_train_step
 from repro_torch.models import build_model
 from repro_torch.models.convert import (train_state_from_numpy,
@@ -59,6 +72,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    owns_group = not dist.is_initialized()
+    world = (dist.get_world_size() if not owns_group
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    mesh = make_host_mesh(device) if world > 1 else None
+    rank = dist.get_rank() if mesh is not None else 0
+    log = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg, device)
     oc = OptConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 20, 5),
@@ -69,7 +88,9 @@ def main(argv=None):
     pipe = PrefetchPipeline(SyntheticLM(dc), dc).start()
     try:
         state = make_train_state(model, torch.Generator().manual_seed(0))
-        step_fn = make_train_step(model, oc)
+        if mesh is not None:
+            state = shd.distribute_state(state, mesh)
+        step_fn = make_train_step(model, oc, mesh=mesh)
 
         mgr = None
         if args.ckpt:
@@ -87,10 +108,13 @@ def main(argv=None):
                                 at_save=int(at_save or 0)).arm(mgr)
         start = 0
         if mgr and args.resume and mgr.latest_step() is not None:
-            tree, start = mgr.restore(train_state_to_numpy(state),
-                                      device=device)
-            state = train_state_from_numpy(cfg, tree, device)
-            print(f"resumed from step {start}")
+            if mesh is not None:
+                state, start = elastic_restore(mgr, state, mesh)
+            else:
+                tree, start = mgr.restore(train_state_to_numpy(state),
+                                          device=device)
+                state = train_state_from_numpy(cfg, tree, device)
+            log(f"resumed from step {start}")
 
         mon = StragglerMonitor(n_hosts=1)
         t_last = time.time()
@@ -103,7 +127,7 @@ def main(argv=None):
                 dt_step = (time.time() - t_last) / args.log_every
                 mon.record(0, dt_step)
                 t_last = time.time()
-                print(f"step {i+1:5d}  loss {loss:.4f}  "
+                log(f"step {i+1:5d}  loss {loss:.4f}  "
                       f"lr {float(metrics['lr']):.2e}  "
                       f"gnorm {float(metrics['grad_norm']):.3f}  "
                       f"{dt_step*1e3:.0f} ms/step", flush=True)
@@ -118,6 +142,8 @@ def main(argv=None):
         # threads into the caller's process — the resume test runs
         # main() twice in-process.
         pipe.stop()
+        if mesh is not None and owns_group:
+            dist.destroy_process_group()
     return float(metrics["loss"])
 
 

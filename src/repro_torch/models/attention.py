@@ -15,9 +15,11 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, apply_rope, dt, rms_norm_headwise
+from repro_torch.sharding import contiguous_stride, shard_act
 
 NEG_INF = -1e30
 
@@ -148,6 +150,20 @@ def _pick_chunk(n: int, target: int) -> int:
     return n
 
 
+def _per_batch_shard(fn, q: DTensor, k, v) -> DTensor:
+    """``fn`` on each rank's local q, k, v, laid out with only dim 0 (the
+    batch) sharded; the result keeps that layout."""
+    mesh = q.device_mesh
+    keep = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in q.placements)
+    local = [t.redistribute(mesh, keep).to_local() for t in (q, k, v)]
+    out = fn(*local)
+    shape = (q.shape[0],) + tuple(out.shape[1:])
+    return DTensor.from_local(out, mesh, keep, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
 def attention_core(
     cfg: ModelConfig,
     q: torch.Tensor,
@@ -159,12 +175,20 @@ def attention_core(
     kv_len: Optional[int] = None,
     prefix_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Dispatch: kernels > chunked (long S) > full."""
+    """Dispatch: kernels > chunked (long S) > full. DTensors (a sharded
+    forward) take the plain paths on each rank's batch shard: the kernels
+    refuse them, and attention needs every head of a batch row, so the
+    heads are gathered and the batch stays sharded."""
     sq, sk = q.shape[1], k.shape[1]
     if cfg.use_kernels and sq > 1 and prefix_len is None:
         from repro_torch.kernels import ops  # deferred: kernels are optional
 
         return ops.flash_attention(q, k, v, causal=causal)
+    if isinstance(q, DTensor):
+        return _per_batch_shard(
+            lambda q_, k_, v_: attention_core(
+                cfg, q_, k_, v_, causal=causal, q_offset=q_offset,
+                kv_len=kv_len, prefix_len=prefix_len), q, k, v)
     if sq > 1 and max(sq, sk) >= cfg.attn_chunk_threshold and kv_len is None:
         return attention_chunked(
             q, k, v, causal=causal,
@@ -185,7 +209,7 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
                  x_kv: Optional[torch.Tensor] = None):
     """q from ``x``; k and v from ``x_kv`` (cross-attention) or ``x``."""
     cd = dt(cfg.compute_dtype)
-    x = x.to(cd)
+    x = shard_act(x.to(cd), "batch", None, None, kind="blockin")
     src = x if x_kv is None else x_kv.to(cd)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
     k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(cd))
@@ -193,12 +217,16 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"])
         k = rms_norm_headwise(k, p["k_norm"])
+    q = shard_act(q, "batch", None, "model", None)
+    k = shard_act(k, "batch", None, None, None)
+    v = shard_act(v, "batch", None, None, None)
     return q, k, v
 
 
 def _output(cfg: ModelConfig, p, o: torch.Tensor) -> torch.Tensor:
     cd = dt(cfg.compute_dtype)
-    return torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    y = torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    return shard_act(y, "batch", None, "model", kind="resid")
 
 
 def self_attention(

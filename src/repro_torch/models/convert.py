@@ -14,7 +14,9 @@ a copy and an unstack, never a reshape. The optimizer's state (AdamW's
 paths on both sides (``repro_torch.optim``).
 
 The grouping of the port's names into the reference's leaves is
-``optim.stacks.leaves``, which the optimizers share.
+``optim.stacks.leaves``, which the optimizers share. A state whose tensors
+are DTensors (``sharding.distribute_state``) is gathered leaf by leaf on the
+way out (every rank takes part).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, lm
 from repro_torch.models.layers import dt
@@ -91,12 +95,16 @@ def named_to_numpy(params, named: dict) -> dict:
     arrays with the JAX tree's key paths, layer stacks stacked on axis 0."""
     out: dict = {}
     for path, stacked, names in _leaf_paths(params):
-        arrs = [named[n].detach().float().cpu().numpy() for n in names]
+        arrs = [_full(named[n]).detach().float().cpu().numpy() for n in names]
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.stack(arrs) if stacked else arrs[0]
     return out
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def params_to_numpy(params: nn.ModuleDict) -> dict:
@@ -125,3 +133,40 @@ def train_state_to_numpy(state: dict) -> dict:
             "opt": {k: named_to_numpy(params, named)
                     for k, named in state["opt"].items()},
             "step": np.asarray(state["step"], np.int32)}
+
+
+def train_state_keys(state: dict) -> dict:
+    """The key paths of ``train_state_to_numpy(state)`` with no data (None
+    leaves): a template for ``CheckpointManager.restore``, which reads only
+    its keys, taken without gathering a distributed state."""
+    params = state["params"]
+
+    def tree():
+        out: dict = {}
+        for path, _, _ in _leaf_paths(params):
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = None
+        return out
+
+    return {"params": tree(), "opt": {k: tree() for k in state["opt"]},
+            "step": None}
+
+
+def train_state_from_tree(template: dict, state: dict) -> dict:
+    """The port's train state from the JAX package's layout (nested dicts of
+    tensors on the device they are to live on, as ``restore`` returns
+    them), in the structure of the port's state ``template`` (plain or
+    distributed; only its module structure, names and dtypes are read).
+    Plain tensors: ``sharding.distribute_state`` places them on a mesh."""
+    values = {name: arr for name, arr in
+              _arrays_by_name(template["params"], state["params"],
+                              "parameter")}
+    params = shd.replace_params(
+        template["params"],
+        lambda name, p: _f32(values[name], values[name].device).to(p.dtype))
+    opt = {k: {name: _f32(arr, arr.device)
+               for name, arr in _arrays_by_name(params, tree, f"optimizer {k}")}
+           for k, tree in state["opt"].items()}
+    return {"params": params, "opt": opt, "step": int(state["step"])}

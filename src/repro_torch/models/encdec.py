@@ -23,6 +23,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.sharding import shard_act
 
 
 def _init_enc_block(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
@@ -85,6 +86,7 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     cd = L.dt(cfg.compute_dtype)
     x = frames.to(cd) + L.sinusoidal_positions(
         frames.shape[1], cfg.d_model, frames.device).to(cd)
+    x = shard_act(x, "batch", None, "model", kind="resid")
     for lp in params["enc_layers"]:
         x = _enc_block(cfg, lp, x)
     return L.norm(cfg, params["enc_norm"], x)
@@ -101,6 +103,7 @@ def decode_train(cfg: ModelConfig, params, tokens: torch.Tensor,
     [B,S,V] f32."""
     x = L.embed(cfg, params["embed"], tokens)
     x = x + params["pos_embed"][:tokens.shape[1]].to(x.dtype)[None]
+    x = shard_act(x, "batch", None, "model", kind="resid")
     for lp in params["dec_layers"]:
         x = _dec_block(cfg, lp, x, enc_out)
     return _logits(cfg, params, x)

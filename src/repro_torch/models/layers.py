@@ -12,8 +12,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import current_mesh, embed_sharded, shard_act
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -46,6 +48,8 @@ def init_norm(cfg: ModelConfig, dim: int, device) -> nn.ParameterDict:
 
 def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
+    # Keep the f32 widening sharded like the residual stream.
+    xf = shard_act(xf, "batch", None, "model", kind="resid")
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
@@ -54,7 +58,7 @@ def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     else:  # rmsnorm
         ms = (xf * xf).mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
-    return y.to(x.dtype)
+    return shard_act(y.to(x.dtype), "batch", None, "model", kind="resid")
 
 
 def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -75,7 +79,11 @@ def init_embed(cfg: ModelConfig, gen, vocab: int, dim: int, device):
 
 
 def embed(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens].to(dt(cfg.compute_dtype))
+    table = p["table"]
+    y = (embed_sharded(table, tokens) if isinstance(table, DTensor)
+         else table[tokens])
+    return shard_act(y.to(dt(cfg.compute_dtype)), "batch", None, "model",
+                     kind="resid")
 
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor, *, tied_table=None):
@@ -84,7 +92,7 @@ def unembed(cfg: ModelConfig, p, x: torch.Tensor, *, tied_table=None):
         w = tied_table.to(dt(cfg.compute_dtype)).T  # [D, V]
     else:
         w = p["kernel"].to(dt(cfg.compute_dtype))
-    return (x @ w).float()
+    return shard_act((x @ w).float(), "batch", None, "model")
 
 
 def init_unembed(cfg: ModelConfig, gen, dim: int, vocab: int, device):
@@ -150,15 +158,27 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """The single-device branch of the JAX ``mlp``: its tensor-parallel ring
-    (``mlp_tp_overlap``) needs a mesh and is not ported yet (ROADMAP.md), and
-    ``bf16_reduce`` changes nothing here since torch's bf16 matmul already
-    returns bf16."""
+    """The JAX ``mlp``. With ``mlp_tp_overlap`` and a ``model`` axis
+    installed (``sharding.use_sharding_rules``) that divides the sequence,
+    a gated MLP on DTensors takes the Relic ring (``mlp_ring``: fused
+    all-gather of gate+up, reduce-scatter of down, each transfer overlapping
+    the previous chunk's matmul; forward only). ``bf16_reduce`` changes
+    nothing here since torch's bf16 matmul already returns bf16."""
     cd = dt(cfg.compute_dtype)
     x = x.to(cd)
+    if cfg.mlp_tp_overlap and cfg.gated_mlp:
+        from repro_torch.core import collective_matmul as cm
+
+        mesh = current_mesh()
+        if isinstance(x, DTensor) and cm.ring_eligible(mesh, x.shape[1]):
+            return cm.mlp_ring(cfg.act, x, p["w_gate"].to(cd),
+                               p["w_up"].to(cd), p["w_down"].to(cd), mesh)
+    x = shard_act(x, "batch", None, None, kind="blockin")
     up = x @ p["w_up"].to(cd)
     if cfg.gated_mlp:
         h = _act(cfg.act, x @ p["w_gate"].to(cd)) * up
     else:
         h = _act(cfg.act, up)
-    return h @ p["w_down"].to(cd)
+    h = shard_act(h, "batch", None, "model")
+    y = h @ p["w_down"].to(cd)
+    return shard_act(y, "batch", None, "model", kind="resid")

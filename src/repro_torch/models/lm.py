@@ -22,6 +22,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as r6
+from repro_torch.sharding import shard_act
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +238,7 @@ def lm_forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     if extra_embed is not None:
         proj = extra_embed.to(x.dtype) @ params["img_proj"]["kernel"].to(x.dtype)
         x = torch.cat([proj, x], dim=1)
+    x = shard_act(x, "batch", None, "model", kind="resid")
     aux = torch.zeros((), device=x.device)
     if cfg.family == "hybrid":
         x = _hybrid_fwd(cfg, params, x)

@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, dt
+from repro_torch.sharding import shard_act
 
 
 def _dims(cfg: ModelConfig):
@@ -144,6 +145,7 @@ def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     s = cfg.ssm
     d_inner, n_heads, _ = _dims(cfg)
     h = x.to(cd) @ p["w_in"].to(cd)
+    h = shard_act(h, "batch", None, "model")
     z, xi, bi, ci, dt_raw = _split_in(cfg, h)
     conv_in = torch.cat([xi, bi, ci], dim=-1)
     conv_out, _ = _causal_conv(conv_in, p["conv"].to(cd))
@@ -165,7 +167,8 @@ def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     y = y + p["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(*x.shape[:-1], d_inner).to(cd)
     y = _rms(y * F.silu(z), p["norm_scale"])
-    return y.to(cd) @ p["w_out"].to(cd)
+    out = y.to(cd) @ p["w_out"].to(cd)
+    return shard_act(out, "batch", None, "model", kind="resid")
 
 
 def mamba2_block_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: dict):

@@ -9,7 +9,7 @@ table) and gathers both dispatch and combine, so the work stays at
 ``[E, D, F]`` and run as one batched product over E.
 
 The reference's ``shard_act`` annotations place the expert buffers on a
-mesh; on one device they do nothing, and they are dropped here.
+mesh (``repro_torch.sharding``); on plain tensors they do nothing.
 
 Ties in the top-k: ``jax.lax.top_k`` puts the lower expert index first among
 equal gates, and a slot depends on the order of a token's choices.
@@ -28,6 +28,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import _act, _normal, dt, init_mlp, mlp
+from repro_torch.sharding import shard_act
 
 
 def _normal_stack(gen: torch.Generator, shape, scale, dtype, device) -> nn.Parameter:
@@ -119,12 +120,14 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
                      token_of_choice.expand(b, s * k))
     idx = table[:, :, :cap].reshape(b, e * cap)                  # [B,E*C]
     x_e = torch.gather(x, 1, idx[..., None].expand(b, e * cap, d))
-    xc = x_e.reshape(b, e, cap, d).to(cd)
+    x_e = shard_act(x_e.reshape(b, e, cap, d), "batch", "model", None, None)
+    xc = x_e.to(cd)
 
     # ----- expert FFNs (batched over E) -------------------------------------
     up = torch.einsum("becd,edf->becf", xc, p["w_up"].to(cd))
     gate = _act(cfg.act, torch.einsum("becd,edf->becf", xc, p["w_gate"].to(cd)))
     y_e = torch.einsum("becf,efd->becd", gate * up, p["w_down"].to(cd))
+    y_e = shard_act(y_e, "batch", "model", None, None)
 
     # ----- combine: K gathers back to token order ---------------------------
     y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
@@ -140,4 +143,5 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     y = (y / torch.clamp(denom, min=1e-9)).to(x.dtype)
     if "shared" in p:
         y = y + mlp(cfg, p["shared"], x)
+    y = shard_act(y, "batch", None, "model", kind="resid")
     return y, aux * mc.aux_loss_weight

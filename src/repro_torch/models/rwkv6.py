@@ -24,6 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, dt
+from repro_torch.sharding import shard_act
 
 LORA_RANK = 64
 
@@ -169,7 +170,8 @@ def rwkv_time_mix(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
                               cfg.ssm.head_dim), device=x.device)
         out, _ = wkv6_chunked(r, k, v, logw, u, state0, cfg.ssm.chunk)
     out = _group_norm(out, p["ln_scale"]).to(cd) * g
-    return out @ p["w_o"].to(cd)
+    y = out @ p["w_o"].to(cd)
+    return shard_act(y, "batch", None, "model", kind="resid")
 
 
 def rwkv_time_mix_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: dict):
@@ -208,5 +210,7 @@ def rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor, shift_state=None):
     xk = _mix(x, prev, mu[0]).to(cd)
     xr = _mix(x, prev, mu[1]).to(cd)
     k = torch.square(F.relu(xk @ p["w_k"].to(cd)))
+    k = shard_act(k, "batch", None, "model")
     r = torch.sigmoid(xr @ p["w_r"].to(cd))
-    return r * (k @ p["w_v"].to(cd))
+    y = r * (k @ p["w_v"].to(cd))
+    return shard_act(y, "batch", None, "model", kind="resid")

@@ -14,8 +14,8 @@ it belongs to (the layers of a stack together, ``optim.stacks.leaves``), so
 the blocks of 256 are the reference's: a layer whose size is a multiple of
 256 is its own blocks and is quantized alone; only the other stacks (small
 vectors, whose blocks cross layer boundaries) are stacked first.
-``compressed_psum``, the reference's all-reduce of int8 levels, needs a
-collective and waits for the multi-device part of the port (ROADMAP.md).
+``compressed_psum`` is the reference's all-reduce of int8 levels on a
+``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -23,8 +23,10 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.sharding import all_gather_rows
 from repro_torch.optim.stacks import gather, leaves, scatter
 
 BLOCK = 256
@@ -75,3 +77,23 @@ def init_residual(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """f32 zeros of each parameter's shape, by its name."""
     return {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for name, p in params.named_parameters()}
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Quantize -> all-gather the int8 levels and the block scales ->
+    rescale and sum locally in f32, over ``group``.
+
+    Each member contributes int8 levels against its own block scale; the sum
+    of the dequantized members is exact with respect to the quantized
+    contributions (the quantization error itself is absorbed by the caller's
+    error feedback). Wire bytes a member: 1 a element plus the scales, where
+    an f32 all-reduce moves 4. The levels stay int8 on the wire."""
+    q, scale, n = quantize(x)
+    p = dist.get_world_size(group)
+    qs = q.new_empty((p * q.shape[0], q.shape[1]))
+    ss = scale.new_empty((p * scale.shape[0], 1))
+    all_gather_rows(qs, q, group)        # int8
+    all_gather_rows(ss, scale, group)    # f32
+    total = torch.sum(qs.float().reshape(p, *q.shape)
+                      * ss.reshape(p, *scale.shape), dim=0)
+    return total.reshape(-1)[:n].reshape(x.shape).to(x.dtype)

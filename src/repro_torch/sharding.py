@@ -1,0 +1,432 @@
+"""Partitioning rules: parameter names -> DTensor placements, plus
+activation sharding constraints. The port of ``src/repro/sharding.py``.
+
+Mesh axes (as the reference's):
+  single-pod: ("data", "model")
+  multi-pod:  ("pod", "data", "model")
+
+Layout (2D "FSDP + TP"):
+  * ``model`` carries tensor/expert parallelism (Megatron column/row, vocab-
+    parallel embeddings, expert sharding).
+  * ``data`` carries the batch AND a ZeRO-3-style shard of every weight's
+    non-model dimension.
+  * ``pod`` carries batch only (pure DP between pods).
+
+The rules table, ``fit_spec`` and the layout knobs are the reference's,
+copied (the reference's module imports JAX). A fitted spec (one entry per
+tensor dim, as a ``PartitionSpec`` holds them) becomes one DTensor placement
+per mesh dim (``placements``): a mesh axis that names tensor dim ``d`` is
+``Shard(d)``, an axis no dim names is ``Replicate()``.
+
+The port's parameters are named ``layers.3.attn.wq`` (one tensor per
+layer); ``port_param_entries`` reads the reference's rule for its stacked
+leaf ``layers/attn/wq`` and drops the stack dim.
+
+Activation constraints go through ``shard_act``, which redistributes a
+DTensor under the mesh that ``use_sharding_rules`` installed and returns
+anything else unchanged, so the single-device code paths are untouched.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import re
+import threading
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
+                                      Shard, distribute_tensor)
+
+_state = threading.local()
+
+
+def _axes() -> Optional[dict]:
+    return getattr(_state, "axes", None)
+
+
+@contextlib.contextmanager
+def use_sharding_rules(mesh):
+    """Install mesh axes for activation constraints within the block."""
+    names = mesh.mesh_dim_names
+    axes = {
+        "batch": tuple(n for n in ("pod", "data") if n in names) or None,
+        "model": "model" if "model" in names else None,
+        "mesh": mesh,
+    }
+    prev = _axes()
+    _state.axes = axes
+    try:
+        yield
+    finally:
+        _state.axes = prev
+
+
+def _resolve(token: Optional[str]):
+    axes = _axes()
+    if token is None or axes is None:
+        return None
+    if token == "batch":
+        return axes["batch"]
+    if token == "model":
+        return axes["model"]
+    raise ValueError(f"unknown logical axis {token!r}")
+
+
+def _mesh_shape(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh, or of anything with the
+    reference's ``shape`` mapping and ``axis_names`` (a JAX mesh)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def _axis_names(mesh) -> Tuple[str, ...]:
+    if hasattr(mesh, "mesh_dim_names"):
+        return tuple(mesh.mesh_dim_names)
+    return tuple(mesh.axis_names)
+
+
+def _axis_prod(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    shape = _mesh_shape(mesh)
+    out = 1
+    for n in names:
+        out *= shape[n]
+    return out
+
+
+def fit_spec(mesh, entries, shape) -> tuple:
+    """Drop axis names whose size does not divide the dim (replicate instead).
+
+    Where a logical rule doesn't divide (e.g. 20 or 40 or 56 attention heads
+    over model=16), that dim falls back to replication. A tuple entry
+    degrades to its longest prefix that divides. Returns the entries (a
+    tuple, as ``PartitionSpec`` holds them)."""
+    fitted = []
+    for d, entry in enumerate(entries):
+        if entry is None or d >= len(shape):
+            fitted.append(None)
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        names = tuple(n for n in names if n in _axis_names(mesh))
+        while names and shape[d] % _axis_prod(mesh, names) != 0:
+            names = names[:-1]
+        if not names:
+            fitted.append(None)
+        elif len(names) == 1:
+            fitted.append(names[0])
+        else:
+            fitted.append(tuple(names))
+    return tuple(fitted)
+
+
+def placements(mesh, spec) -> Tuple[Placement, ...]:
+    """A fitted spec as DTensor placements, one per mesh dim. A tuple entry
+    such as ("pod", "data") shards its dim over both mesh dims, in the
+    tuple's order, which must be the mesh's."""
+    names = _axis_names(mesh)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        group = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(n) for n in group]
+        if idx != sorted(idx):
+            raise ValueError(f"entry {entry!r} is not in the order of the "
+                             f"mesh axes {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+# --- experiment knobs ------------------------------------------------------
+#
+# activation layout for the RESIDUAL STREAM [B, S, D] (kind="resid"):
+#   "tp"         — D sharded over model (baseline 2D layout)
+#   "replicated" — residuals full per device (classic Megatron f/g)
+#   "seq"        — S sharded over model (Megatron sequence parallelism)
+_ACT_LAYOUTS = ("tp", "replicated", "seq", "mixed")
+
+
+def set_activation_layout(mode: str) -> None:
+    assert mode in _ACT_LAYOUTS, mode
+    _state.act_layout = mode
+
+
+def get_activation_layout() -> str:
+    return getattr(_state, "act_layout", "tp")
+
+
+def set_param_rule_overrides(rules) -> None:
+    """Prepend (regex, logical-entries) rules; [] clears. Hillclimb only."""
+    _state.rule_overrides = list(rules)
+
+
+def _rule_overrides():
+    return getattr(_state, "rule_overrides", [])
+
+
+def current_mesh():
+    axes = _axes()
+    return axes["mesh"] if axes else None
+
+
+def act_spec(mesh, shape, *logical: Optional[str], kind: str = "act"):
+    """The fitted spec ``shard_act`` gives an activation of ``shape``, or
+    None where it leaves the activation as it is."""
+    tokens = list(logical)
+    layout = get_activation_layout()
+    if kind == "resid" and len(tokens) == 3:
+        if layout == "replicated":
+            tokens = [tokens[0], None, None]
+        elif layout == "seq":
+            tokens = [tokens[0], "model", None]
+    elif kind == "blockin":
+        # "mixed" layout: residuals stay model-sharded (memory), but block
+        # inputs are replicated right AFTER the bf16 cast, so the per-block
+        # all-gather moves bf16.
+        if layout != "mixed":
+            return None
+        tokens = [tokens[0]] + [None] * (len(tokens) - 1)
+    return fit_spec(mesh, [_resolve(t) for t in tokens], shape)
+
+
+def shard_act(x: torch.Tensor, *logical: Optional[str],
+              kind: str = "act") -> torch.Tensor:
+    """Constrain an activation, e.g. shard_act(h, 'batch', None, 'model').
+
+    kind="resid" marks residual-stream constraints [B, S, D]; their layout is
+    swappable via set_activation_layout. A plain tensor, or any tensor with
+    no mesh installed, is returned unchanged."""
+    axes = _axes()
+    if axes is None or not isinstance(x, DTensor):
+        return x
+    mesh = axes["mesh"]
+    spec = act_spec(mesh, x.shape, *logical, kind=kind)
+    if spec is None:
+        return x
+    return x.redistribute(mesh, placements(mesh, spec))
+
+
+def embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """``table[tokens]`` for a DTensor table, vocab-parallel by hand on the
+    local shards: the table keeps its vocab (dim 0) sharding and gathers the
+    rest, the tokens keep their batch (dim 0) sharding, each rank looks up
+    the rows it holds (zero for the others), and the result is a partial
+    sum over the vocab shards. DTensor's own rules for this lookup fail on a
+    2D mesh (indexing's backward, index_put, in torch 2.11; the embedding
+    op's masked partial with a sharded batch, in 2.13)."""
+    mesh = table.device_mesh
+    vocab = tuple(isinstance(p, Shard) and p.dim == 0 for p in table.placements)
+    t_pl = tuple(Shard(0) if v else Replicate() for v in vocab)
+    if not isinstance(tokens, DTensor):
+        tokens = distribute_tensor(tokens, mesh, [Replicate()] * mesh.ndim,
+                                   src_data_rank=None)
+    batch = tuple(not v and isinstance(p, Shard) and p.dim == 0
+                  for v, p in zip(vocab, tokens.placements))
+    tok_pl = tuple(Shard(0) if b else Replicate() for b in batch)
+    # each batch shard contributes a partial gradient to a gathered table
+    grad_pl = tuple(Shard(0) if v else (Partial() if b else Replicate())
+                    for v, b in zip(vocab, batch))
+    local = table.redistribute(mesh, t_pl).to_local(grad_placements=grad_pl)
+    idx = tokens.redistribute(mesh, tok_pl).to_local()
+    shard = 0
+    for i, v in enumerate(vocab):
+        if v:
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+    rel = idx - shard * local.shape[0]
+    hit = (rel >= 0) & (rel < local.shape[0])
+    y = local[rel.clamp(0, local.shape[0] - 1)] * hit[..., None].to(local.dtype)
+    out_pl = tuple(Partial() if v else (Shard(0) if b else Replicate())
+                   for v, b in zip(vocab, batch))
+    shape = torch.Size((*tokens.shape, table.shape[1]))
+    return DTensor.from_local(y, mesh, out_pl, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def all_gather_rows(out: torch.Tensor, x: torch.Tensor, group=None) -> None:
+    """All-gather ``x`` from every rank of ``group`` into ``out``, the
+    ranks' tensors concatenated on dim 0 (``all_gather_single`` where the
+    release has it, ``all_gather_into_tensor``, its older name, before)."""
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, x.contiguous(), group=group)
+
+
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (what
+    ``DTensor.from_local`` is told the global tensor has)."""
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+# ---------------------------------------------------------------------------
+# Parameter partitioning rules
+# ---------------------------------------------------------------------------
+
+# Ordered (regex over '/'-joined path, spec builder) — first match wins.
+# `spec` entries are logical: "model", "data", or None, matched to the
+# *trailing* dims of the array (leading scan/stack dims get None).
+_PARAM_RULES: list[tuple[str, tuple]] = [
+    # embeddings / output heads: vocab-parallel, ZeRO on d_model
+    (r"(^|/)embed/table$",        ("model", "data")),       # [V, D]
+    (r"(^|/)lm_head/kernel$",     ("data", "model")),       # [D, V]
+    # attention: Q and O column/row-parallel over heads; KV replicated on
+    # model (GQA kv<TP) but ZeRO'd on data
+    (r"(^|/)attn/wq$",            ("data", "model", None)),  # [D, H, Dh]
+    (r"(^|/)attn/wk$",            ("data", None, None)),     # [D, Hkv, Dh]
+    (r"(^|/)attn/wv$",            ("data", None, None)),
+    (r"(^|/)attn/wo$",            ("model", None, "data")),  # [H, Dh, D]
+    # dense MLP: column then row parallel
+    (r"(^|/)mlp/w_(gate|up)$",    ("data", "model")),        # [D, F]
+    (r"(^|/)mlp/w_down$",         ("model", "data")),        # [F, D]
+    # MoE: experts over model, ZeRO over data on d_model dim
+    (r"(^|/)moe/router$",         ("data", None)),           # [D, E]
+    (r"(^|/)moe/w_(gate|up)$",    ("model", "data", None)),  # [E, D, F]
+    (r"(^|/)moe/w_down$",         ("model", None, "data")),  # [E, F, D]
+    # mamba2 / rwkv6 big projections
+    (r"(^|/)ssm/w_in$",           ("data", "model")),        # [D, d_inner*...]
+    (r"(^|/)ssm/w_out$",          ("model", "data")),        # [d_inner, D]
+    (r"(^|/)rwkv/w_(r|k|v|g)$",   ("data", "model")),
+    (r"(^|/)rwkv/w_o$",           ("model", "data")),
+    # decode caches: batch over data; KV time axis over model (flash-decoding
+    # style split-T)
+    (r"(^|/)cache/(k|v)$",        ("data", "model", None, None)),  # [B,T,H,Dh]
+    (r"(^|/)cache/(xk|xv)$",      ("data", "model", None, None)),  # cross-attn
+    (r"(^|/)layers/(k|v|xk|xv)$", ("data", "model", None, None)),  # encdec cache
+    (r"(^|/)shared_attn/(k|v)$",  ("data", "model", None, None)),  # zamba2 cache
+    (r"(^|/)cache/ssm_state$",    ("data", "model", None, None)),  # [B,H,P,N]
+    (r"(^|/)cache/wkv_state$",    ("data", "model", None, None)),  # [B,H,Dh,Dh]
+    (r"(^|/)cache/conv_state$",   ("data", None, "model")),        # [B,K-1,C]
+    (r"(^|/)cache/shift_state$",  ("data", "model")),              # [B,D]
+    # everything small (norms, biases, decay vectors, conv kernels): replicate
+    (r".*",                       ()),
+]
+
+
+def param_entries(path: str, ndim: int):
+    """Logical axis entries for one param ('/'-joined path + rank)."""
+    for pat, logical in list(_rule_overrides()) + _PARAM_RULES:
+        if re.search(pat, path):
+            pad = ndim - len(logical)
+            if pad < 0:
+                # rule written for the unstacked rank; stacked arrays only
+                # ever ADD leading dims, so negative pad means a rank mismatch
+                # from e.g. fused dims — fall back to replication.
+                return (None,) * ndim
+            return (None,) * pad + tuple(logical)
+    return (None,) * ndim
+
+
+def reference_path(name: str) -> Tuple[str, bool]:
+    """(the reference's '/'-joined leaf path, stacked over layers) of a port
+    parameter name: ``layers.3.attn.wq`` -> (``layers/attn/wq``, True), as
+    ``optim.stacks.leaves`` groups them (likewise ``enc_layers``,
+    ``dec_layers``)."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[1].isdigit():
+        return "/".join(parts[:1] + parts[2:]), True
+    return "/".join(parts), False
+
+
+def port_param_entries(name: str, ndim: int):
+    """The reference's entries for the leaf a port tensor belongs to, less
+    the leading stack dim for a layer's tensor."""
+    path, stacked = reference_path(name)
+    if stacked:
+        return param_entries(path, ndim + 1)[1:]
+    return param_entries(path, ndim)
+
+
+def param_placements(mesh, name: str, shape) -> Tuple[Placement, ...]:
+    """Placements of the port tensor ``name`` on ``mesh``, divisibility-
+    checked against its shape."""
+    spec = fit_spec(mesh, port_param_entries(name, len(shape)), shape)
+    return placements(mesh, spec)
+
+
+def _distribute(t: torch.Tensor, mesh, name: str) -> DTensor:
+    # Every rank holds the same tensor (the same seed, or the same
+    # checkpoint), so each takes its own shard with no communication. The
+    # copy keeps a replicated shard from aliasing the input.
+    return distribute_tensor(t.detach().clone(), mesh,
+                             param_placements(mesh, name, t.shape),
+                             src_data_rank=None)
+
+
+def replace_params(params: nn.Module, fn) -> nn.Module:
+    """A copy of ``params`` (its module structure) whose parameter ``name``
+    is ``fn(name, p)``; the input is left as it was."""
+    out = copy.deepcopy(params)
+    for name, p in params.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        setattr(out.get_submodule(owner), leaf,
+                nn.Parameter(fn(name, p), requires_grad=p.requires_grad))
+    return out
+
+
+def distribute_params(params: nn.Module, mesh) -> nn.Module:
+    """A copy of ``params`` whose every parameter is a DTensor under its
+    rule; the input is left as it was."""
+    return replace_params(params, lambda name, p: _distribute(p, mesh, name))
+
+
+def distribute_named(named: dict, mesh) -> dict:
+    """{parameter name: tensor} (the optimizer's state) onto ``mesh``, each
+    under its parameter's rule (copies)."""
+    return {name: _distribute(t, mesh, name)
+            for name, t in named.items()}
+
+
+def distribute_state(state: dict, mesh) -> dict:
+    """The train state (``launch.steps.make_train_state``) with every tensor
+    a DTensor under its rule: the reference's ``named_shardings`` and
+    ``device_put`` in one. The input state is not changed."""
+    opt = {k: distribute_named(v, mesh) for k, v in state["opt"].items()}
+    return {"params": distribute_params(state["params"], mesh), "opt": opt,
+            "step": state["step"]}
+
+
+def full_params(params: nn.Module) -> nn.Module:
+    """A copy of ``params`` with every DTensor parameter gathered to a full
+    tensor (every rank takes part)."""
+    return replace_params(params, lambda name, p: _full(p).detach().clone())
+
+
+def full_state(state: dict) -> dict:
+    """The train state with every DTensor gathered to a full tensor (every
+    rank takes part); plain tensors are copied."""
+    opt = {k: {n: _full(t).clone() for n, t in v.items()}
+           for k, v in state["opt"].items()}
+    return {"params": full_params(state["params"]), "opt": opt,
+            "step": state["step"]}
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def batch_spec(mesh, ndim: int, batch_dim: int = 0) -> Tuple[Placement, ...]:
+    """Placements of a batch array: ``batch_dim`` over ("pod", "data")."""
+    names = _axis_names(mesh)
+    batch_axes = tuple(n for n in ("pod", "data") if n in names) or None
+    entries: list = [None] * ndim
+    entries[batch_dim] = batch_axes
+    return placements(mesh, entries)
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """A global batch (the same on every rank) as DTensors sharded over the
+    batch axes by ``batch_spec``; DTensors pass through."""
+    return {k: v if isinstance(v, DTensor) else distribute_tensor(
+                v, mesh, batch_spec(mesh, v.ndim), src_data_rank=None)
+            for k, v in batch.items()}
