@@ -94,15 +94,27 @@ Phases (any failure exits non-zero):
      the sequential stack, a sharded forward with the kernels refused, and
      the distributed state saved and ``elastic_restore``d bit for bit. NCCL
      must initialize; nothing falls back to gloo;
- 13. a long relic_tiny forward and loss at [4, 2048] with the kernel against
+ 13. the dry-run (``phase_dryrun``, after the mesh phase):
+     ``python -m repro_torch.launch.dryrun`` for granite_8b's train_4k and
+     decode_32k cells on the 16 x 16 production mesh (a fake group of 256
+     ranks on the host's CPU, meta tensors; every record key present, the
+     counts positive); then the dry-run's prediction for relic_tiny at full
+     width (the 8 x 256 train step, a batch-8 decode step on a 2048-token
+     cache) held against the same steps on the card over a one-rank NCCL
+     ``(1, 1)`` mesh: the argument bytes against the allocator's requests
+     and ``memory_allocated``'s growth, the FLOPs against
+     ``FlopCounterMode`` over the real step, the predicted peak and the
+     step time beside the measured ones; and the mesh serve step's greedy
+     tokens against the plain serve step's, exactly;
+ 14. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6, each family of 7, and 8 are the main paths: each starts
 with every kernel's launch count at 0 and its counts are read when it ends;
-every flash launch there and in phase 13 must go through the wgmma design
+every flash launch there and in phase 14 must go through the wgmma design
 (none through the CUDA-core kernel) and every ssd and wkv6 launch through
 the tensor-core one, and the
-quickstart's one relic_matmul launch through the f32 design; phases 9, 10,
-11 and 12 must launch no kernel (training runs the plain paths, as the
+quickstart's one relic_matmul launch through the f32 design; phases 9 to
+13 must launch no kernel (training runs the plain paths, as the
 reference's does, and the workloads' kernels were never Pallas ones).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -136,7 +148,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import quickstart  # noqa: E402
 from repro_torch import sharding as shd  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager, elastic_restore  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.devices import synchronize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -144,7 +156,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import relic_matmul as rm  # noqa: E402
 from repro_torch.kernels import ssd as ssd_k  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv6_k  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,  # noqa: E402
                                       make_train_state, make_train_step)
 from repro_torch.models import build_model  # noqa: E402
@@ -1841,6 +1853,223 @@ def _mesh_checks(device, card, mesh):
     return dms, pms
 
 
+DRYRUN_CELLS = ("train_4k", "decode_32k")   # granite_8b on the pod mesh
+DRYRUN_KEYS = ("memory", "per_device", "model_flops_global",
+               "useful_flops_ratio", "roofline_terms_s", "dominant", "method")
+DRYRUN_DECODE_LEN = 2048   # the card check's cache length (batch 8)
+DRYRUN_TOKENS = 8          # decode steps of the mesh-vs-plain token check
+
+
+def _dryrun_records():
+    """``python -m repro_torch.launch.dryrun`` for granite_8b's two cells on
+    the 16 x 16 production mesh (a fake group of 256 ranks on this host's
+    CPU, meta tensors): each record must hold every key, and positive
+    FLOPs, bytes and collective bytes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "granite_8b", "--shape", shape, "--mesh", "pod", "--force"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if out.returncode:
+            raise AssertionError(f"[dryrun] {shape} failed:\n{out.stdout}"
+                                 f"\n{out.stderr[-4000:]}")
+        path = Path(ROOT) / "build" / "dryrun_torch" / \
+            f"granite_8b__{shape}__pod.json"
+        rec = json.loads(path.read_text())
+        missing = [k for k in DRYRUN_KEYS if k not in rec]
+        mem, dev = rec.get("memory", {}), rec.get("per_device", {})
+        if missing or not (dev.get("hlo_flops", 0) > 0
+                           and mem.get("argument_bytes", 0) > 0
+                           and dev.get("hlo_bytes", 0) > 0
+                           and dev.get("collective_wire_bytes", 0) > 0):
+            raise AssertionError(f"[dryrun] {shape}: missing {missing} or "
+                                 f"a zero count: {rec}")
+        print(f"[dryrun] granite_8b x {shape} x pod (16 x 16, 256 fake "
+              f"ranks, this host's CPU, {time.perf_counter() - t0:.1f} s): "
+              f"per device {dev['hlo_flops']:.6g} FLOPs, "
+              f"{dev['hlo_bytes']:.6g} bytes accessed, "
+              f"{dev['collective_wire_bytes']:.6g} collective wire bytes "
+              f"{ {k: v for k, v in dev['collective_by_kind'].items() if v} }; "
+              f"arguments {mem['argument_bytes']} B, peak "
+              f"{mem['peak_bytes_est']} B; useful FLOPs "
+              f"{rec['useful_flops_ratio']:.4f}; terms "
+              f"{rec['roofline_terms_s']} (H100 SXM data-sheet rates); "
+              f"dominant {rec['dominant']}", flush=True)
+
+
+def _active_blocks() -> dict:
+    """{address: (size, requested size)} of the allocator's live blocks."""
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                out[blk["address"]] = (blk["size"],
+                                       blk.get("requested_size", blk["size"]))
+    return out
+
+
+def _grown(before: dict) -> tuple:
+    """(requested bytes, allocated bytes) of the blocks made since
+    ``before``: the allocator rounds each request up (512-byte blocks, and
+    a large block keeps a tail under 1 MB unsplit)."""
+    new = [v for a, v in _active_blocks().items() if a not in before]
+    return sum(r for _, r in new), sum(s for s, _ in new)
+
+
+def _allocated_by(make):
+    """(``make()``, the bytes its live tensors requested, the bytes of their
+    allocator blocks, the growth of ``memory_allocated``)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    before = _active_blocks()
+    out = make()
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - base
+    return (out,) + _grown(before) + (growth,)
+
+
+def _predict(cfg, shape):
+    """The dry-run's record pieces for ``cfg`` at ``shape`` on a (1, 1)
+    ("data", "model") mesh over a fake group of one rank, on meta state."""
+    with dryrun.fake_group(1):
+        mesh = torch.distributed.device_mesh.init_device_mesh(
+            "cpu", (1, 1), mesh_dim_names=("data", "model"))
+        return dryrun.analyze_cell(cfg, shape, mesh)
+
+
+def _held_on_card(label, pred, make_args, step, card):
+    """Hold one predicted cell against the card: the argument bytes against
+    what the allocator gained once the arguments exist, the FLOPs against
+    FlopCounterMode over the real step, and print peak and step time beside
+    the prediction. Returns the step's output and arguments."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    args, requested, allocated, growth = _allocated_by(make_args)
+    want = pred["memory"]["argument_bytes"]
+    if requested != want or growth != allocated:
+        raise AssertionError(
+            f"[dryrun] {label}: predicted argument bytes {want}, the card's "
+            f"requests {requested}, memory_allocated grew {growth} "
+            f"(blocks {allocated})")
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    if flops != pred["per_device"]["hlo_flops"]:
+        raise AssertionError(f"[dryrun] {label}: predicted "
+                             f"{pred['per_device']['hlo_flops']:.6g} FLOPs, "
+                             f"FlopCounterMode {flops:.6g}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    dev = pred["per_device"]
+    terms = {"compute_s": dev["hlo_flops"] / dryrun.PEAK_FLOPS,
+             "memory_s": dev["hlo_bytes"] / dryrun.HBM_BW}
+    top = max(terms, key=terms.get)
+    print(f"[dryrun] {label} on {card}: argument bytes predicted {want}, "
+          f"memory_allocated grew {growth} ({growth - want} of allocator "
+          f"rounding); FLOPs predicted {dev['hlo_flops']:.6g} = "
+          f"FlopCounterMode {flops:.6g}; temp (peak above the arguments) "
+          f"predicted {pred['memory']['temp_bytes']} B, measured {peak} B "
+          f"(ratio {pred['memory']['temp_bytes'] / max(peak, 1):.4f}); step "
+          f"{ms:.2f} ms against its largest roofline term {top} "
+          f"{terms[top] * 1e3:.4f} ms (ratio {ms / (terms[top] * 1e3):.2f}; "
+          f"data-sheet rates)", flush=True)
+    return out, args
+
+
+def phase_dryrun(device, card):
+    """The dry-run (``repro_torch.launch.dryrun``): (a) granite_8b's train
+    and decode cells on the production pod mesh, in a subprocess; (b) its
+    prediction for relic_tiny at full width, the 8 x 256 train step and a
+    batch-8 decode step, held against the same steps on the card over a
+    one-rank NCCL ``(1, 1)`` mesh; (c) the mesh serve step's tokens against
+    the plain serve step's, exactly."""
+    _dryrun_records()
+
+    cfg = get_config(ARCH)
+    train = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    decode = dataclasses.replace(SHAPES["decode_32k"],
+                                 seq_len=DRYRUN_DECODE_LEN,
+                                 global_batch=SERVE_BATCH)
+    dcfg = dryrun._prep_cfg(cfg, decode)
+    preds = {"train": _predict(cfg, train), "decode": _predict(dcfg, decode)}
+
+    init_distributed(device)
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError("the dry-run phase must run over NCCL")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device)
+        model = build_model(cfg, device)
+        gen = np.random.default_rng(0)
+
+        def batch_for(shape, m):
+            specs, _ = m.input_specs(shape)
+            return {k: (torch.as_tensor(gen.integers(0, cfg.vocab_size,
+                                                     v.shape), device=device)
+                        .to(v.dtype) if not v.dtype.is_floating_point
+                        else torch.ones(v.shape, dtype=v.dtype, device=device))
+                    for k, v in specs.items()}
+
+        def train_args():
+            plain = make_train_state(model, torch.Generator().manual_seed(0))
+            state = shd.distribute_state(plain, mesh)
+            del plain
+            return state, shd.shard_batch(batch_for(train, model), mesh)
+
+        _held_on_card(f"{cfg.name} train [{TRAIN_BATCH}, {TRAIN_SEQ}]",
+                      preds["train"], train_args,
+                      make_train_step(model, OptConfig(), mesh=mesh), card)
+
+        dmodel = build_model(dcfg, device)
+        dparams = dmodel.init(torch.Generator().manual_seed(0))
+        mesh_step = make_serve_step(dmodel, mesh)
+
+        def decode_args():
+            return (shd.distribute_params(dparams, mesh),
+                    shd.distribute_cache(dmodel.init_cache(
+                        SERVE_BATCH, DRYRUN_DECODE_LEN), mesh),
+                    shd.shard_batch(batch_for(decode, dmodel),
+                                    mesh)["tokens"],
+                    DRYRUN_DECODE_LEN - 1)
+
+        _held_on_card(f"{cfg.name} decode batch {SERVE_BATCH}, cache "
+                      f"{DRYRUN_DECODE_LEN}", preds["decode"], decode_args,
+                      mesh_step, card)
+
+        # (c) the same greedy tokens from the mesh step and the plain one
+        prompt = batch_for(decode, dmodel)["tokens"]
+        runs = []
+        for step, params, cache in (
+                (make_serve_step(dmodel), dparams,
+                 dmodel.init_cache(SERVE_BATCH, DRYRUN_DECODE_LEN)),
+                (mesh_step, shd.distribute_params(dparams, mesh),
+                 shd.distribute_cache(dmodel.init_cache(
+                     SERVE_BATCH, DRYRUN_DECODE_LEN), mesh))):
+            tok, toks = prompt, []
+            for pos in range(DRYRUN_TOKENS):
+                tok, _, cache = step(params, cache, tok, pos)
+                tok = tok.full_tensor() if hasattr(tok, "full_tensor") else tok
+                toks.append(tok)
+            runs.append(torch.cat(toks, 1))
+        same = torch.equal(runs[0], runs[1])
+        print(f"[dryrun] {cfg.name} serve step on the (1, 1) mesh against the "
+              f"plain serve step, {DRYRUN_TOKENS} greedy steps of batch "
+              f"{SERVE_BATCH}: tokens equal {same}; {card}")
+        if not same:
+            raise AssertionError("[dryrun] the mesh serve step's tokens differ")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def phase_workloads(device, card):
     """The paper's table on the card: each of the nine workloads (its
     instances on their own copies of the paper's inputs) run ``serial``
@@ -2375,6 +2604,12 @@ def main() -> int:
     phase_mesh(device, card)
     _count_path("mesh", {}, entries)
     print(f"[main] mesh phase {time.perf_counter() - t_mesh:.1f} s")
+    torch.cuda.empty_cache()
+    _reset_launches()
+    t_dry = time.perf_counter()
+    phase_dryrun(device, card)
+    _count_path("dry-run", {}, entries)
+    print(f"[main] dry-run phase {time.perf_counter() - t_dry:.1f} s")
     torch.cuda.empty_cache()
     _reset_launches()
     t1 = time.perf_counter()

@@ -14,6 +14,7 @@ that cannot be initialized raises.
 from __future__ import annotations
 
 import datetime
+import math
 import multiprocessing as mp
 import os
 import queue
@@ -67,12 +68,27 @@ def init_distributed(device: Any = "cuda", *, store: Optional[dist.Store] = None
     return dist.get_rank()
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16x16 (or 2x16x16) pod mesh needs 256 (512) ranks,
-    which only the dry-run's fake process group can build."""
-    raise NotImplementedError(
-        "make_production_mesh waits for the dry-run slice (ROADMAP.md, "
-        "section 2): a fake process group of 512 ranks")
+#: The reference's production meshes: one pod of 16 x 16 chips, or two
+#: pods with a leading "pod" axis.
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Any = "cuda") -> DeviceMesh:
+    """The 16x16 ``("data", "model")`` mesh, or the 2x16x16 one with
+    ``"pod"`` first, over the default group, which must hold exactly 256
+    (512) ranks. Nothing falls back to a smaller mesh: any other group, or
+    none, raises. (The one process that builds these on a single host is
+    the dry-run, over a fake group of that many ranks.)"""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != n:
+        raise RuntimeError(f"the production mesh {shape} needs a default "
+                           f"group of {n} ranks; it holds {have}")
+    return init_device_mesh(resolve_device(device).type, shape,
+                            mesh_dim_names=axes)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],

@@ -1,9 +1,10 @@
 """train_step / serve_step / prefill_step builders shared by the entry points,
-the tests and ``chip_smoke.py``.
+the dry-run, the tests and ``chip_smoke.py``, and the abstract (meta-device)
+states the dry-run places on its mesh.
 
 The train step takes a plain state on one device, or, given the mesh, a
 state that ``sharding.distribute_state`` made DTensors: then the batch is
-sharded over the batch axes (``sharding.batch_spec``), the activations
+sharded over the batch axes (``sharding.shard_batch``), the activations
 follow the reference's ``shard_act`` points, plain tensors the model makes
 (RoPE tables, masks, constants) act as replicated, and every reduction
 (the loss, the global norm) runs over all shards. The kernels take no
@@ -20,7 +21,8 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import sharding as shd
-from repro_torch.models.registry import Model
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models.registry import Model, build_model
 from repro_torch.optim import (OptConfig, adamw_update, clip_by_global_norm,
                                init_opt_state)
 from repro_torch.optim.compression import compress_with_feedback, init_residual
@@ -36,6 +38,22 @@ def make_train_state(model: Model, gen: torch.Generator,
     if oc is not None and oc.compress_grads:
         state["opt"]["residual"] = init_residual(params)
     return state
+
+
+def abstract_train_state(model: Model) -> dict:
+    """The train state of ``model``'s config on the meta device: shapes and
+    dtypes, nothing drawn and nothing allocated (the reference's
+    ``jax.eval_shape`` of ``make_train_state``)."""
+    return make_train_state(build_model(model.cfg, "meta"), torch.Generator())
+
+
+def abstract_serve_state(model: Model, shape: ShapeConfig):
+    """(params, cache) for a decode shape on the meta device: the cache
+    holds ``shape.global_batch`` rows of ``input_specs``' cache length."""
+    meta = build_model(model.cfg, "meta")
+    _, cache_len = meta.input_specs(shape)
+    return (meta.init(torch.Generator()),
+            meta.init_cache(shape.global_batch, cache_len))
 
 
 def _grads(model: Model, params, batch: dict):
@@ -126,14 +144,36 @@ def make_train_step(model: Model, oc: OptConfig, mesh=None):
     return train_step
 
 
-def make_serve_step(model: Model):
+def make_serve_step(model: Model, mesh=None):
     """One greedy decode step: (params, cache, tokens[B,1], pos) ->
-    (next_tokens [B,1], logits [B,1,V], cache)."""
+    (next_tokens [B,1], logits [B,1,V], cache).
+
+    With ``mesh`` the params must be distributed on it
+    (``sharding.distribute_params``) and the cache too
+    (``sharding.distribute_cache``, the reference's cache rules); plain
+    tokens (the global batch) are sharded over the batch axes, and the
+    logits come out sharded ``[batch axes, None, "model"]`` as the
+    reference's decode cells lay them out (``fit_spec``); the next tokens
+    keep the batch sharding."""
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos: int):
-        logits, cache = model.decode_step(params, cache, tokens, pos)
-        return logits.argmax(dim=-1), logits, cache
+        if mesh is None:
+            logits, cache = model.decode_step(params, cache, tokens, pos)
+            return logits.argmax(dim=-1), logits, cache
+        tokens = shd.shard_batch({"tokens": tokens}, mesh)["tokens"]
+        with shd.use_sharding_rules(mesh), implicit_replication():
+            logits, cache = model.decode_step(params, cache, tokens, pos)
+            batch = shd.batch_axes(mesh, logits.shape[0])
+
+            def laid_out(entries):
+                return logits.redistribute(mesh, shd.placements(
+                    mesh, shd.fit_spec(mesh, entries, logits.shape)))
+
+            # the greedy pick over the whole vocab of each row (DTensor's
+            # argmax over a sharded dim fails for a replicated batch)
+            nxt = laid_out([batch, None, None]).argmax(dim=-1)
+            return nxt, laid_out([batch, None, "model"]), cache
 
     return serve_step
 

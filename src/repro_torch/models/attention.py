@@ -19,7 +19,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, apply_rope, dt, rms_norm_headwise
-from repro_torch.sharding import contiguous_stride, shard_act
+from repro_torch.sharding import on_local_shards, shard_act
 
 NEG_INF = -1e30
 
@@ -150,18 +150,51 @@ def _pick_chunk(n: int, target: int) -> int:
     return n
 
 
-def _per_batch_shard(fn, q: DTensor, k, v) -> DTensor:
-    """``fn`` on each rank's local q, k, v, laid out with only dim 0 (the
-    batch) sharded; the result keeps that layout."""
-    mesh = q.device_mesh
-    keep = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-                 for p in q.placements)
-    local = [t.redistribute(mesh, keep).to_local() for t in (q, k, v)]
-    out = fn(*local)
-    shape = (q.shape[0],) + tuple(out.shape[1:])
-    return DTensor.from_local(out, mesh, keep, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=contiguous_stride(shape))
+def _shard_index(mesh, placements, dim: int) -> int:
+    """This rank's shard of tensor dim ``dim`` under ``placements`` (the mesh
+    dims that shard it, in mesh order, as ``placements`` lays them out)."""
+    idx = 0
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, h_loc: int,
+                  group: int):
+    """The kv heads that local q heads ``h0 .. h0 + h_loc`` read (global q
+    head ``h`` reads kv head ``h // group``), laid out so that the local
+    call's own GQA grouping maps local head ``j`` to its kv head: a
+    contiguous slice where the heads split evenly, else one kv head per q
+    head."""
+    want = [(h0 + j) // group for j in range(h_loc)]
+    lo, n = want[0], want[-1] - want[0] + 1
+    if h_loc % n == 0 and all(w - lo == j // (h_loc // n)
+                              for j, w in enumerate(want)):
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _per_head_shard(fn, q: DTensor, k, v) -> DTensor:
+    """``fn`` on each rank's local tensors: q keeps its batch (dim 0) and
+    head (dim 2) sharding, so each rank computes its own heads of its own
+    batch rows; k and v are batch-sharded, replicated over every other mesh
+    dim (their gradients partial there), and cut to the kv heads of this
+    rank's q heads. The result keeps q's layout. (Local tensors: DTensor's
+    einsum rules cannot flatten a sharded dim on every release.)"""
+    h, n_kv = q.shape[2], k.shape[2]
+    h0 = _shard_index(q.device_mesh, q.placements, 2)
+
+    def local(ql, kl, vl):
+        h_loc = ql.shape[2]
+        if h_loc < h:
+            kl, vl = _kv_for_heads(kl, vl, h0 * h_loc, h_loc, h // n_kv)
+        return fn(ql, kl, vl)
+
+    bshd, batch = (0, 1, 2, 3), (0, None, None, None)
+    return on_local_shards(local, q, (0, 2), [(q, bshd), (k, batch),
+                                              (v, batch)], [bshd])
 
 
 def attention_core(
@@ -176,16 +209,15 @@ def attention_core(
     prefix_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Dispatch: kernels > chunked (long S) > full. DTensors (a sharded
-    forward) take the plain paths on each rank's batch shard: the kernels
-    refuse them, and attention needs every head of a batch row, so the
-    heads are gathered and the batch stays sharded."""
+    forward) take the plain paths on each rank's local q heads and batch
+    rows (``_per_head_shard``): the kernels refuse them."""
     sq, sk = q.shape[1], k.shape[1]
     if cfg.use_kernels and sq > 1 and prefix_len is None:
         from repro_torch.kernels import ops  # deferred: kernels are optional
 
         return ops.flash_attention(q, k, v, causal=causal)
     if isinstance(q, DTensor):
-        return _per_batch_shard(
+        return _per_head_shard(
             lambda q_, k_, v_: attention_core(
                 cfg, q_, k_, v_, causal=causal, q_offset=q_offset,
                 kv_len=kv_len, prefix_len=prefix_len), q, k, v)
@@ -205,15 +237,52 @@ def attention_core(
 # Full layer-level wrappers (projections + rope + cache handling)
 # ---------------------------------------------------------------------------
 
+def _heads_gathered(y: DTensor, h: int) -> DTensor:
+    """``y`` [B, S, H*Dh] with its flat heads dim gathered over each mesh dim
+    that shards it but does not divide the ``h`` heads (DTensor cannot
+    unflatten such a dim)."""
+    mesh = y.device_mesh
+    bad = [isinstance(pl, Shard) and pl.dim == 2 and h % mesh.size(i) != 0
+           for i, pl in enumerate(y.placements)]
+    if not any(bad):
+        return y
+    return y.redistribute(mesh, [Replicate() if b else pl
+                                 for b, pl in zip(bad, y.placements)])
+
+
+class _GatheredHeadsGrad(torch.autograd.Function):
+    """The identity, whose gradient gets ``_heads_gathered`` before the
+    backward of a heads flatten unflattens it."""
+
+    @staticmethod
+    def forward(ctx, y, h):
+        ctx.h = h
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_gathered(g, ctx.h), None
+
+
+def _to_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk"). On DTensors, a product with the heads
+    flattened, the flat dim gathered where it must be, then the heads
+    unflattened."""
+    if not isinstance(x, DTensor):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    d, h, hd = w.shape
+    return _heads_gathered(x @ w.reshape(d, h * hd), h).unflatten(2, (h, hd))
+
+
 def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
                  x_kv: Optional[torch.Tensor] = None):
     """q from ``x``; k and v from ``x_kv`` (cross-attention) or ``x``."""
     cd = dt(cfg.compute_dtype)
     x = shard_act(x.to(cd), "batch", None, None, kind="blockin")
     src = x if x_kv is None else x_kv.to(cd)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(cd))
+    q = _to_heads(x, p["wq"].to(cd))
+    k = _to_heads(src, p["wk"].to(cd))
+    v = _to_heads(src, p["wv"].to(cd))
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"])
         k = rms_norm_headwise(k, p["k_norm"])
@@ -225,7 +294,13 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
 
 def _output(cfg: ModelConfig, p, o: torch.Tensor) -> torch.Tensor:
     cd = dt(cfg.compute_dtype)
-    y = torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    o, wo = o.to(cd), p["wo"].to(cd)
+    if isinstance(o, DTensor):   # flattened heads, as in ``_to_heads``
+        h, hd, d = wo.shape
+        o = _GatheredHeadsGrad.apply(o.flatten(2), h)
+        y = o @ wo.reshape(h * hd, d)
+    else:
+        y = torch.einsum("bshk,hkd->bsd", o, wo)
     return shard_act(y, "batch", None, "model", kind="resid")
 
 
@@ -259,6 +334,27 @@ def cross_attention(cfg: ModelConfig, p, x: torch.Tensor,
     return _output(cfg, p, o)
 
 
+def _write_position(cache_t: torch.Tensor, pos: int, new: torch.Tensor):
+    """``cache_t[:, pos] = new`` in place. On a DTensor cache (its time axis
+    possibly sharded, as the cache rules lay it out) the rank that holds
+    position ``pos`` writes it into its local shard; ``new`` is laid out on
+    the cache's batch sharding first."""
+    if not isinstance(cache_t, DTensor):
+        cache_t[:, pos] = new.to(cache_t.dtype)
+        return
+    mesh, pl = cache_t.device_mesh, cache_t.placements
+    batch_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                     for p in pl)
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    new = new.redistribute(mesh, batch_pl).to_local()
+    local = cache_t.to_local()
+    t_loc = local.shape[1]
+    if _shard_index(mesh, pl, 1) == pos // t_loc:
+        local[:, pos % t_loc] = new.to(local.dtype)
+
+
 def decode_self_attention(
     cfg: ModelConfig,
     p,
@@ -277,8 +373,8 @@ def decode_self_attention(
         q = apply_rope(q, posb, cfg.rope_theta)
         k_new = apply_rope(k_new, posb, cfg.rope_theta)
     k, v = cache["k"], cache["v"]
-    k[:, pos] = k_new[:, 0].to(k.dtype)
-    v[:, pos] = v_new[:, 0].to(v.dtype)
+    _write_position(k, pos, k_new[:, 0])
+    _write_position(v, pos, v_new[:, 0])
     o = attention_core(cfg, q, k, v, causal=False, kv_len=pos + 1)
     return _output(cfg, p, o), {"k": k, "v": v}
 
@@ -291,7 +387,7 @@ def decode_cross_attention(
 ) -> torch.Tensor:
     """One decoder token against the cross K/V precomputed at prefill."""
     cd = dt(cfg.compute_dtype)
-    q = torch.einsum("bsd,dhk->bshk", x.to(cd), p["wq"].to(cd))
+    q = _to_heads(x.to(cd), p["wq"].to(cd))
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"])
     o = attention_core(cfg, q, cache["xk"].to(cd), cache["xv"].to(cd),

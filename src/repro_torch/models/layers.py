@@ -26,6 +26,11 @@ def dt(name: str) -> torch.dtype:
 
 
 def _normal(gen: torch.Generator, shape, scale, dtype, device) -> nn.Parameter:
+    """``scale`` times standard normals from ``gen`` (drawn in f32 on the
+    host, then cast and moved). On ``meta`` nothing is drawn: the abstract
+    state of the dry-run has shapes and dtypes only."""
+    if torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
     x = scale * torch.randn(shape, generator=gen, dtype=torch.float32)
     return nn.Parameter(x.to(device=device, dtype=dtype))
 
@@ -46,13 +51,24 @@ def init_norm(cfg: ModelConfig, dim: int, device) -> nn.ParameterDict:
     return p
 
 
+def _row_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t.mean(-1, keepdim=True)``. On a DTensor, a sum over the last dim
+    divided by its size, then replicated over the model axis: DTensor keeps
+    a sharded mean average-partial under a subtraction, and the backward
+    then meets sum-partial gradients it cannot convert to average-partial."""
+    if isinstance(t, DTensor):
+        return shard_act(t.sum(-1, keepdim=True) / t.shape[-1],
+                         "batch", None, None)
+    return t.mean(-1, keepdim=True)
+
+
 def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     # Keep the f32 widening sharded like the residual stream.
     xf = shard_act(xf, "batch", None, "model", kind="resid")
     if cfg.norm == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        mu = _row_mean(xf)
+        var = _row_mean((xf - mu) ** 2)
         y = (xf - mu) * torch.rsqrt(var + 1e-5)
         y = y * p["scale"].float() + p["bias"].float()
     else:  # rmsnorm
@@ -162,7 +178,7 @@ def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     installed (``sharding.use_sharding_rules``) that divides the sequence,
     a gated MLP on DTensors takes the Relic ring (``mlp_ring``: fused
     all-gather of gate+up, reduce-scatter of down, each transfer overlapping
-    the previous chunk's matmul; forward only). ``bf16_reduce`` changes
+    the previous chunk's matmul; its backward runs the dual rings). ``bf16_reduce`` changes
     nothing here since torch's bf16 matmul already returns bf16."""
     cd = dt(cfg.compute_dtype)
     x = x.to(cd)

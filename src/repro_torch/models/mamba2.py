@@ -22,7 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, dt
-from repro_torch.sharding import shard_act
+from repro_torch.sharding import on_local_shards, shard_act
 
 
 def _dims(cfg: ModelConfig):
@@ -163,7 +163,12 @@ def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     else:
         state0 = torch.zeros((x.shape[0], n_heads, s.head_dim, s.state_dim),
                              device=x.device)
-        y, _ = ssd_chunked(x_dt, a, bi, ci, state0, s.chunk)
+        y, _ = on_local_shards(   # independent per (batch row, head)
+            lambda *args: ssd_chunked(*args, s.chunk), x_dt, (0, 2),
+            [(x_dt, (0, None, 2, None)), (a, (0, None, 2)),
+             (bi, (0, None, None)), (ci, (0, None, None)),
+             (state0, (0, 2, None, None))],
+            [(0, None, 2, None), (0, 2, None, None)])
     y = y + p["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(*x.shape[:-1], d_inner).to(cd)
     y = _rms(y * F.silu(z), p["norm_scale"])

@@ -28,15 +28,16 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import _act, _normal, dt, init_mlp, mlp
-from repro_torch.sharding import shard_act
+from repro_torch.sharding import on_local_shards, shard_act
 
 
 def _normal_stack(gen: torch.Generator, shape, scale, dtype, device) -> nn.Parameter:
     """``_normal`` drawn one leading slice at a time straight into the
     parameter on ``device``: the host holds one expert's f32 draw, never the
-    whole stack (arctic's [128, 7168, 4864] would be 17.8 GB in f32)."""
+    whole stack (arctic's [128, 7168, 4864] would be 17.8 GB in f32). On
+    ``meta`` nothing is drawn."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    for i in range(shape[0]):
+    for i in range(0 if out.is_meta else shape[0]):
         x = scale * torch.randn(shape[1:], generator=gen, dtype=torch.float32)
         out[i].copy_(x.to(dtype))
     return nn.Parameter(out)
@@ -95,6 +96,46 @@ def route(mc: MoEConfig, logits: torch.Tensor, capacity: int):
     return expert_idx, probs, slot, keep, aux
 
 
+def _dispatch_table(flat_e: torch.Tensor, flat_slot: torch.Tensor, s: int,
+                    k: int, e: int, cap: int) -> torch.Tensor:
+    """[B, E*C] token indices of each expert's buffer from each (token,
+    choice)'s expert and slot ([B, S*K]). Dropped (overflow) choices all
+    write column ``cap``, which is sliced off (which of them lands there is
+    arbitrary on CUDA and never read). Empty slots hold token 0: their
+    expert rows are computed and never combined, as in the reference."""
+    b = flat_e.shape[0]
+    token_of_choice = torch.arange(s, device=flat_e.device).repeat_interleave(k)
+    rows = torch.arange(b, device=flat_e.device)[:, None].expand(b, s * k)
+    table = torch.zeros((b, e, cap + 1), dtype=torch.long, device=flat_e.device)
+    table.index_put_((rows, flat_e, flat_slot),
+                     token_of_choice.expand(b, s * k))
+    return table[:, :, :cap].reshape(b, e * cap)
+
+
+def _experts(act: str, xc, w_gate, w_up, w_down) -> torch.Tensor:
+    """act(x @ Wg) * (x @ Wu) @ Wd per expert: xc [B,E,C,D] -> [B,E,C,D]."""
+    up = torch.einsum("becd,edf->becf", xc, w_up)
+    gate = _act(act, torch.einsum("becd,edf->becf", xc, w_gate))
+    return torch.einsum("becf,efd->becd", gate * up, w_down)
+
+
+def _combine(y_e, expert_idx, slot, keep, probs, cap: int) -> torch.Tensor:
+    """Each token's kept choices gathered back from the expert buffers
+    y_e [B,E,C,D], weighted by their gates, in f32: [B,S,D]; the weights
+    are normalized over the kept top-k (the llama4/arctic convention)."""
+    b, e, _, d = y_e.shape
+    s, k = expert_idx.shape[1], expert_idx.shape[2]
+    y = torch.zeros((b, s, d), dtype=torch.float32, device=y_e.device)
+    flat_ec = expert_idx * cap + torch.clamp(slot, max=cap - 1)  # [B,S,K]
+    y_flat = y_e.reshape(b, e * cap, d)
+    for j in range(k):
+        gj = torch.gather(y_flat, 1, flat_ec[:, :, j, None].expand(b, s, d))
+        wj = (probs[:, :, j] * keep[:, :, j]).float()
+        y = y + wj[..., None] * gj.float()
+    denom = (probs * keep).sum(-1, keepdim=True)
+    return y / torch.clamp(denom, min=1e-9)
+
+
 def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,D] -> (y [B,S,D], aux_loss)."""
     mc = cfg.moe
@@ -107,40 +148,30 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     expert_idx, probs, slot, keep, aux = route(mc, logits, cap)
 
     # ----- dispatch: a [B,E,C] token-index table, then one gather ----------
-    # Dropped (overflow) choices all write column ``cap``, which is sliced
-    # off (which of them lands there is arbitrary on CUDA and never read).
-    # Empty slots hold token 0: their expert rows are computed and never
-    # combined, as in the reference.
     flat_e = expert_idx.reshape(b, s * k)
     flat_slot = torch.where(keep, slot, cap).reshape(b, s * k)
-    token_of_choice = torch.arange(s, device=x.device).repeat_interleave(k)
-    rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    table = torch.zeros((b, e, cap + 1), dtype=torch.long, device=x.device)
-    table.index_put_((rows, flat_e, flat_slot),
-                     token_of_choice.expand(b, s * k))
-    idx = table[:, :, :cap].reshape(b, e * cap)                  # [B,E*C]
+    # [B,E*C], built per batch row (on a mesh, each rank its own rows')
+    idx = on_local_shards(
+        lambda fe, fs: _dispatch_table(fe, fs, s, k, e, cap), flat_e, (0,),
+        [(flat_e, (0, 1)), (flat_slot, (0, 1))], [(0, 1)])
     x_e = torch.gather(x, 1, idx[..., None].expand(b, e * cap, d))
     x_e = shard_act(x_e.reshape(b, e, cap, d), "batch", "model", None, None)
     xc = x_e.to(cd)
 
     # ----- expert FFNs (batched over E) -------------------------------------
-    up = torch.einsum("becd,edf->becf", xc, p["w_up"].to(cd))
-    gate = _act(cfg.act, torch.einsum("becd,edf->becf", xc, p["w_gate"].to(cd)))
-    y_e = torch.einsum("becf,efd->becd", gate * up, p["w_down"].to(cd))
+    w = [p[n].to(cd) for n in ("w_gate", "w_up", "w_down")]
+    y_e = on_local_shards(   # independent per (batch row, expert)
+        lambda *a: _experts(cfg.act, *a), xc, (0, 1),
+        [(xc, (0, 1, None, None))] + [(t, (1, None, None)) for t in w],
+        [(0, 1, None, None)])
     y_e = shard_act(y_e, "batch", "model", None, None)
 
     # ----- combine: K gathers back to token order ---------------------------
-    y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
-    flat_ec = expert_idx * cap + torch.clamp(slot, max=cap - 1)  # [B,S,K]
-    y_flat = y_e.reshape(b, e * cap, d)
-    for j in range(k):
-        gj = torch.gather(y_flat, 1, flat_ec[:, :, j, None].expand(b, s, d))
-        wj = (probs[:, :, j] * keep[:, :, j]).float()
-        y = y + wj[..., None] * gj.float()
-
-    # normalize combined top-k weights (llama4/arctic convention)
-    denom = (probs * keep).sum(-1, keepdim=True)
-    y = (y / torch.clamp(denom, min=1e-9)).to(x.dtype)
+    y = on_local_shards(   # per batch row, over every expert
+        lambda *a: _combine(*a, cap), y_e, (0,),
+        [(y_e, (0, None, None, None))]
+        + [(t, (0, None, None)) for t in (expert_idx, slot, keep, probs)],
+        [(0, None, None)]).to(x.dtype)
     if "shared" in p:
         y = y + mlp(cfg, p["shared"], x)
     y = shard_act(y, "batch", None, "model", kind="resid")

@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, dt
-from repro_torch.sharding import shard_act
+from repro_torch.sharding import on_local_shards, shard_act
 
 LORA_RANK = 64
 
@@ -168,7 +168,12 @@ def rwkv_time_mix(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     else:
         state0 = torch.zeros((x.shape[0], h, cfg.ssm.head_dim,
                               cfg.ssm.head_dim), device=x.device)
-        out, _ = wkv6_chunked(r, k, v, logw, u, state0, cfg.ssm.chunk)
+        bthk = (0, None, 2, None)
+        out, _ = on_local_shards(   # independent per (batch row, head)
+            lambda *a: wkv6_chunked(*a, cfg.ssm.chunk), r, (0, 2),
+            [(t, bthk) for t in (r, k, v, logw)]
+            + [(u, (2, None)), (state0, (0, 2, None, None))],
+            [bthk, (0, 2, None, None)])
     out = _group_norm(out, p["ln_scale"]).to(cd) * g
     y = out @ p["w_o"].to(cd)
     return shard_act(y, "batch", None, "model", kind="resid")
@@ -181,8 +186,12 @@ def rwkv_time_mix_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: dict):
     prev = cache["shift_state"][:, None, :].to(x.dtype)
     r, k, v, g, logw = _project_streams(cfg, p, x, prev)
     u = p["u"].float().reshape(h, cfg.ssm.head_dim)
-    out, state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u,
-                           cache["wkv_state"].float())
+    bhk = (0, 1, None)
+    out, state = on_local_shards(   # independent per (batch row, head)
+        wkv6_step, r[:, 0], (0, 1),
+        [(t[:, 0], bhk) for t in (r, k, v, logw)]
+        + [(u, (1, None)), (cache["wkv_state"].float(), (0, 1, None, None))],
+        [bhk, (0, 1, None, None)])
     out = _group_norm(out[:, None], p["ln_scale"]).to(cd) * g
     y = out @ p["w_o"].to(cd)
     return y, {"shift_state": x[:, 0], "wkv_state": state}

@@ -211,7 +211,16 @@ def shard_act(x: torch.Tensor, *logical: Optional[str],
     spec = act_spec(mesh, x.shape, *logical, kind=kind)
     if spec is None:
         return x
-    return x.redistribute(mesh, placements(mesh, spec))
+    y = x.redistribute(mesh, placements(mesh, spec))
+    local = y.to_local()
+    if local.is_contiguous():
+        return y
+    # A redistribution over a dim that a mesh dim does not divide can leave
+    # the local shard a view into a padded buffer; DTensor then plans views
+    # from the global strides that the local tensor cannot take.
+    return DTensor.from_local(local.contiguous(), mesh, y.placements,
+                              run_check=False, shape=y.shape,
+                              stride=y.stride())
 
 
 def embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
@@ -248,6 +257,57 @@ def embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
     shape = torch.Size((*tokens.shape, table.shape[1]))
     return DTensor.from_local(y, mesh, out_pl, run_check=False, shape=shape,
                               stride=contiguous_stride(shape))
+
+
+def on_local_shards(fn, like: torch.Tensor, keep, inputs, outputs):
+    """``fn`` of the ``inputs``' tensors, run on local tensors where ``like``
+    is a DTensor (else on the tensors as they are), for work that is
+    independent along some dims (batch rows, heads): the dims ``keep`` of
+    ``like`` stay sharded over
+    the mesh dims that shard them now, every other mesh dim is replicated.
+    Each of ``inputs`` is ``(tensor, dims)``, where ``dims[i]`` names the
+    dim of ``like`` that the tensor's dim ``i`` follows (None: no sharding);
+    ``outputs`` gives such ``dims`` for each result, which comes back as a
+    DTensor (one result, or a tuple). A plain input is taken as the full
+    value, the same on every rank. Differentiable. DTensor's own rules fail
+    on some of these ops (an in-place scatter into a new tensor) or take
+    minutes to propagate (a batched product over a dim two mesh dims
+    shard)."""
+    if not isinstance(like, DTensor):
+        return fn(*[t for t, _ in inputs])
+    mesh = like.device_mesh
+
+    def layout(dims, grad=False):
+        # an input that does not follow a kept dim is read by every shard
+        # of it: its gradient is a partial sum over those mesh dims
+        out = []
+        for p in like.placements:
+            split = isinstance(p, Shard) and p.dim in keep
+            out.append(Shard(dims.index(p.dim)) if split and p.dim in dims
+                       else Partial() if split and grad else Replicate())
+        return tuple(out)
+
+    local = []
+    for t, dims in inputs:
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        local.append(t.redistribute(mesh, layout(tuple(dims))).to_local(
+            grad_placements=layout(tuple(dims), grad=True)))
+    res = fn(*local)
+    single = not isinstance(res, tuple)
+    out = []
+    for r, dims in zip((res,) if single else res, outputs):
+        r = r.contiguous()   # from_local is told contiguous strides
+        pl = layout(tuple(dims))
+        shape = list(r.shape)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard):
+                shape[p.dim] *= mesh.size(i)
+        out.append(DTensor.from_local(r, mesh, pl, run_check=False,
+                                      shape=torch.Size(shape),
+                                      stride=contiguous_stride(shape)))
+    return out[0] if single else tuple(out)
 
 
 def all_gather_rows(out: torch.Tensor, x: torch.Tensor, group=None) -> None:
@@ -415,18 +475,42 @@ def _full(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def batch_spec(mesh, ndim: int, batch_dim: int = 0) -> Tuple[Placement, ...]:
-    """Placements of a batch array: ``batch_dim`` over ("pod", "data")."""
+def distribute_cache(cache: dict, mesh, prefix: str = "") -> dict:
+    """A decode cache (``Model.init_cache``: the reference's tree, stacked
+    over layers) with every tensor a DTensor placed by the cache rules of
+    its '/'-joined path; every rank holds the same cache, so each takes its
+    own shard with no communication."""
+    out = {}
+    for k, v in cache.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out[k] = (distribute_cache(v, mesh, path) if isinstance(v, dict)
+                  else distribute_tensor(v, mesh, placements(mesh, fit_spec(
+                      mesh, param_entries(path, v.ndim), v.shape)),
+                      src_data_rank=None))
+    return out
+
+
+def batch_axes(mesh, b: int):
+    """The reference dry-run's ``_batch_axes``: ("pod", "data") where their
+    product divides ``b``, else "data" alone where it does, else None."""
     names = _axis_names(mesh)
-    batch_axes = tuple(n for n in ("pod", "data") if n in names) or None
-    entries: list = [None] * ndim
-    entries[batch_dim] = batch_axes
-    return placements(mesh, entries)
+    axes = tuple(n for n in ("pod", "data") if n in names)
+    if axes and b % _axis_prod(mesh, axes) == 0:
+        return axes
+    if "data" in names and b % _axis_prod(mesh, "data") == 0:
+        return ("data",)
+    return None
 
 
 def shard_batch(batch: dict, mesh) -> dict:
-    """A global batch (the same on every rank) as DTensors sharded over the
-    batch axes by ``batch_spec``; DTensors pass through."""
+    """A global batch (the same on every rank) as DTensors, dim 0 sharded
+    over ``batch_axes`` (the reference dry-run's ``batch_shardings``: a
+    batch that no batch axis divides stays replicated); DTensors pass
+    through."""
+    def spec(v):
+        return placements(mesh, [batch_axes(mesh, v.shape[0])]
+                          + [None] * (v.ndim - 1))
+
     return {k: v if isinstance(v, DTensor) else distribute_tensor(
-                v, mesh, batch_spec(mesh, v.ndim), src_data_rank=None)
+                v, mesh, spec(v), src_data_rank=None)
             for k, v in batch.items()}

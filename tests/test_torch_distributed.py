@@ -53,6 +53,11 @@ def _inputs() -> dict:
         "g_wu": (rng.normal(size=(32, 48)) * 0.2).astype(f),
         "m_x": rng.normal(size=(2, 16, 32)).astype(f),
         "m_wd": (rng.normal(size=(48, 32)) * 0.2).astype(f),
+        # cotangents of the rings' outputs (their gradients)
+        "ct_y": rng.normal(size=(64, 48)).astype(f),
+        "ct_z": rng.normal(size=(64, 32)).astype(f),
+        "ct_g": rng.normal(size=(64, 48)).astype(f),
+        "ct_m": rng.normal(size=(2, 16, 32)).astype(f),
         # compressed_psum (test_compressed_psum_close_to_exact)
         "c_x": rng.normal(size=(8, 1024)).astype(f),
         # GPipe (test_pipeline_parallel_matches_sequential)
@@ -101,6 +106,30 @@ for act in ("silu", "gelu"):
                            P(None, "model")),
         out_specs=P(None, "model"))(gx, wg, wu)
 out["mlp_ring"] = mlp_ring("silu", mx, wg, wu, wd, m8)
+
+# gradients of <output, cotangent> through each ring (jax.grad transposes
+# the ppermutes)
+ct_y, ct_z, ct_g, ct_m = (jnp.asarray(inp[k])
+                          for k in ("ct_y", "ct_z", "ct_g", "ct_m"))
+for k, g in zip(("x", "w1"), jax.grad(lambda a, b: jnp.sum(
+        tp_allgather_matmul(a, b, m8) * ct_y), (0, 1))(x, w1)):
+    out["grad_tp_ag/" + k] = g
+for k, g in zip(("y", "w2"), jax.grad(lambda a, b: jnp.sum(
+        tp_matmul_reducescatter(a, b, m8) * ct_z), (0, 1))(y, w2)):
+    out["grad_tp_rs/" + k] = g
+for act in ("silu", "gelu"):
+    ring = shard_map(
+        lambda a, b, c, act=act: allgather_matmul_gated(a, b, c, "model",
+                                                        act=act),
+        mesh=m8, in_specs=(P("model", None), P(None, "model"),
+                           P(None, "model")), out_specs=P(None, "model"))
+    for k, g in zip(("x", "wg", "wu"), jax.grad(lambda a, b, c: jnp.sum(
+            ring(a, b, c) * ct_g), (0, 1, 2))(gx, wg, wu)):
+        out[f"grad_gated_{act}/" + k] = g
+for k, g in zip(("x", "wg", "wu", "wd"), jax.grad(lambda a, b, c, d: jnp.sum(
+        mlp_ring("silu", a, b, c, d, m8) * ct_m), (0, 1, 2, 3))(
+            mx, wg, wu, wd)):
+    out["grad_mlp_ring/" + k] = g
 
 pod = make_mesh((8,), ("pod",))
 out["cpsum"] = shard_map(lambda v: compressed_psum(v, "pod"), mesh=pod,
@@ -174,7 +203,7 @@ def ref(work):
 # The 8-rank job
 # ---------------------------------------------------------------------------
 
-def _granite_step(mesh, compute_dtype, batch, **oc_kw):
+def _granite_step(mesh, compute_dtype, batch, cfg_kw=None, **oc_kw):
     """(plain state, metrics, distributed state, metrics) after one train
     step of granite SMOKE, plain on this rank and distributed on ``mesh``,
     from the same state."""
@@ -185,7 +214,7 @@ def _granite_step(mesh, compute_dtype, batch, **oc_kw):
     from repro_torch.optim import OptConfig
 
     cfg = get_config("granite_8b", smoke=True).replace(
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, **(cfg_kw or {}))
     model = build_model(cfg, "cpu")
     oc = OptConfig(warmup_steps=1, total_steps=10, **oc_kw)
     state = make_train_state(model, torch.Generator().manual_seed(0), oc)
@@ -233,14 +262,34 @@ def _job8(work: str):
         out["mlp_ring"] = cm.mlp_ring(
             "silu", inp["m_x"], inp["g_wg"], inp["g_wu"], inp["m_wd"],
             m8).full_tensor()
-        # the ring refuses to run where autograd would record it
-        w = inp["w1"].clone().requires_grad_(True)
-        with torch.enable_grad():
-            try:
-                cm.tp_allgather_matmul(inp["x"], w, m8)
-                out["ring_grad_refused"] = np.array(False)
-            except RuntimeError:
-                out["ring_grad_refused"] = np.array(True)
+
+    # gradients of <output, cotangent> through each ring: leaves on every
+    # rank, the rings' backward running the dual rings
+    def leaves(*names):
+        return [inp[n].clone().requires_grad_(True) for n in names]
+
+    a, b = leaves("x", "w1")
+    (cm.tp_allgather_matmul(a, b, m8).full_tensor() * inp["ct_y"]).sum().backward()
+    out["grad_tp_ag/x"], out["grad_tp_ag/w1"] = a.grad, b.grad
+    a = (inp["x"] @ inp["w1"]).requires_grad_(True)
+    (b,) = leaves("w2")
+    (cm.tp_matmul_reducescatter(a, b, m8).full_tensor()
+     * inp["ct_z"]).sum().backward()
+    out["grad_tp_rs/y"], out["grad_tp_rs/w2"] = a.grad, b.grad
+    for act in ("silu", "gelu"):
+        a, b, c = leaves("g_x", "g_wg", "g_wu")
+        local = cm.allgather_matmul_gated(a[rows], b[:, cols], c[:, cols],
+                                          group, act=act)
+        (local * inp["ct_g"][:, cols]).sum().backward()
+        for k, t in zip(("x", "wg", "wu"), (a, b, c)):
+            g = t.grad.clone()   # this rank's rows or columns; sum them
+            dist.all_reduce(g, group=group)
+            out[f"grad_gated_{act}/" + k] = g
+    a, b, c, d = leaves("m_x", "g_wg", "g_wu", "m_wd")
+    (cm.mlp_ring("silu", a, b, c, d, m8).full_tensor()
+     * inp["ct_m"]).sum().backward()
+    for k, t in zip(("x", "wg", "wu", "wd"), (a, b, c, d)):
+        out["grad_mlp_ring/" + k] = t.grad
 
     pod = make_mesh((8,), ("pod",), "cpu")
     out["cpsum"] = compressed_psum(inp["c_x"][rank], pod.get_group("pod"))
@@ -281,6 +330,37 @@ def _job8(work: str):
     for name, p in plain["params"].named_parameters():
         out["p1/" + name] = p.detach()
         out["p2/" + name] = full["params"].get_parameter(name).detach()
+    # the Relic-ring MLP trains on the mesh: the step with mlp_tp_overlap
+    # against the same sharded step without it
+    _, _, rstate, r2 = _granite_step(mesh_a, "float32", batch,
+                                     cfg_kw={"mlp_tp_overlap": True})
+    out["ring_step_loss"] = r2["loss"]
+    rfull = shd.full_state(rstate)
+    out["ring_step_param_err"] = max(
+        float((p - rfull["params"].get_parameter(n)).abs().max())
+        for n, p in full["params"].named_parameters())
+    # each rank's attention runs its own heads: q's local head count
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import attention as attn_mod
+    heads, full_fn = set(), attn_mod.attention_full
+
+    def recording(q, *a, **kw):
+        heads.add(q.shape[2])
+        return full_fn(q, *a, **kw)
+
+    hcfg = get_config("granite_8b", smoke=True)
+    hmodel = build_model(hcfg, "cpu")
+    hparams = shd.distribute_params(
+        hmodel.init(torch.Generator().manual_seed(0)), mesh_a)
+    attn_mod.attention_full = recording
+    try:
+        with torch.no_grad(), shd.use_sharding_rules(mesh_a), \
+                implicit_replication():
+            hmodel.loss(hparams, shd.shard_batch(batch, mesh_a))
+    finally:
+        attn_mod.attention_full = full_fn
+    out["local_heads"] = np.array(sorted(heads))
+    out["n_heads"] = hcfg.n_heads
     # placements follow the rules on the 2D mesh
     table = dstate["params"].get_parameter("embed.table")
     out["table_placements"] = np.array(str(table.placements))
@@ -395,8 +475,13 @@ def test_mlp_ring_matches_plain_and_reference(port8, ref):
     assert _err(port8["mlp_ring"], ref["mlp_ring"]) < 1e-4
 
 
-def test_ring_refuses_autograd(port8):
-    assert bool(port8["ring_grad_refused"])
+@pytest.mark.parametrize("ring", ["tp_ag", "tp_rs", "gated_silu",
+                                  "gated_gelu", "mlp_ring"])
+def test_ring_gradients_match_reference(port8, ref, ring):
+    keys = [k for k in ref if k.startswith(f"grad_{ring}/")]
+    assert keys
+    for k in keys:
+        assert _err(port8[k], ref[k]) < 1e-4, k
 
 
 def test_compressed_psum_close_to_exact_and_reference(port8, ref):
@@ -425,6 +510,17 @@ def test_granite_2d_train_step_matches_single_device(port8):
     for n in names:
         assert _err(port8["p1/" + n], port8["p2/" + n]) < 1e-5, n
     assert port8["table_placements"] == "(Shard(dim=1), Shard(dim=0))"
+
+
+def test_attention_runs_each_ranks_heads(port8):
+    # granite SMOKE's 4 heads over model = 2: two heads a rank, not all four
+    assert list(port8["local_heads"]) == [int(port8["n_heads"]) // 2]
+
+
+def test_mlp_ring_train_step_matches_plain_sharded_step(port8):
+    assert abs(float(port8["ring_step_loss"])
+               - float(port8["loss2_float32"])) < 1e-5
+    assert float(port8["ring_step_param_err"]) < 1e-5
 
 
 def test_compressed_train_step_on_the_mesh(port8):

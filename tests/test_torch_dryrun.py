@@ -1,0 +1,331 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) held against the JAX
+package's (``repro.launch.dryrun``) on the same cells.
+
+The JAX side runs once, in one subprocess with 8 fake host devices, and
+writes what it computes to disk: ``count_params`` and ``model_flops`` for
+every arch and shape, ``input_specs``, ``parse_collectives`` of synthetic
+HLO lines, and the reference test's cell (``tests/test_distributed.py::
+test_dryrun_single_cell_on_8_devices``: granite_8b SMOKE on ``(4, 2)``,
+train_4k cut to seq 128 and batch 8) lowered and compiled. The port's side
+runs here, over a fake process group that each test destroys, and in one
+job of 8 gloo ranks for the mesh serve step's tokens.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch.mesh import make_production_mesh, spawn
+from repro_torch.models import build_model
+
+SRC = str(Path(__file__).resolve().parent.parent / "src")
+JOB_TIMEOUT_S = 300
+DTYPE_BYTES = {"bf16": 2, "f32": 4, "s32": 4}
+CELL = dataclasses.replace(SHAPES["train_4k"], seq_len=128, global_batch=8)
+
+
+def _hlo_lines():
+    """(line, kind, result bytes, group) for each collective kind, in each
+    form of replica groups the reference parses ([n,g]<=[...], an explicit
+    list, none), as ``-start`` ops too."""
+    out = []
+    forms = [(", replica_groups=[2,4]<=[8]", 4),
+             (", replica_groups={{0,1},{2,3},{4,5},{6,7}}", 2), ("", 2)]
+    kinds = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+             "collective-permute")
+    for i, kind in enumerate(kinds):
+        for j, (groups, g) in enumerate(forms):
+            dtype, dims = ("bf16", (8, 1024)) if j % 2 else ("f32", (4, 96, 3))
+            start = "-start" if i % 2 == j % 2 else ""
+            shp = ",".join(map(str, dims))
+            line = (f"  %c{i}{j} = {dtype}[{shp}]{{1,0}} {kind}{start}("
+                    f"{dtype}[{shp}]{{1,0}} %p){groups}, "
+                    f"metadata={{op_name=\"x\"}}")
+            out.append((line, kind, DTYPE_BYTES[dtype] * int(np.prod(dims)),
+                        g))
+    return out
+
+
+REF = """
+import dataclasses, json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+from repro.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
+from repro.launch import dryrun as dr
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+from repro.compat import cost_analysis
+from repro.launch.mesh import make_mesh
+from repro.models import build_model
+
+out_dir = sys.argv[1]
+lines = json.load(open(os.path.join(out_dir, "lines.json")))
+out = {"params": {}, "flops": {}, "specs": {}, "colls": []}
+for arch in ARCH_IDS:
+    cfg = get_config(arch)
+    out["params"][arch] = [dr.count_params(cfg),
+                           dr.count_params(cfg, active_only=True)]
+    model = build_model(cfg)
+    for name, shape in SHAPES.items():
+        if not shape_applicable(cfg, shape)[0]:
+            continue
+        out["flops"][f"{arch}/{name}"] = dr.model_flops(cfg, shape)
+        batch, cache_len = model.input_specs(shape)
+        out["specs"][f"{arch}/{name}"] = [
+            {k: [list(v.shape), str(v.dtype)] for k, v in batch.items()},
+            cache_len]
+for line in lines:
+    out["colls"].append(dr.parse_collectives(line))
+
+cfg = get_config("granite_8b", smoke=True).replace(scan_layers=True)
+mesh = make_mesh((4, 2), ("data", "model"))
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=128, global_batch=8)
+_, compiled, _ = dr.lower_cell(cfg, shape, mesh)
+out["cell"] = {
+    "argument_bytes": int(compiled.memory_analysis().argument_size_in_bytes),
+    "flops": float(cost_analysis(compiled).get("flops", 0.0)),
+    "collective_bytes": dr.parse_collectives(compiled.as_text())["total"],
+}
+json.dump(out, open(os.path.join(out_dir, "ref.json"), "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def work(tmp_path_factory):
+    """The synthetic lines on disk, and the JAX reference started at once
+    (``ref`` waits for it)."""
+    d = tmp_path_factory.mktemp("dryrun")
+    (d / "lines.json").write_text(json.dumps([x[0] for x in _hlo_lines()]))
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.Popen([sys.executable, "-c", textwrap.dedent(REF),
+                             str(d)], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        yield d, proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def ref(work):
+    d, proc = work
+    try:
+        out, err = proc.communicate(timeout=JOB_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    assert proc.returncode == 0, f"stdout:\n{out}\nstderr:\n{err}"
+    return json.loads((d / "ref.json").read_text())
+
+
+@pytest.fixture()
+def fake8():
+    """A fake group of 8 ranks and the reference test's (4, 2) mesh; the
+    group is destroyed after the test (test files share a worker)."""
+    with dr.fake_group(8):
+        yield dist.device_mesh.init_device_mesh(
+            "cpu", (4, 2), mesh_dim_names=("data", "model"))
+
+
+# ---------------------------------------------------------------------------
+# Pure arithmetic: parameters, model FLOPs, input specs, wire bytes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_count_params_and_model_flops_match_reference(ref, arch):
+    cfg = get_config(arch)
+    assert [dr.count_params(cfg), dr.count_params(cfg, active_only=True)] \
+        == ref["params"][arch]
+    for name, shape in SHAPES.items():
+        if shape_applicable(cfg, shape)[0]:
+            assert dr.model_flops(cfg, shape) == ref["flops"][f"{arch}/{name}"]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_input_specs_match_reference(ref, arch):
+    cfg = get_config(arch)
+    model = build_model(cfg, "meta")
+    for name, shape in SHAPES.items():
+        if not shape_applicable(cfg, shape)[0]:
+            continue
+        batch, cache_len = model.input_specs(shape)
+        want, want_len = ref["specs"][f"{arch}/{name}"]
+        assert cache_len == want_len
+        assert {k: [list(v.shape), str(v.dtype).replace("torch.", "")]
+                for k, v in batch.items()} == want, (arch, name)
+        assert all(v.is_meta for v in batch.values())
+
+
+def test_wire_bytes_match_parse_collectives(ref):
+    for (line, kind, size, group), parsed in zip(_hlo_lines(), ref["colls"]):
+        assert parsed["counts"][kind] == 1, line
+        assert dr.wire_bytes(kind, size, group) == parsed[kind], line
+        assert parsed["total"] == parsed[kind], line
+
+
+# ---------------------------------------------------------------------------
+# The production mesh and the reference test's cell
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_over_the_fake_group(multi_pod):
+    shape, axes = ((2, 16, 16), ("pod", "data", "model")) if multi_pod \
+        else ((16, 16), ("data", "model"))
+    with pytest.raises(RuntimeError):       # no group
+        make_production_mesh(multi_pod=multi_pod, device="cpu")
+    with dr.fake_group(int(np.prod(shape))):
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        assert tuple(mesh.shape) == shape and mesh.mesh_dim_names == axes
+    with dr.fake_group(128), pytest.raises(RuntimeError):
+        make_production_mesh(multi_pod=multi_pod, device="cpu")
+    assert not dist.is_initialized()
+
+
+def test_reference_cell_bytes_flops_and_collectives(ref, fake8):
+    cfg = get_config("granite_8b", smoke=True)
+    rec = dr.analyze_cell(cfg, CELL, fake8)
+    mem, dev = rec["memory"], rec["per_device"]
+    assert mem["argument_bytes"] > 0 and dev["hlo_flops"] > 0
+    assert dev["collective_wire_bytes"] > 0
+    assert mem["peak_bytes_est"] >= mem["argument_bytes"]
+    # The reference's arguments hold its int32 step; the port's step is a
+    # Python int, outside any tensor.
+    step_bytes = 4
+    assert mem["argument_bytes"] + step_bytes \
+        == ref["cell"]["argument_bytes"]
+    # Each rank computes its share: 8 ranks' FLOPs are the one-process
+    # step's (attention per head shard, the products by their shards).
+    one = dr.analyze_cell(cfg, CELL, None)["per_device"]["hlo_flops"]
+    assert abs(8 * dev["hlo_flops"] - one) <= 0.01 * one, (dev["hlo_flops"],
+                                                           one)
+
+
+# ---------------------------------------------------------------------------
+# The steps on a mesh: 8 gloo ranks against the plain steps
+# ---------------------------------------------------------------------------
+
+DECODE_STEPS = 8
+FAMILIES = [a for a in ARCH_IDS if a != "relic_tiny"]
+
+
+def _batch(cfg, rng, b, s):
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s))),
+             "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s))),
+             "mask": torch.ones(b, s)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.normal(size=(
+            b, cfg.frontend.n_tokens, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.as_tensor(rng.normal(size=(
+            b, cfg.frontend.n_tokens, cfg.frontend.embed_dim)),
+            dtype=torch.float32)
+    return batch
+
+
+def _decode(model, params, mesh, prompt, steps, cache_len=16):
+    """Greedy tokens and logits of ``steps`` serve steps from ``prompt``'s
+    first token (the prompt forced while it lasts), plain or on ``mesh``;
+    with the mesh, also the logits' and the cache's placements."""
+    from repro_torch import sharding as shd
+    from repro_torch.launch.steps import make_serve_step
+
+    cache = model.init_cache(prompt.shape[0], cache_len)
+    if mesh is not None:
+        params = shd.distribute_params(params, mesh)
+        cache = shd.distribute_cache(cache, mesh)
+    step = make_serve_step(model, mesh)
+    tok, toks, logits, placed = prompt[:, :1], [], [], None
+    for pos in range(steps):
+        if pos < prompt.shape[1]:
+            tok = prompt[:, pos:pos + 1]
+        tok, lg, cache = step(params, cache, tok, pos)
+        if mesh is not None:
+            k = cache["layers"]["cache"].get("k")
+            placed = (str(lg.placements),
+                      None if k is None else str(k.placements))
+            tok, lg = tok.full_tensor(), lg.full_tensor()
+        toks.append(tok)
+        logits.append(lg)
+    return torch.cat(toks, 1).numpy(), torch.cat(logits, 1).numpy(), placed
+
+
+def _mesh_job():
+    """granite SMOKE served on (4, 2) against plain; then every family's
+    sharded train step and serve step against its plain steps (f32)."""
+    from repro_torch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.optim import OptConfig
+
+    mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+    rng = np.random.default_rng(0)
+    out = {}
+    cfg = get_config("granite_8b", smoke=True).replace(compute_dtype="float32")
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 4)))
+    out["granite"] = [_decode(model, params, m, prompt, DECODE_STEPS)
+                      for m in (None, mesh)]
+    oc = OptConfig(warmup_steps=1, total_steps=10)
+    for arch in FAMILIES:
+        cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+        model = build_model(cfg, "cpu")
+        batch = _batch(cfg, rng, 8, 16)
+        state = make_train_state(model, torch.Generator().manual_seed(0))
+        dstate = shd.distribute_state(state, mesh)
+        plain, m1 = make_train_step(model, oc)(state, batch)
+        sharded, m2 = make_train_step(model, oc, mesh=mesh)(dstate, batch)
+        full = shd.full_state(sharded)["params"]
+        rec = {"loss": (float(m1["loss"]), float(m2["loss"])),
+               "param_err": max(
+                   float((p.detach() - full.get_parameter(n)).abs().max())
+                   for n, p in plain["params"].named_parameters())}
+        if cfg.family != "encdec":   # its decode reads a prefilled cross cache
+            params = model.init(torch.Generator().manual_seed(0))
+            rec["tokens"] = [_decode(model, params, m, batch["tokens"], 4)[0]
+                             for m in (None, mesh)]
+        out[arch] = rec
+    return out if dist.get_rank() == 0 else None
+
+
+@pytest.fixture(scope="module")
+def mesh_job(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh_job")
+    return spawn(_mesh_job, 8, timeout_s=JOB_TIMEOUT_S, store_dir=str(d))[0]
+
+
+def test_serve_step_on_the_mesh_gives_the_plain_tokens(mesh_job):
+    (t1, l1, _), (t2, l2, placed) = mesh_job["granite"]
+    np.testing.assert_array_equal(t1, t2)
+    assert float(np.abs(l1 - l2).max()) < 1e-4
+    # the reference's decode logits [batch axes, None, "model"]; the cache
+    # rules: batch over data, time over model (layers stacked in front)
+    assert placed == ("(Shard(dim=0), Shard(dim=2))",
+                      "(Shard(dim=1), Shard(dim=2))")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_family_trains_and_serves_on_the_mesh(mesh_job, arch):
+    """Every family's step runs sharded, as the dry-run's cells need, and
+    agrees with the plain step: the loss at 1e-5, the parameters after one
+    AdamW step well inside its 3e-4 learning rate, the greedy tokens
+    exactly."""
+    rec = mesh_job[arch]
+    l1, l2 = rec["loss"]
+    assert abs(l1 - l2) < 1e-5, (l1, l2)
+    assert rec["param_err"] < 1e-4
+    if "tokens" in rec:
+        np.testing.assert_array_equal(*rec["tokens"])

@@ -144,7 +144,12 @@ def test_placements_translation():
         Shard(0), Replicate())            # 3 heads do not divide model=2
     assert shd.param_placements(m2, "final_norm.scale", (64,)) == (
         Replicate(), Replicate())
-    assert shd.batch_spec(mesh, 2) == (Shard(0), Shard(0), Replicate())
+    # a batch over ("pod", "data") where both divide it, else "data", else
+    # replicated (the reference dry-run's _batch_axes)
+    assert shd.placements(mesh, [shd.batch_axes(mesh, 16), None]) == (
+        Shard(0), Shard(0), Replicate())
+    assert shd.batch_axes(mesh, 4) == ("data",)
+    assert shd.batch_axes(mesh, 3) is None
 
 
 def test_shard_act_passes_plain_tensors():
