@@ -14,11 +14,11 @@ Phases (any failure exits non-zero):
      library call; check that ``ops.flash_attention`` and ``ops.matmul``
      launch their kernels at shapes no multiple of the TPU tiles. Flash
      attention has two designs, chosen by ``fa.wgmma_eligible``: the wgmma
-     one (bf16, head_dim 64 or 128, TMA-describable layouts) is held on
-     MHA, GQA and MQA at ragged lengths, Sq != Sk and the model layout at
-     both head sizes, and one ``ops.flash_attention`` call at [4, 2048]
-     must run exactly one device kernel and no copy; the CUDA-core kernel
-     is held on f32 and the other head dims. relic_matmul has three designs (``rm.wgmma_eligible``,
+     one (bf16, head_dim 64, 96, 128 or 256, TMA-describable layouts) is
+     held on MHA, GQA and MQA at ragged lengths, Sq != Sk and the model
+     layout at every head size, and one ``ops.flash_attention`` call at
+     [4, 2048] must run exactly one device kernel and no copy; the
+     CUDA-core kernel is held on f32 and every head size it takes. relic_matmul has three designs (``rm.wgmma_eligible``,
      ``rm.f32_tile``): the wgmma one (bf16 that TMA can describe) is held
      on the test shapes and ragged ones, and one call at 4096^3 must run
      one device kernel; ragged K goes to the mma.sync kernel; f32 to the
@@ -32,8 +32,12 @@ Phases (any failure exits non-zero):
      the tensor-core one (K = 64) at ragged T, in the model's layout (one
      device kernel, no copy), and the first one at K = 16, 32 and 6. The
      CUDA-core flash kernel is held at head_dim 48, 96, 256, 320 and 512
-     (GQA, f32 and bf16; above 256 in slabs of 128 columns) and timed
-     there; the wgmma design at head_dim 128 at granite_8b's, arctic_480b's,
+     (GQA, f32 and bf16; above 256 in slabs of 128 columns; called
+     directly, as bf16 at 96 and 256 goes to the wgmma design) and timed
+     there; the wgmma design at head_dim 96 and 256 at phi3_mini_3p8b's
+     ([8, 32, 192, 96], 32 kv heads) and paligemma_3b's ([8, 8, 192, 256],
+     one kv head) attention and at [2, 8, 1024, 96 | 256] (2 kv heads),
+     at head_dim 128 at granite_8b's, arctic_480b's,
      qwen3_14b's and llama3_405b's attention (q [8, 32 | 56 | 40 | 128,
      192, 128], 8 kv heads) and at q [4, 32, 2048, 128], each timed beside
      the CUDA-core kernel, and at whisper_large_v3's three (the encoder's
@@ -56,15 +60,19 @@ Phases (any failure exits non-zero):
   7. the other families at full width, each a main path of its own:
      granite_8b (36 layers, head_dim 128) served through ``serve.main``,
      its teacher-forced forward through 36 launches of the wgmma flash
-     design (head_dim 128) at the dense bf16 bars; whisper_large_v3 (32 + 32 layers)
+     design (head_dim 128) at the dense bf16 bars; phi3_mini_3p8b (32
+     layers, 32 heads of 96) the same way through 32 launches (head_dim
+     96); whisper_large_v3 (32 + 32 layers)
      served (frames -> encode -> cross K/V -> prefill -> decode), its
      forward over the served frames through 96 wgmma launches (encoder,
      decoder and cross-attention; held first at its own shapes in phase
      2), then its loss forward; arctic_480b at full width with its depth cut
      to one layer (the init's shapes and scales, the forward through one
      launch with its routing tables checked, decode against teacher
-     forcing drop-free); paligemma_3b served (text) and its loss forward
-     over 256 patches and 192 tokens with no launch (the prefix path);
+     forcing drop-free); paligemma_3b served (text), its loss forward
+     over 256 patches and 192 tokens with no launch (the prefix path),
+     then its text forward over the 192 tokens through 18 wgmma launches
+     (head_dim 256) at the dense bf16 bars;
   8. the quickstart path, ``repro_torch.quickstart.main`` at full width: the
      tasking façade, one train step, eight decode steps and one
      ``ops.matmul`` through the relic_matmul kernel;
@@ -208,6 +216,12 @@ WGMMA_CROSS = (2, 128, 12, 4, 64, 320)   # (b, sq, h, kv, d, sk), non-causal
 WGMMA_128_SHAPES = [(2, 200, 4, 4), (2, 200, 8, 2), (2, 200, 7, 1),
                     (1, 1000, 8, 2)]
 WGMMA_128_CROSS = (2, 128, 8, 2, 128, 320)
+# Its head_dim-96 and -256 instances: (b, s, h, kv) at MHA (phi3_mini's
+# ratio), GQA 4:1 and MQA (paligemma's) at ragged S, causal and not, and
+# Sq 128 against Sk 320 (b, sq, h, kv, sk).
+WGMMA_WIDE_SHAPES = {96: [(2, 200, 4, 4), (2, 200, 8, 2), (1, 1000, 8, 2)],
+                     256: [(2, 200, 8, 1), (2, 200, 8, 2), (1, 1000, 8, 1)]}
+WGMMA_WIDE_CROSS = (2, 128, 8, 2, 320)
 MAIN_SHAPE = (4, 2048, 12, 4, 64)  # relic_tiny's attention in the long forward
 LONG_128_SHAPE = (4, 2048, 32, 8, 128)   # granite's heads at [4, 2048]: D=128 bound by operations
 # relic_tiny's attention in the teacher-forced forward of the counted main path
@@ -226,9 +240,10 @@ REDESIGNS = {"flash_attention": (fa, "wgmma_launches"),
              "ssd": (ssd_k, "tc_launches"),
              "wkv6": (wkv6_k, "tc_launches")}
 # Head sizes the CUDA-core flash kernel takes beyond the models' 64: the
-# next instance up (48), instances of their own (96: phi3_mini; 256:
-# paligemma) and the slabs of 128 columns above 256 (320, 512); (b, s, h,
-# kv) GQA 4:1 at a ragged length, and the timed shape.
+# next instance up (48), instances of their own (96 and 256, which bf16
+# calls of the models take to the wgmma design) and the slabs of 128
+# columns above 256 (320, 512); (b, s, h, kv) GQA 4:1 at a ragged length,
+# and the timed shape (the wgmma design is timed there too at 96 and 256).
 FMA_HEAD_DIMS = (48, 96, 256, 320, 512)
 FMA_HEAD_SHAPE = (2, 200, 8, 2)
 FMA_HEAD_TIMED = (2, 1024, 8, 2)
@@ -284,10 +299,13 @@ QUICKSTART_LAUNCHES = {"relic_matmul": 1}   # its ops.matmul (quickstart.py)
 # takes no depth.
 GRANITE, WHISPER, ARCTIC, PALIGEMMA = ("granite_8b", "whisper_large_v3",
                                        "arctic_480b", "paligemma_3b")
+PHI3 = "phi3_mini_3p8b"   # full width and depth: 32 layers, 32 heads of 96
 ARCTIC_LAYERS = 1
 TEXT_LEN = PROMPT_LEN + GEN
 GRANITE_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 8, 128)   # (b, s, h, kv, d)
 ARCTIC_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 56, 8, 128)    # GQA 7:1
+PHI3_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 32, 96)      # MHA at head_dim 96
+PALIGEMMA_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 8, 1, 256)  # MQA at head_dim 256
 # The other head_dim-128 configs' attention at the same [8, 192]: held and
 # timed in the kernel phase; their families are on no path of this script.
 HEAD_DIM_128_SHAPES = [("qwen3_14b", (SERVE_BATCH, TEXT_LEN, 40, 8, 128)),
@@ -300,9 +318,10 @@ WHISPER_ATTN = [("encoder self-attention", (SERVE_BATCH, 1500, 20, 20, 64),
                 ("decoder self-attention", (SERVE_BATCH, TEXT_LEN, 20, 20, 64),
                  True, None)]
 # Flash launches of each new path's counted forward: one a layer and
-# attention (whisper: 32 encoder, 32 decoder self, 32 cross), all through
-# the wgmma design.
+# attention (whisper: 32 encoder, 32 decoder self, 32 cross; paligemma's
+# text forward, which has no image prefix), all through the wgmma design.
 GRANITE_LAUNCHES, WHISPER_LAUNCHES = 36, 96
+PHI3_LAUNCHES, PALIGEMMA_TEXT_LAUNCHES = 32, 18
 ARCTIC_DECODE = 16   # forced tokens of arctic's decode check
 OPTIM_STEPS = 5      # train steps of relic_tiny with gradient compression
 # relic_matmul: f32 rtol 2e-4 / atol 1e-2 (tests/test_kernels.py:35-37); bf16
@@ -684,11 +703,25 @@ def phase_kernel(device):
         check_kernel(fa.flash_attention_wgmma, gen, (b, sq, h, kv, d), dtype,
                      causal, device, sk=sk)
 
-    # The dispatch: bf16 D=64 and 128 go to the wgmma design, f32 and D=32
-    # and 96 do not.
-    for dt, d, n in ((torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1),
-                     (torch.float32, 64, 0), (torch.float32, 128, 0),
-                     (torch.bfloat16, 32, 0), (torch.bfloat16, 96, 0)):
+    # Its head_dim-96 and -256 instances: MHA, GQA 4:1 and MQA at ragged S,
+    # causal and not; Sq != Sk.
+    for d, shapes in WGMMA_WIDE_SHAPES.items():
+        for b, s, h, kv in shapes:
+            for causal in (True, False):
+                check_kernel(fa.flash_attention_wgmma, gen, (b, s, h, kv, d),
+                             dtype, causal, device)
+        b, sq, h, kv, sk = WGMMA_WIDE_CROSS
+        for causal in (True, False):
+            check_kernel(fa.flash_attention_wgmma, gen, (b, sq, h, kv, d),
+                         dtype, causal, device, sk=sk)
+
+    # The dispatch: bf16 at every head_dim of the wgmma design goes there;
+    # f32 and bf16 at other head sizes (32, 80) do not.
+    for dt, d, n in ((torch.bfloat16, 64, 1), (torch.bfloat16, 96, 1),
+                     (torch.bfloat16, 128, 1), (torch.bfloat16, 256, 1),
+                     (torch.float32, 64, 0), (torch.float32, 96, 0),
+                     (torch.float32, 128, 0), (torch.float32, 256, 0),
+                     (torch.bfloat16, 32, 0), (torch.bfloat16, 80, 0)):
         q, k, v = _qkv(gen, 1, 96, 4, 2, d, dt, device)
         got = _launched("wgmma_launches", n, lambda: _launched(
             "launches", 1, lambda: fa.flash_attention_cuda(q, k, v),
@@ -696,39 +729,51 @@ def phase_kernel(device):
         _hold(f"flash_attention_cuda d{d}", got,
               fa.flash_attention_plain(q, k, v), TOL[dt], TOL[dt])
 
-    # Head sizes beyond the models' 64 run the CUDA-core kernel: 48 on the
-    # next instance up (columns zero-filled on chip), 96 and 256 on their
-    # own, 320 and 512 in slabs of 128 columns.
-    head_dims = []
+    # The CUDA-core kernel at head sizes beyond the models' 64, called
+    # directly (bf16 at 96 and 256 goes to the wgmma design through
+    # flash_attention_cuda): 48 on the next instance up (columns
+    # zero-filled on chip), 96 and 256 on their own, 320 and 512 in slabs
+    # of 128 columns. At 96 and 256 the wgmma design is timed at the same
+    # shape.
+    head_dims, wide = [], []
     for d in FMA_HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 q, k, v = _qkv(gen, *FMA_HEAD_SHAPE, d, dt, device)
                 got = _launched("wgmma_launches", 0, lambda: _launched(
-                    "launches", 1, lambda: fa.flash_attention_cuda(
-                        q, k, v, causal=causal), "flash_attention_cuda"),
-                    f"flash_attention_cuda d{d}")
-                _hold(f"flash_attention_cuda q{list(q.shape)} kv{list(k.shape)} "
+                    "launches", 1, lambda: fa.flash_attention_fma(
+                        q, k, v, causal=causal), "flash_attention_fma"),
+                    f"flash_attention_fma d{d}")
+                _hold(f"flash_attention_fma q{list(q.shape)} kv{list(k.shape)} "
                       f"causal={causal} (CUDA-core kernel)", got,
                       fa.flash_attention_plain(q, k, v, causal=causal),
                       TOL[dt], TOL[dt])
-        q, k, v = _qkv(gen, *FMA_HEAD_TIMED, d, dtype, device)
+        if d in fa.WGMMA_HEAD_DIMS:
+            (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen,
+                                          (*FMA_HEAD_TIMED, d), dtype, True,
+                                          device)
+            wide.append({**time_flash(f"head_dim {d} shape", q, k, v, 20),
+                         "max_abs_err": err})
+        else:
+            q, k, v = _qkv(gen, *FMA_HEAD_TIMED, d, dtype, device)
         head_dims.append(time_fma(q, k, v))
 
     # ops.flash_attention hands the model layout [B, S, H, D] to the wgmma
-    # design as it is, at lengths no multiple of its tiles, at both head
-    # sizes.
+    # design as it is, at lengths no multiple of its tiles, at every head
+    # size, causal and not.
     for d in fa.WGMMA_HEAD_DIMS:
         for s in (96, 300):
-            q, k, v = (x.transpose(1, 2).contiguous()
-                       for x in _qkv(gen, 1, s, 4, 2, d, dtype, device))
-            got = _launched("wgmma_launches", 1, lambda: ops.flash_attention(
-                q, k, v, causal=True), f"ops.flash_attention at S={s} d{d}")
-            want = fa.flash_attention_plain(
-                q.transpose(1, 2), k.transpose(1, 2),
-                v.transpose(1, 2)).transpose(1, 2)
-            _hold(f"ops.flash_attention model layout S={s} d{d}", got, want,
-                  TOL[dtype], TOL[dtype])
+            for causal in (True, False):
+                q, k, v = (x.transpose(1, 2).contiguous()
+                           for x in _qkv(gen, 1, s, 4, 2, d, dtype, device))
+                got = _launched("wgmma_launches", 1, lambda: ops.flash_attention(
+                    q, k, v, causal=causal),
+                    f"ops.flash_attention at S={s} d{d} causal={causal}")
+                want = fa.flash_attention_plain(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal).transpose(1, 2)
+                _hold(f"ops.flash_attention model layout S={s} d{d} "
+                      f"causal={causal}", got, want, TOL[dtype], TOL[dtype])
 
     (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, TEACHER_SHAPE,
                                   dtype, True, device)
@@ -754,6 +799,14 @@ def phase_kernel(device):
                                   dtype, True, device)
     d128.append({**time_flash("long head_dim-128 shape", q, k, v, 20),
                  "max_abs_err": err})
+    # phi3_mini's MHA at head_dim 96 and paligemma's MQA at head_dim 256
+    # (the design's third and fourth instances), held and timed before
+    # their paths rely on them.
+    for path, shape in ((PHI3, PHI3_ATTN_SHAPE), (PALIGEMMA, PALIGEMMA_ATTN_SHAPE)):
+        (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
+                                      dtype, True, device)
+        wide.append({**time_flash(f"{path} attention", q, k, v, 20),
+                     "max_abs_err": err, "path": path})
     whisper = []
     for label, shape, causal, sk in WHISPER_ATTN:
         (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
@@ -780,14 +833,16 @@ def phase_kernel(device):
                        "registers); K/V by TMA into a 2-stage mbarrier ring "
                        "fed by one producer thread; 4-D tensor maps over the "
                        "caller's strides, one box per 64-column swizzle "
-                       "atom; bf16, one template with instances at D=64 "
-                       "and D=128. f32, every other D "
+                       "atom; bf16, one template with instances at D=64, "
+                       "96 (two atoms, the second half zero-filled by TMA), "
+                       "128 and 256 (64-row kv tiles, O out through the q "
+                       "tile). f32, every other D "
                        "(instances 16/32/64/96/128/256, the next one up for "
                        "any other up to 256, slabs of 128 columns above) and "
                        "non-TMA layouts: "
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
             "launches": None, "max_abs_err": max_err, **main,
-            "other_shapes": [teacher, zamba, *d128, *whisper],
+            "other_shapes": [teacher, zamba, *d128, *wide, *whisper],
             "head_dims": head_dims}
 
 
@@ -2161,24 +2216,36 @@ def phase_card_vs_cpu(device):
 
 
 # ---------------------------------------------------------------------------
-# The other families: dense (granite), encoder-decoder (whisper), MoE
-# (arctic) and the VLM's prefix path (paligemma)
+# The other families: dense (granite, phi3), encoder-decoder (whisper), MoE
+# (arctic) and the VLM (paligemma: its prefix path and its text forward)
 # ---------------------------------------------------------------------------
 
-def phase_granite(device, entries):
-    """granite_8b at full width and depth: served through ``serve.main``,
-    then its teacher-forced forward [8, 192] through 36 launches of the
-    wgmma flash design (head_dim 128), held at the dense family's bf16 bars
-    against the plain forward and the served tokens."""
+def _dense_path(arch, launches, device, entries):
+    """A dense family at full width and depth: served through
+    ``serve.main``, then its teacher-forced forward [8, 192] through
+    ``launches`` launches of the wgmma flash design, held at the dense
+    family's bf16 bars against the plain forward and the served tokens."""
     _reset_launches()
-    gen_toks, (cfg, model, params), served = serve_main(GRANITE, GEN, device)
+    gen_toks, (cfg, model, params), served = serve_main(arch, GEN, device)
     tokens, logits_k, logits_p = phase_forward(
-        cfg, params, gen_toks, {"flash_attention": GRANITE_LAUNCHES}, True, device)
-    _count_path(GRANITE, {"flash_attention": GRANITE_LAUNCHES}, entries)
+        cfg, params, gen_toks, {"flash_attention": launches}, True, device)
+    _count_path(arch, {"flash_attention": launches}, entries)
     del logits_k, logits_p
     return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
                                                             device),
             **time_forwards(cfg, params, tokens)}
+
+
+def phase_granite(device, entries):
+    """granite_8b (36 layers, 32 heads of 128 over 8 kv heads): 36 wgmma
+    launches at head_dim 128."""
+    return _dense_path(GRANITE, GRANITE_LAUNCHES, device, entries)
+
+
+def phase_phi3(device, entries):
+    """phi3_mini_3p8b (32 layers, d_model 3072, 32 heads of 96 over 32 kv
+    heads, d_ff 8192, vocab 32064): 32 wgmma launches at head_dim 96."""
+    return _dense_path(PHI3, PHI3_LAUNCHES, device, entries)
 
 
 def _ce(logits, tokens):
@@ -2393,7 +2460,11 @@ def phase_paligemma(device, entries):
     ``serve.main``, then the loss forward over 256 image patches and 192
     text tokens with and without the kernels: the prefix-LM mask keeps
     every attention off the flash kernel, so no launch and the same loss
-    both ways (1e-6 relative: the same operations), finite."""
+    both ways (1e-6 relative: the same operations), finite. Then the text
+    forward over the 192 tokens without patches (no prefix), through 18
+    launches of the wgmma flash design at head_dim 256 (8 heads over one kv
+    head), held at the dense family's bf16 bars against the plain forward
+    and the served tokens."""
     _reset_launches()
     gen_toks, (cfg, model, params), served = serve_main(PALIGEMMA, GEN, device)
     prompts = serve.make_prompts(cfg, SERVE_BATCH, PROMPT_LEN, device)
@@ -2405,7 +2476,8 @@ def phase_paligemma(device, entries):
     batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1),
              "mask": torch.ones(tokens.shape, device=device), "patches": patches}
     batch["mask"][:, -1] = 0
-    loss_k, m_k = lm_loss(cfg.replace(use_kernels=True), params, batch)
+    loss_k, m_k = _launched("launches", 0, lambda: lm_loss(
+        cfg.replace(use_kernels=True), params, batch), f"{cfg.name} prefix loss")
     loss_p, _ = lm_loss(cfg, params, batch)
     print(f"[forward] {cfg.name}: loss forward over {n_img} patches + "
           f"{TEXT_LEN} text tokens, batch {SERVE_BATCH}: with kernels "
@@ -2414,10 +2486,17 @@ def phase_paligemma(device, entries):
     if not (torch.isfinite(loss_k)
             and abs(loss_k.item() - loss_p.item()) <= 1e-6 * abs(loss_p.item())):
         raise AssertionError(f"{cfg.name}: loss {loss_k.item()} / {loss_p.item()}")
-    _count_path(PALIGEMMA, {}, entries)
+    text = {"flash_attention": PALIGEMMA_TEXT_LAUNCHES}
+    _, logits_k, logits_p = phase_forward(cfg, params, gen_toks, text, True,
+                                          device)
+    _count_path(PALIGEMMA, text, entries)
+    del logits_k, logits_p
+    prefix = time_forwards(cfg, params, tokens, patches)
+    text_ms = time_forwards(cfg, params, tokens)
     return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
                                                             device),
-            **time_forwards(cfg, params, tokens, patches)}
+            **prefix, "text_forward_ms": text_ms["forward_ms"],
+            "plain_text_forward_ms": text_ms["plain_forward_ms"]}
 
 
 def phase_train_optim(device):
@@ -2491,6 +2570,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, cuda {torch.version.cuda}")
 
@@ -2516,6 +2596,7 @@ def main() -> int:
         "relic_matmul_gated": gated_entry,
     }
     phase_wkv6_layout(device)
+    print(f"[main] build and kernel phases {time.perf_counter() - t_start:.1f} s")
     entries["wkv6"]["design"] = (
         "K = 64 (every rwkv6 call): tensor cores, 3xTF32 mma.sync; decays "
         "between sub-chunks of 16 factored into the operands (exponents <= "
@@ -2565,8 +2646,9 @@ def main() -> int:
     def ms(x):
         return "not measured" if x is None else f"{x:.4f} ms"
 
-    for arch, phase in ((GRANITE, phase_granite), (WHISPER, phase_whisper),
-                        (ARCTIC, phase_arctic), (PALIGEMMA, phase_paligemma)):
+    for arch, phase in ((GRANITE, phase_granite), (PHI3, phase_phi3),
+                        (WHISPER, phase_whisper), (ARCTIC, phase_arctic),
+                        (PALIGEMMA, phase_paligemma)):
         t0 = time.perf_counter()
         summary = phase(device, entries)
         torch.cuda.empty_cache()
@@ -2619,6 +2701,7 @@ def main() -> int:
           f"{time.perf_counter() - t1:.1f} s")
 
     phase_long(*relic, device)
+    print(f"[main] every phase {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

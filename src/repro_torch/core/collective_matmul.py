@@ -41,16 +41,28 @@ from repro_torch import sharding as shd
 from repro_torch.core.lanes import Handle, two_lane_ring
 
 
+#: Callables told the bytes of each ring move made on meta tensors, which
+#: sends nothing (the dry-run's meter counts them as a collective-permute).
+meta_moves: list = []
+
+
 def _group_info(group):
     return dist.get_world_size(group), dist.get_rank(group)
 
 
 def _shift(buf: torch.Tensor, group, offset: int) -> Handle:
     """Issue the ring move of ``buf`` from group rank ``d`` to ``d + offset``
-    (mod p); the handle waits and returns what ``d - offset`` sent."""
+    (mod p); the handle waits and returns what ``d - offset`` sent. On meta
+    tensors nothing is issued: each of ``meta_moves`` is told the buffer's
+    bytes, and the handle returns an empty buffer of its shape."""
     p, d = _group_info(group)
     if p == 1:
         return lambda: buf
+    if buf.is_meta:
+        for tell in meta_moves:
+            tell(buf.numel() * buf.element_size())
+        moved = torch.empty_like(buf)
+        return lambda: moved
     buf = buf.contiguous()
     out = torch.empty_like(buf)
     dst = dist.get_global_rank(group, (d + offset) % p)

@@ -6,8 +6,8 @@ a plain-torch version beside it and an independent oracle in ``ref``:
                        mma.sync for other bf16, FMA tiled by shape for f32)
   relic_matmul_gated — its fused act(x@Wg)*(x@Wu) form (mma.sync / FMA)
   flash_attention    — GQA causal/full streaming attention (CUDA C++, sm_90a:
-                       wgmma + TMA for bf16 head_dim 64 or 128, CUDA-core
-                       kernel else)
+                       wgmma + TMA for bf16 head_dim 64, 96, 128 or 256,
+                       CUDA-core kernel else)
   wkv6               — RWKV-6 chunked WKV recurrence (CUDA C++, sm_90a)
   ssd                — Mamba-2 chunked SSD recurrence (CUDA C++, sm_90a:
                        3xTF32 mma.sync for f32 with P = N = 64, CUDA cores else)

@@ -1,6 +1,6 @@
 // Flash attention forward (GQA, optional causal) for Hopper, sm_90a: the bf16
-// design on TMA and wgmma, at head_dim 64 and 128 (one template, two
-// instances).
+// design on TMA and wgmma, at head_dim 64, 96, 128 and 256 (one template,
+// four instances).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_fa_kernel / flash_attention_bhsd). Computes
@@ -31,27 +31,54 @@
 //    mbarriers (K, V) and an `empty` one that both consumers release; the
 //    ring runs on across items.
 //  - Tiles are 128-byte swizzled, and a swizzled row holds 64 bf16: a tile
-//    of R rows is D / 64 atoms of [R rows x 128 bytes], one after the other,
-//    each 1024-byte aligned and each loaded (and the output stored) by a TMA
-//    box of its own at column 0 or 64. At D = 64 a tile is one atom.
+//    of R rows is ceil(D / 64) atoms of [R rows x 128 bytes], one after the
+//    other, each 1024-byte aligned and each loaded (and the output stored)
+//    by a TMA box of its own at column 0, 64, 128 or 192. At D = 64 a tile
+//    is one atom, at D = 256 four.
+//  - D = 96 (phi3_mini) is two atoms, the second half filled: the tensor
+//    maps' D extent is 96, so the box at column 64 reads columns 96..127
+//    out of bounds, which TMA writes as zeros (and still counts in the
+//    barrier's bytes), and the store of O drops them. Q K^T runs 6 k16
+//    steps; P V runs at n96 (wgmma m64n96k16), whose MN-major V spans
+//    the first atom and the first half of the second. That keeps the D =
+//    128 layout and maps (no second swizzle mode, as a 64-column atom
+//    beside a 32-column one in a 64-byte swizzle would need). P V at n128
+//    over the zeroed columns, which was held to the plain version first,
+//    is slower; flash_d96_ab.py at the repository root times the two.
+//  - D = 256 (paligemma) does not fit the D = 128 layout: q and o tiles of
+//    64 KB each and K plus V at 128 kv rows (128 KB a stage) exceed the
+//    232,448 bytes a block may use, and O alone is 128 f32 registers a
+//    consumer thread. So K and V tiles are 64 kv rows (BK = 64; S is 32
+//    registers, P 16 words), two stages (128 KB) beside the q tile (64
+//    KB), and O goes out through the q tile's own buffer: each consumer
+//    writes its O rows over its own q rows once its last Q K^T has read
+//    them, and only after the TMA store has read them back does it release
+//    the q tile to the producer. With one item a CTA at both served shapes
+//    nothing is lost by the producer's wait; between items it costs the q
+//    load's latency. Splitting O's columns over two consumer warpgroups
+//    that share a q row block was the other route: it halves the
+//    accumulator but computes S = Q K^T twice, once in each warpgroup.
 //  - The tensor maps are 4-D (D, H, S, B) over the caller's own byte
 //    strides, so [B, S, H, D] (the models' layout) and [B, H, S, D] load with
 //    no copy; a box never crosses a head, the hardware zero-fills rows past
 //    S, and the kernel masks them to -1e30. The output goes out through its
 //    own shared tile by TMA stores in the caller's layout, which drop rows
 //    past Sq.
-//  - S = Q K^T: wgmma m64n128k16 from shared memory (K stored [kv][D] is the
-//    K-major B operand); the k16 steps advance 32 bytes inside an atom and
-//    move to the next atom's base after four. The online softmax (m, l)
-//    stays in registers; the row max is taken on the raw scores and reduced
-//    over the 4 lanes that share a row, then p = exp2(s * scale * log2 e -
-//    m * scale * log2 e) is one FFMA and one exp2 per score.
+//  - S = Q K^T: wgmma m64n128k16 (m64n64k16 at D = 256) from shared memory
+//    (K stored [kv][D] is the K-major B operand); the k16 steps advance 32
+//    bytes inside an atom and move to the next atom's base after four. The
+//    online softmax (m, l) stays in registers; the row max is taken on the
+//    raw scores and reduced over the 4 lanes that share a row, then p =
+//    exp2(s * scale * log2 e - m * scale * log2 e) is one FFMA and one exp2
+//    per score.
 //  - O += P V: wgmma m64nDk16 with P from registers: the S accumulator's
 //    fragments are rounded to bf16 pairs in place, with no trip through
-//    shared memory. V is the MN-major B operand (transpose bit); at D = 128
-//    it spans two atoms, a tile's bytes apart (the descriptor's LBO).
+//    shared memory. V is the MN-major B operand (transpose bit); above
+//    D = 64 it spans several atoms, a tile's bytes apart (the descriptor's
+//    LBO).
 //    The TPU kernel keeps P in f32 for this product (flash_attention.py:58).
-//    At D = 64 P is rounded to bf16 (2^-9), which every D = 64 path holds
+//    At D = 64, 96 and 256 P is rounded to bf16 (2^-9), which every path
+//    at those sizes (dense, hybrid, encoder-decoder, the VLM's text) holds
 //    its bars with. At D = 128 P goes in as two bf16 terms, hi = bf16(p)
 //    and lo = bf16(p - hi), in two wgmmas a k16 step: p to about 2^-17, for
 //    1.5x the tensor work. The D = 128 paths include the MoE families, whose
@@ -61,10 +88,12 @@
 //    f32 p.
 //  - Causal: kv tiles wholly above the diagonal are never loaded, and only
 //    tiles that cross it (or the ragged end of S) are masked.
-//  - Shared memory: q and o tiles (BQ x D each) and STAGES x (K, V) (BK x D
-//    each): 97 KB at D = 64, 193 KB at D = 128. Registers, not shared
-//    memory, hold a CTA to one per SM: 168 a thread at launch, 240 for a
-//    consumer (O is D / 2 floats a thread, S 64, P 32 words, 64 at D = 128).
+//  - Shared memory: q and o tiles (BQ x 64 x atoms each; one tile for both
+//    at D = 256) and STAGES x (K, V) (BK x 64 x atoms each): 97 KB at
+//    D = 64, 193 KB at D = 96, 128 and 256. Registers, not shared memory,
+//    hold a CTA to one per SM: 168 a thread at launch, 240 for a consumer
+//    (O is D / 2 floats a thread, S BK / 2, P BK / 4 words, twice that at
+//    D = 128).
 //
 // C interface (bound with ctypes): fa_wgmma_forward returns
 // cudaGetLastError() after the launch, or a negative code for a failure
@@ -86,11 +115,9 @@ constexpr int ATOM_ROW = 128;    // bytes of that row
 constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int WG_ROWS = 64;      // q rows per consumer warpgroup
 constexpr int BQ = CONSUMERS * WG_ROWS;          // q rows per CTA
-constexpr int BK = 128;          // kv rows per tile
 constexpr int STAGES = 2;        // kv ring depth
 constexpr int THREADS = 128 * (1 + CONSUMERS);   // producer warpgroup + consumers
 constexpr int Q_ATOM = BQ * ATOM_ROW;            // one atom of the q (or o) tile
-constexpr int KV_ATOM = BK * ATOM_ROW;           // one atom of a K or V tile
 constexpr int N_BARS = 2 + 3 * STAGES;   // q_full, q_empty, k_full[], v_full[], empty[]
 // Registers: the launch gives every thread 65536 / THREADS (a multiple of
 // 8); the producer drops to 24 and hands the rest to the consumers.
@@ -99,18 +126,24 @@ constexpr int CONSUMER_REGS = ((LAUNCH_REGS * THREADS - 24 * 128) / (128 * CONSU
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-static_assert(BQ <= 256 && BK <= 256 && CONSUMER_REGS <= 256, "one TMA box, setmaxnreg range");
+static_assert(BQ <= 256 && CONSUMER_REGS <= 256, "one TMA box, setmaxnreg range");
 
-// The tiles of the instance at head_dim D, D / 64 atoms each.
+// The tiles of the instance at head_dim D, ceil(D / 64) atoms each.
 template <int D>
 struct Tiles {
-  static_assert(D == 64 || D == 128, "an instance at head_dim 64 or 128");
-  static constexpr int ATOMS = D / ATOM;
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "an instance at head_dim 64, 96, 128 or 256");
+  static constexpr int ATOMS = (D + ATOM - 1) / ATOM;
+  static constexpr int BK = D == 256 ? 64 : 128;     // kv rows per tile
+  static constexpr int KV_ATOM = BK * ATOM_ROW;      // one atom of a K or V tile
   static constexpr int Q_BYTES = ATOMS * Q_ATOM;     // the q tile; the o tile alike
   static constexpr int KV_BYTES = ATOMS * KV_ATOM;   // one K or V tile
   static constexpr bool P_HI_LO = D == 128;          // P as two bf16 terms
-  static constexpr size_t SMEM_BYTES = 1024 /* alignment slack */ + 2 * Q_BYTES /* q, o */ +
+  static constexpr bool O_IN_Q = D == 256;           // O goes out through the q tile
+  static constexpr size_t SMEM_BYTES = 1024 /* alignment slack */ +
+                                       (O_IN_Q ? 1 : 2) * Q_BYTES /* q, o */ +
                                        (size_t)KV_BYTES * 2 * STAGES + 8 * N_BARS;
+  static_assert(BK <= 256 && SMEM_BYTES <= 232448, "one TMA box, a block's shared memory");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -131,14 +164,28 @@ __device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi, uint32_t 
                    hi - __uint_as_float(packed & 0xffff0000u));
 }
 
+// S[64 x BK] (+)= Q[64 x 16] K[BK x 16]^T, both from shared memory.
+template <int D>
+__device__ __forceinline__ void wgmma_qk(float (&sc)[Tiles<D>::BK / 2], uint64_t desc_q,
+                                         uint64_t desc_k, int accumulate) {
+  if constexpr (Tiles<D>::BK == 128)
+    wgmma_m64n128k16_ss(sc, desc_q, desc_k, accumulate);
+  else
+    wgmma_m64n64k16_ss(sc, desc_q, desc_k, accumulate);
+}
+
 // O[64 x D] += P[64 x 16] V[16 x D]: P from registers, V MN-major.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint64_t desc_v) {
   if constexpr (D == 64)
     wgmma_m64n64k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
-  else
+  else if constexpr (D == 96)
+    wgmma_m64n96k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
+  else if constexpr (D == 128)
     wgmma_m64n128k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
+  else
+    wgmma_m64n256k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
 }
 
 template <int D>
@@ -150,16 +197,17 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 int B, int H, int Hkv, int Sq, int Sk, float scale_log2,
                 int causal) {
   using T = Tiles<D>;
+  constexpr int BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: tiles start 1024-aligned.
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  constexpr int QO_BYTES = (T::O_IN_Q ? 1 : 2) * T::Q_BYTES;
   uint8_t* q_tile = base;
-  uint8_t* o_tile = base + T::Q_BYTES;
-  auto k_tile = [&](int s) { return base + 2 * T::Q_BYTES + T::KV_BYTES * 2 * s; };
-  auto v_tile = [&](int s) { return base + 2 * T::Q_BYTES + T::KV_BYTES * (2 * s + 1); };
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(base + 2 * T::Q_BYTES + T::KV_BYTES * 2 * STAGES);
+  uint8_t* o_tile = T::O_IN_Q ? base : base + T::Q_BYTES;
+  auto k_tile = [&](int s) { return base + QO_BYTES + T::KV_BYTES * 2 * s; };
+  auto v_tile = [&](int s) { return base + QO_BYTES + T::KV_BYTES * (2 * s + 1); };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + QO_BYTES + T::KV_BYTES * 2 * STAGES);
   uint64_t* q_full = bars;
   uint64_t* q_empty = bars + 1;
   uint64_t* k_full = bars + 2;
@@ -222,11 +270,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           mbar_wait(empty + s, ((kv_it / STAGES) & 1) ^ 1);
           mbar_arrive_expect_tx(k_full + s, T::KV_BYTES);
           for (int a = 0; a < T::ATOMS; ++a)
-            tma_load_4d(k_tile(s) + a * KV_ATOM, &tm_k, k_full + s, ATOM * a, w.hk,
+            tma_load_4d(k_tile(s) + a * T::KV_ATOM, &tm_k, k_full + s, ATOM * a, w.hk,
                         it * BK, w.b);
           mbar_arrive_expect_tx(v_full + s, T::KV_BYTES);
           for (int a = 0; a < T::ATOMS; ++a)
-            tma_load_4d(v_tile(s) + a * KV_ATOM, &tm_v, v_full + s, ATOM * a, w.hk,
+            tma_load_4d(v_tile(s) + a * T::KV_ATOM, &tm_v, v_full + s, ATOM * a, w.hk,
                         it * BK, w.b);
         }
       }
@@ -273,14 +321,15 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int step = 2 * (kk % 4);
-        wgmma_m64n128k16_ss(sc, desc_q + (Q_ATOM >> 4) * (kk / 4) + step,
-                            desc_k + (KV_ATOM >> 4) * (kk / 4) + step, kk > 0);
+        wgmma_qk<D>(sc, desc_q + (Q_ATOM >> 4) * (kk / 4) + step,
+                    desc_k + (T::KV_ATOM >> 4) * (kk / 4) + step, kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
-      // The last product that reads q: the producer may load the next one.
-      if (it == w.n_tiles - 1 && tid == 0) mbar_arrive(q_empty);
+      // The last product that reads q: the producer may load the next one
+      // (with O_IN_Q once O has gone out through it).
+      if (!T::O_IN_Q && it == w.n_tiles - 1 && tid == 0) mbar_arrive(q_empty);
 
       // Masked where the tile crosses the diagonal or the end of S.
       const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > wg_q0);
@@ -338,7 +387,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // O += P V over BK kv rows: k16 steps of 16 rows (2048 bytes); the V
       // tile's atoms lie KV_ATOM bytes apart along D (LBO).
-      const uint64_t desc_v = desc_sw128(v_tile(s), KV_ATOM, 1024);
+      const uint64_t desc_v = desc_sw128(v_tile(s), T::KV_ATOM, 1024);
       mbar_wait(v_full + s, parity);
       wgmma_fence();
 #pragma unroll
@@ -358,8 +407,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // ---- epilogue: O / l in bf16 through this warpgroup's rows of the o
-    // tile's atoms, out by one TMA store per atom; the next item's loads
-    // run meanwhile.
+    // tile's atoms (with O_IN_Q its own rows of the q tile), out by one TMA
+    // store per atom; the next item's kv loads run meanwhile.
     float inv[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -388,6 +437,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int a = 0; a < T::ATOMS; ++a)
         tma_store_4d(&tm_o, o_part + a * Q_ATOM, ATOM * a, w.h, wg_q0, w.b);
       tma_store_commit_and_wait();
+      if constexpr (T::O_IN_Q) mbar_arrive(q_empty);   // the store has read O
     }
   }
 }
@@ -444,11 +494,15 @@ int n_sms() {
   return n;
 }
 
-// The instance at head_dim D; its shared-memory attribute is set once per
-// instance.
+// The instance at head_dim D: its tensor maps (K and V boxes BK rows tall)
+// and its launch; its shared-memory attribute is set once per instance.
 template <int D>
-int launch(const CUtensorMap (&maps)[4], int B, int H, int Hkv, int Sq, int Sk,
-           float scale, int causal, cudaStream_t stream) {
+int launch(EncodeTiledFn fn, const void* const (&ptrs)[4], const int64_t* geom, int B,
+           int H, int Hkv, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const uint32_t box_s[4] = {BQ, Tiles<D>::BK, Tiles<D>::BK, WG_ROWS};
+  for (int i = 0; i < 4; ++i)
+    if (!encode(fn, &maps[i], ptrs[i], geom + 7 * i, box_s[i])) return -3 - i;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(fa_wgmma_kernel<D>,
@@ -468,7 +522,7 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int Hkv, int Sq, int Sk,
 
 }  // namespace
 
-// q [B, H, Sq, d], k/v [B, Hkv, Sk, d], o like q, d = 64 or 128, all bf16 in
+// q [B, H, Sq, d], k/v [B, Hkv, Sk, d], o like q, d = 64, 96, 128 or 256, all bf16 in
 // any layout whose last dim is contiguous and other strides are multiples of
 // 16 bytes; geom holds 7 int64 per tensor (q, k, v, o). Returns 0 or
 // cudaGetLastError() after the launch; -1 for a d it has no instance for, -2
@@ -477,15 +531,15 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int Hkv, int Sq, int Sk,
 extern "C" int fa_wgmma_forward(const void* q, const void* k, const void* v, void* o,
                                 const int64_t* geom, int B, int H, int Hkv, int Sq,
                                 int Sk, int d, float scale, int causal, void* stream) {
-  if (d != 64 && d != 128) return -1;
+  if (d != 64 && d != 96 && d != 128 && d != 256) return -1;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return -2;
-  CUtensorMap maps[4];
-  const void* ptrs[4] = {q, k, v, o};
-  const uint32_t box_s[4] = {BQ, BK, BK, WG_ROWS};
-  for (int i = 0; i < 4; ++i)
-    if (!encode(fn, &maps[i], ptrs[i], geom + 7 * i, box_s[i])) return -3 - i;
+  const void* const ptrs[4] = {q, k, v, o};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128) return launch<128>(maps, B, H, Hkv, Sq, Sk, scale, causal, s);
-  return launch<64>(maps, B, H, Hkv, Sq, Sk, scale, causal, s);
+  switch (d) {
+    case 64: return launch<64>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
+    case 96: return launch<96>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
+    case 128: return launch<128>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
+    default: return launch<256>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
+  }
 }

@@ -11,12 +11,12 @@ input and output, far above the card's 295 FLOP/byte ridge in bf16. Two
 designs share the work, chosen by a predicate on the inputs
 (``wgmma_eligible``), never by a fallback on failure:
 
-- ``csrc/flash_attention_wgmma.cu`` (bf16, head_dim 64 or 128, every
-  tensor describable by a TMA map; every call of the models on the card):
-  both products on the tensor cores through wgmma, K and V fed by TMA into
-  an mbarrier ring by a producer warp, tensor maps over the caller's own
-  strides, so no layout copy is made; one template with an instance at
-  each head_dim;
+- ``csrc/flash_attention_wgmma.cu`` (bf16, head_dim 64, 96, 128 or 256,
+  every tensor describable by a TMA map; every call of the models on the
+  card): both products on the tensor cores through wgmma, K and V fed by
+  TMA into an mbarrier ring by a producer warp, tensor maps over the
+  caller's own strides, so no layout copy is made; one template with an
+  instance at each head_dim;
 - ``csrc/flash_attention.cu`` (f32, every other head_dim, and layouts TMA
   cannot describe): the CUDA-core kernel, f32 on the CUDA cores, over
   contiguous copies. It has instances at head_dim 16, 32, 64, 96, 128 and
@@ -44,7 +44,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref as flash_attention_plain
 
-WGMMA_HEAD_DIMS = (64, 128)   # the wgmma design's instances
+WGMMA_HEAD_DIMS = (64, 96, 128, 256)   # the wgmma design's instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STRIDE_BYTES = 1 << 40   # a TMA map's byte strides stay below 2^40
 
@@ -86,9 +86,10 @@ def tma_describable(t: torch.Tensor) -> bool:
 
 
 def wgmma_eligible(q, k, v) -> bool:
-    """The dispatch predicate: bf16 with head_dim 64 or 128 whose three
-    tensors a TMA map can describe goes to the wgmma design; everything else
-    to the CUDA-core kernel. (Dtypes of k and v equal q's, by ``_check``.)"""
+    """The dispatch predicate: bf16 with a head_dim in ``WGMMA_HEAD_DIMS``
+    whose three tensors a TMA map can describe goes to the wgmma design;
+    everything else to the CUDA-core kernel. (Dtypes of k and v equal q's,
+    by ``_check``.)"""
     return (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS
             and all(tma_describable(t) for t in (q, k, v)))
 
@@ -128,9 +129,9 @@ def _launch_wgmma(q, k, v, causal):
 
 
 def flash_attention_wgmma(q, k, v, *, causal: bool = True):
-    """Launch the wgmma design; q [B,H,Sq,D], k/v [B,Hkv,Sk,D] with D 64 or
-    128, bf16 on the card in any TMA-describable layout. The output has q's
-    strides (the caller's layout) when q is dense."""
+    """Launch the wgmma design; q [B,H,Sq,D], k/v [B,Hkv,Sk,D] with D in
+    ``WGMMA_HEAD_DIMS``, bf16 on the card in any TMA-describable layout. The
+    output has q's strides (the caller's layout) when q is dense."""
     _require_cuda("flash_attention_wgmma", q, k, v)
     _check(q, k, v)
     if not wgmma_eligible(q, k, v):

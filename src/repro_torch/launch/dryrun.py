@@ -23,8 +23,11 @@ is counted from the step itself (each record's ``method`` says how):
     ops DTensor runs on FakeTensors only to propagate global shapes are not
     counted.
   * Collective wire bytes per device: the c10d functional collectives and
-    the rings' P2P sends that the local step makes, with the reference's
-    ring-algorithm factors (``wire_bytes``).
+    the rings' P2P moves that the local step makes, with the reference's
+    ring-algorithm factors (``wire_bytes``). On meta tensors a ring's move
+    sends nothing and names its bytes to the meter
+    (``collective_matmul.meta_moves``), so a config with
+    ``mlp_tp_overlap=True`` is costed as the reference costs it.
 
 There is no depth extrapolation (the reference's ``_cost_points``): XLA's
 cost analysis counts a scanned ``while`` body once, so the reference lowers
@@ -65,6 +68,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch import sharding as shd
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import collective_matmul as cm
 from repro_torch.launch.mesh import PRODUCTION_MESHES, make_production_mesh
 from repro_torch.launch.steps import (abstract_serve_state,
                                       abstract_train_state, make_serve_step,
@@ -104,9 +108,9 @@ METHOD = {
                  "extrapolation",
     "hlo_bytes": "inputs read once and outputs written once by every local "
                  "op that is not a view or a collective (eager: no fusion)",
-    "collective_wire_bytes": "c10d functional collectives and c10d sends "
-                             "of the local step, times the reference's "
-                             "ring factors (wire_bytes)",
+    "collective_wire_bytes": "c10d functional collectives and the rings' "
+                             "P2P moves of the local step, times the "
+                             "reference's ring factors (wire_bytes)",
     "constants": "H100 SXM 80GB data sheet: 989e12 FLOP/s bf16 dense, "
                  "3.35e12 B/s HBM3, 450e9 B/s NVLink 4 per direction",
 }
@@ -190,6 +194,21 @@ class _Meter(TorchDispatchMode):
     def hold(self, tensors) -> None:
         for t in tensors:
             self._seen[t.untyped_storage()] = 0
+
+    def __enter__(self):
+        cm.meta_moves.append(self._ring_move)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        cm.meta_moves.remove(self._ring_move)
+        return super().__exit__(*exc)
+
+    def _ring_move(self, size: int) -> None:
+        """A ring's P2P move of ``size`` bytes, made on meta tensors (which
+        no backend sends): a collective-permute, as ``c10d.send`` is."""
+        self.coll["collective-permute"] += wire_bytes("collective-permute",
+                                                      size, 2)
+        self.counts["collective-permute"] += 1
 
     def _free(self, n: int) -> None:
         self.live -= n

@@ -213,6 +213,37 @@ def test_reference_cell_bytes_flops_and_collectives(ref, fake8):
                                                            one)
 
 
+def test_ring_cell_costs_each_hop_as_a_collective_permute(fake8):
+    # The same cell with mlp_tp_overlap=True: the Relic rings run on meta
+    # tensors (nothing is sent) and the meter counts each hop as a
+    # collective-permute of the buffer it moves, the buffer once.
+    cfg = get_config("granite_8b", smoke=True)
+    plain = dr.analyze_cell(cfg, CELL, fake8)["per_device"]
+    ring = dr.analyze_cell(cfg.replace(mlp_tp_overlap=True), CELL,
+                           fake8)["per_device"]
+    data, p = 4, 2                                   # the (4, 2) mesh
+    rows = CELL.global_batch // data * CELL.seq_len  # a rank's ring rows
+    chunk = rows // p * cfg.d_model                  # one x or z chunk
+    act = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+    acc = 4                                          # the f32 accumulator
+    # A layer runs four all-gather rings of compute-dtype chunks, p - 1
+    # hops each (the gated forward, the gated backward's pass over x, and
+    # the down product's two backward rings over dz), and two
+    # reduce-scatter rings of f32 chunks, p hops each (the down product,
+    # and the gated backward's dx).
+    hops = cfg.n_layers * (4 * (p - 1) + 2 * p)
+    moved = cfg.n_layers * (4 * (p - 1) * chunk * act + 2 * p * chunk * acc)
+    assert plain["collective_counts"]["collective-permute"] == 0
+    assert ring["collective_counts"]["collective-permute"] == hops
+    assert ring["collective_by_kind"]["collective-permute"] == moved
+    # The rings compute the same products on the same shards, and the gated
+    # backward recomputes each chunk's gate and up products (it keeps no
+    # gathered activations): two [rows, d_model] @ [d_model, d_ff / p]
+    # products a layer more.
+    recompute = cfg.n_layers * 2 * (2 * rows * cfg.d_model * cfg.d_ff // p)
+    assert ring["hlo_flops"] == plain["hlo_flops"] + recompute
+
+
 # ---------------------------------------------------------------------------
 # The steps on a mesh: 8 gloo ranks against the plain steps
 # ---------------------------------------------------------------------------

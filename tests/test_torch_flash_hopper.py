@@ -1,8 +1,8 @@
 """The wgmma flash-attention design's dispatch and TMA geometry, which are
 plain Python and hold without a card, and the port's flash attention held
 against the JAX package's kernel (interpret-mode Pallas) and its oracle at
-the shapes that design takes (bf16, head_dim 64 and 128, GQA, ragged and
-unequal lengths, the model layout). On the CPU the wrappers take the plain version;
+the shapes that design takes (bf16, head_dim 64, 96, 128 and 256, GQA, ragged
+and unequal lengths, the model layout). On the CPU the wrappers take the plain version;
 the CUDA kernels are held against it on the card by ``chip_smoke.py``."""
 
 import contextlib
@@ -22,11 +22,14 @@ CSRC = Path(fa.__file__).resolve().parent / "csrc"
 TOL = 2e-2   # bf16: tests/test_kernels.py:70-71
 HEADS = [(4, 4), (6, 2), (8, 2), (4, 1)]   # MHA, GQA 3:1, GQA 4:1, MQA
 # The head_dim-128 instance (granite, qwen3, llama3, arctic, llama4) at GQA
-# 4:1 and 7:1, beside HEADS at head_dim 64: (h, kv, d), the old cases keeping
-# their ids.
+# 4:1 and 7:1, the head_dim-96 one (phi3_mini, MHA) at MHA and GQA 4:1 and
+# the head_dim-256 one (paligemma, MQA) at MQA and GQA 4:1, beside HEADS at
+# head_dim 64: (h, kv, d), the old cases keeping their ids.
+NEW_HEADS_BY_D = [(8, 2, 128), (7, 1, 128), (4, 4, 96), (8, 2, 96),
+                  (4, 1, 256), (8, 2, 256)]
 HEADS_BY_D = [*(pytest.param(h, kv, 64, id=f"{h}-{kv}") for h, kv in HEADS),
-              *(pytest.param(h, kv, 128, id=f"{h}-{kv}-d128")
-                for h, kv in [(8, 2), (7, 1)])]
+              *(pytest.param(h, kv, d, id=f"{h}-{kv}-d{d}")
+                for h, kv, d in NEW_HEADS_BY_D)]
 
 
 def _bhsd(b, h, s, d=64, dtype=torch.bfloat16):
@@ -52,7 +55,7 @@ def test_predicate_takes_bf16_head_dims_64_and_128_in_both_layouts(layout, h, kv
 
 
 def test_wgmma_head_dims_are_the_kernels_instances():
-    assert fa.WGMMA_HEAD_DIMS == (64, 128)
+    assert fa.WGMMA_HEAD_DIMS == (64, 96, 128, 256)
 
 
 def _strided_last_dim():
@@ -73,9 +76,11 @@ def _row_stride_off_16():
     ("f32", lambda: _bhsd(1, 4, 96, dtype=torch.float32)),
     ("d16", lambda: _bhsd(1, 4, 96, 16)),
     ("d32", lambda: _bhsd(1, 4, 96, 32)),
-    ("d96", lambda: _bhsd(1, 4, 96, 96)),
-    ("d256", lambda: _bhsd(1, 4, 96, 256)),
+    ("d80", lambda: _bhsd(1, 4, 96, 80)),
+    ("d192", lambda: _bhsd(1, 4, 96, 192)),
+    ("f32 d96", lambda: _bhsd(1, 4, 96, 96, dtype=torch.float32)),
     ("f32 d128", lambda: _bhsd(1, 4, 96, 128, dtype=torch.float32)),
+    ("f32 d256", lambda: _bhsd(1, 4, 96, 256, dtype=torch.float32)),
     ("last-dim stride 2", _strided_last_dim),
     ("storage offset", _misaligned),
     ("row stride 136 bytes", _row_stride_off_16),
@@ -152,22 +157,42 @@ def test_wgmma_source_uses_tma_ring_and_wgmma_for_both_products():
     assert '#include "hopper.cuh"' in src
     for ptx in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16",
+                "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
                 "cp.async.bulk.tensor.4d.shared::cluster.global",
                 "cp.async.bulk.tensor.4d.global.shared::cta",
                 "mbarrier.try_wait.parity", "setmaxnreg.dec", "setmaxnreg.inc"):
         assert ptx in hdr, ptx
-    for call in ("wgmma_m64n128k16_ss(", "wgmma_m64n64k16_rs_tb(",
-                 "wgmma_m64n128k16_rs_tb(", "tma_load_4d(", "tma_store_4d(",
+    for call in ("wgmma_m64n128k16_ss(", "wgmma_m64n64k16_ss(",
+                 "wgmma_m64n64k16_rs_tb(", "wgmma_m64n96k16_rs_tb(",
+                 "wgmma_m64n128k16_rs_tb(", "wgmma_m64n256k16_rs_tb(", "tma_load_4d(", "tma_store_4d(",
                  "setmaxnreg_dec<", "setmaxnreg_inc<", "mbar_wait(empty"):
         assert call in src, call
     # O += P V at N = 128: the register-A form with B transposed.
     rs128 = hdr.split("void wgmma_m64n128k16_rs_tb(")[1].split("\n}\n")[0]
     assert "m64n128k16.f32.bf16.bf16" in rs128
     assert "{%64, %65, %66, %67}, %68, p, 1, 1, 1;" in rs128
+    # ... and at N = 96 and 256 (D = 96 and 256); Q K^T at N = 64 with both
+    # operands K-major (D = 256's 64-row kv tiles).
+    rs96 = hdr.split("void wgmma_m64n96k16_rs_tb(")[1].split("\n}\n")[0]
+    assert "m64n96k16.f32.bf16.bf16" in rs96
+    assert "{%48, %49, %50, %51}, %52, p, 1, 1, 1;" in rs96
+    rs256 = hdr.split("void wgmma_m64n256k16_rs_tb(")[1].split("\n}\n")[0]
+    assert "m64n256k16.f32.bf16.bf16" in rs256
+    assert "{%128, %129, %130, %131}, %132, p, 1, 1, 1;" in rs256
+    ss64 = hdr.split("void wgmma_m64n64k16_ss(")[1].split("\n}\n")[0]
+    assert "%32, %33, p, 1, 1, 0, 0;" in ss64
     # One template, an instance at each head_dim the predicate sends.
     assert "template <int D>\n__global__" in src
     for d in fa.WGMMA_HEAD_DIMS:
         assert f"launch<{d}>(" in src, d
+    # The tiles: ceil(D / 64) atoms (D = 96: two, the second half filled
+    # and zeroed by TMA); 64-row kv tiles at D = 256, whose O goes out
+    # through the q tile.
+    assert "static constexpr int ATOMS = (D + ATOM - 1) / ATOM;" in src
+    assert "static constexpr int BK = D == 256 ? 64 : 128;" in src
+    assert "static constexpr bool O_IN_Q = D == 256;" in src
+    assert "SMEM_BYTES <= 232448" in src
     # At D = 128 P goes into P V as two bf16 terms (hi and the rest).
     assert "static constexpr bool P_HI_LO = D == 128;" in src
     assert src.count("wgmma_pv<D>(o, ") == 2
@@ -178,6 +203,19 @@ def test_wgmma_source_uses_tma_ring_and_wgmma_for_both_products():
     assert stages >= 2
 
 
+def test_d96_ab_rewrites_the_committed_source():
+    # flash_d96_ab.py builds the D = 96 instance's n128 route from a text
+    # rewrite of the source; every piece it rewrites must be there once.
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import flash_d96_ab
+
+    src = (CSRC / "flash_attention_wgmma.cu").read_text()
+    out = flash_d96_ab.n128_source(src)
+    assert "wgmma_m64n96k16_rs_tb(" not in out
+    assert out.count(flash_d96_ab.N128) == 3
+
+
 def _c_params(src, name):
     """The parameter list of the C entry ``name`` in ``src``."""
     sig = src.split(f'extern "C" int {name}(')[1].split(")")[0]
@@ -186,7 +224,9 @@ def _c_params(src, name):
 
 @pytest.mark.parametrize("d,want", [(64, "fa_wgmma_forward"),
                                     (128, "fa_wgmma_forward"),
-                                    (96, "fa_forward"), (256, "fa_forward")])
+                                    (96, "fa_wgmma_forward"),
+                                    (256, "fa_wgmma_forward"),
+                                    (80, "fa_forward"), (192, "fa_forward")])
 def test_card_route_hands_the_head_dim_to_the_entry(monkeypatch, d, want):
     # The C entry the card would run, recorded instead of launched: the
     # tensors are made to pass for CUDA ones, so only the predicate decides,
@@ -264,7 +304,7 @@ def test_model_layout_matches_jax_kernel_at_the_wgmma_tile(rng, h, kv, d, causal
 @pytest.mark.parametrize("s", [96, 300])
 @pytest.mark.parametrize("h,kv,d", [
     *(pytest.param(h, kv, 64, id=f"{h}-{kv}") for h, kv in [(6, 2), (4, 1)]),
-    *(pytest.param(h, kv, 128, id=f"{h}-{kv}-d128") for h, kv in [(8, 2), (7, 1)])])
+    *(pytest.param(h, kv, d, id=f"{h}-{kv}-d{d}") for h, kv, d in NEW_HEADS_BY_D)])
 def test_ragged_lengths_match_jax(rng, h, kv, d, s, causal):
     # No multiple of the tiles: the JAX side takes its oracle path.
     jax_in, torch_in = _model_inputs(rng, 2, s, s, h, kv, d)
