@@ -58,9 +58,9 @@ Phases (any failure exits non-zero):
      attention block, d_model 2048) and run its teacher-forced forward
      through the ssd and flash-attention kernels, the same way;
   7. the other families at full width, each a main path of its own:
-     granite_8b (36 layers, head_dim 128) served through ``serve.main``,
-     its teacher-forced forward through 36 launches of the wgmma flash
-     design (head_dim 128) at the dense bf16 bars; phi3_mini_3p8b (32
+     granite_8b (head_dim 128; its 36 layers cut to 18) served
+     through ``serve.main``, its teacher-forced forward through 18 launches
+     of the wgmma flash design (head_dim 128) at the dense bf16 bars; phi3_mini_3p8b (32
      layers, 32 heads of 96) the same way through 32 launches (head_dim
      96); whisper_large_v3 (32 + 32 layers)
      served (frames -> encode -> cross K/V -> prefill -> decode), its
@@ -80,7 +80,14 @@ Phases (any failure exits non-zero):
      grad_accum 2 against 1, then 20 steps on one batch with the loss
      falling; five steps with gradient compression beside five without and
      one Adafactor step; then one f32 train step at SMOKE size on the card
-     against the same step on the CPU;
+     against the same step on the CPU; then rematerialisation
+     (``phase_train_remat``, ``cfg.remat``): whisper_large_v3 trained at
+     full width and depth (1.58 B f32 parameters, bf16 compute, AdamW) on
+     1500 seeded frames beside 448 decoder tokens a row, one step of batch
+     2 from the same state under "none", "dots" and "full" (equal losses,
+     the bytes the forward holds for the backward full < dots < none), then 10 steps of batch 8
+     under its own "full" with the loss falling; relic_tiny's 8 x 256 step
+     under "full" and "dots" beside "none";
  10. the train driver, ``repro_torch.launch.train.main``, for relic_tiny at
      full width: 30 steps of Relic-prefetched batches without and with an
      async checkpoint every 10 steps, beside the same loop without the
@@ -112,7 +119,8 @@ Phases (any failure exits non-zero):
      ``(1, 1)`` mesh: the argument bytes against the allocator's requests
      and ``memory_allocated``'s growth, the FLOPs against
      ``FlopCounterMode`` over the real step, the predicted peak and the
-     step time beside the measured ones; and the mesh serve step's greedy
+     step time beside the measured ones, the train step under each remat
+     policy ("none", "full", "dots"); and the mesh serve step's greedy
      tokens against the plain serve step's, exactly;
  14. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
@@ -320,10 +328,21 @@ WHISPER_ATTN = [("encoder self-attention", (SERVE_BATCH, 1500, 20, 20, 64),
 # Flash launches of each new path's counted forward: one a layer and
 # attention (whisper: 32 encoder, 32 decoder self, 32 cross; paligemma's
 # text forward, which has no image prefix), all through the wgmma design.
-GRANITE_LAUNCHES, WHISPER_LAUNCHES = 36, 96
+# granite_8b served at full width with its depth cut 36 -> 18 (its init, one
+# host thread drawing 8 B normals, took 58 to 73 s at full depth).
+GRANITE_LAYERS = 18
+GRANITE_LAUNCHES, WHISPER_LAUNCHES = GRANITE_LAYERS, 96
 PHI3_LAUNCHES, PALIGEMMA_TEXT_LAUNCHES = 32, 18
 ARCTIC_DECODE = 16   # forced tokens of arctic's decode check
 OPTIM_STEPS = 5      # train steps of relic_tiny with gradient compression
+# Rematerialisation (``cfg.remat``): whisper_large_v3 trained at full width
+# and depth on 1500 frames beside 448 decoder tokens (Whisper's text
+# context): one step of batch 2 under each policy, then 10 steps of batch 8
+# under its own "full".
+REMAT_POLICIES = ("none", "dots", "full")
+REMAT_TEXT = 448
+REMAT_BATCH, REMAT_STEPS = 8, 10
+REMAT_CMP_BATCH = 2
 # relic_matmul: f32 rtol 2e-4 / atol 1e-2 (tests/test_kernels.py:35-37); bf16
 # rtol 2e-2 / atol 2e-1, tighter than the tests' 2e-1 / 10. The gated form:
 # rtol 2e-2, atol 2e-2 in f32 and 2.0 in bf16 (tests/test_kernels.py:48-50).
@@ -1192,7 +1211,7 @@ def decode_outside(cfg, model, params, device):
     return ms
 
 
-def serve_main(arch, gen, device):
+def serve_main(arch, gen, device, n_layers=None):
     """``serve.main`` as a user runs it, at full width, in its two parts:
     ``serve.load_model`` (timed here: the weights drawn from the host
     generator, then moved to the card) and ``serve.run``. Returns the
@@ -1205,7 +1224,8 @@ def serve_main(arch, gen, device):
             str(PROMPT_LEN), "--gen", str(gen), "--device", device.type]
     args = serve.parse_args(argv)
     t0 = time.perf_counter()
-    cfg, model, params = serve.load_model(arch, smoke=False, device=device)
+    cfg, model, params = serve.load_model(arch, smoke=False, device=device,
+                                          n_layers=n_layers)
     synchronize(device)
     init_s = time.perf_counter() - t0
     gen_toks, st = serve.run(args, cfg, model, params, device)
@@ -2057,6 +2077,8 @@ def phase_dryrun(device, card):
                                  global_batch=SERVE_BATCH)
     dcfg = dryrun._prep_cfg(cfg, decode)
     preds = {"train": _predict(cfg, train), "decode": _predict(dcfg, decode)}
+    for policy in ("full", "dots"):   # relic_tiny keeps "none" itself
+        preds[policy] = _predict(cfg.replace(remat=policy), train)
 
     init_distributed(device)
     if torch.distributed.get_backend() != "nccl":
@@ -2083,6 +2105,12 @@ def phase_dryrun(device, card):
         _held_on_card(f"{cfg.name} train [{TRAIN_BATCH}, {TRAIN_SEQ}]",
                       preds["train"], train_args,
                       make_train_step(model, OptConfig(), mesh=mesh), card)
+        for policy in ("full", "dots"):
+            _held_on_card(
+                f"{cfg.name} train [{TRAIN_BATCH}, {TRAIN_SEQ}], remat "
+                f"{policy!r}", preds[policy], train_args, make_train_step(
+                    build_model(cfg.replace(remat=policy), device), OptConfig(),
+                    mesh=mesh), card)
 
         dmodel = build_model(dcfg, device)
         dparams = dmodel.init(torch.Generator().manual_seed(0))
@@ -2220,13 +2248,15 @@ def phase_card_vs_cpu(device):
 # (arctic) and the VLM (paligemma: its prefix path and its text forward)
 # ---------------------------------------------------------------------------
 
-def _dense_path(arch, launches, device, entries):
-    """A dense family at full width and depth: served through
-    ``serve.main``, then its teacher-forced forward [8, 192] through
-    ``launches`` launches of the wgmma flash design, held at the dense
-    family's bf16 bars against the plain forward and the served tokens."""
+def _dense_path(arch, launches, device, entries, n_layers=None):
+    """A dense family at full width (and depth, unless ``n_layers`` cuts
+    it): served through ``serve.main``, then its teacher-forced forward
+    [8, 192] through ``launches`` launches of the wgmma flash design, held
+    at the dense family's bf16 bars against the plain forward and the
+    served tokens."""
     _reset_launches()
-    gen_toks, (cfg, model, params), served = serve_main(arch, GEN, device)
+    gen_toks, (cfg, model, params), served = serve_main(arch, GEN, device,
+                                                        n_layers)
     tokens, logits_k, logits_p = phase_forward(
         cfg, params, gen_toks, {"flash_attention": launches}, True, device)
     _count_path(arch, {"flash_attention": launches}, entries)
@@ -2237,9 +2267,11 @@ def _dense_path(arch, launches, device, entries):
 
 
 def phase_granite(device, entries):
-    """granite_8b (36 layers, 32 heads of 128 over 8 kv heads): 36 wgmma
-    launches at head_dim 128."""
-    return _dense_path(GRANITE, GRANITE_LAUNCHES, device, entries)
+    """granite_8b (32 heads of 128 over 8 kv heads) at full width, its 36
+    layers cut to GRANITE_LAYERS: one wgmma launch a layer at head_dim
+    128."""
+    return _dense_path(GRANITE, GRANITE_LAUNCHES, device, entries,
+                       GRANITE_LAYERS)
 
 
 def phase_phi3(device, entries):
@@ -2499,6 +2531,192 @@ def phase_paligemma(device, entries):
             "plain_text_forward_ms": text_ms["plain_forward_ms"]}
 
 
+def _remat_batch(cfg, batch, seed, device):
+    """Whisper's training batch: ``batch`` rows of 1500 seeded normal frames
+    [batch, 1500, 1280] (bf16, the compute dtype) beside REMAT_TEXT decoder
+    tokens and their next tokens, all from one seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    frames = torch.as_tensor(rng.normal(size=(
+        batch, cfg.frontend.n_tokens, cfg.d_model)), dtype=torch.float32)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (batch, REMAT_TEXT + 1)), device=device)
+    return {"frames": frames.to(device=device, dtype=torch.bfloat16),
+            "tokens": toks[:, :-1], "labels": toks[:, 1:],
+            "mask": torch.ones((batch, REMAT_TEXT), device=device)}
+
+
+def _first_step_state(state, host):
+    """``state`` put back to its first step in place: the parameters copied
+    from ``host``, zero moments, step 0."""
+    for name, p in state["params"].named_parameters():
+        p.data.copy_(host[name])
+    for moments in state["opt"].values():
+        for t in moments.values():
+            t.zero_()
+    state["step"] = 0
+    return state
+
+
+def _remat_step(cfg, policy, state, batch, device, timed=1):
+    """One train step of ``cfg`` under ``policy`` from ``state``: (metrics,
+    the bytes the loss forward leaves allocated, the allocator's peak over
+    the step, ms of ``timed`` more steps after it, state). The first is
+    what autograd holds for the backward (saved tensors, the dots policy's
+    cache, the loss), from a forward of its own whose graph is dropped."""
+    model = build_model(cfg.replace(remat=policy), device)
+    step = make_train_step(model, TRAIN_OC)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with torch.enable_grad():
+        loss, metrics = model.loss(state["params"], batch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    del loss, metrics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = None
+    if timed:
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / timed
+    return metrics, held, peak, ms, state
+
+
+def phase_train_remat(device, card):
+    """Rematerialisation (``cfg.remat``; the reference's ``_remat`` wraps
+    every block in ``jax.checkpoint``): (a) whisper_large_v3 at full width
+    and depth (f32 parameters, bf16 compute, AdamW), one step of batch 2
+    from the same state under "none", "dots" and "full": the losses equal
+    (1e-6 relative), the grad norms within 1e-3, the bytes the forward
+    holds for the backward full < dots < none, the step's peak under "full"
+    and "dots" below "none" (the optimizer's phase, the same under each
+    policy, sets theirs); (b) REMAT_STEPS steps of batch 8 under its own "full",
+    every loss finite and the last below the first (batch 8 under "none"
+    is reckoned, not run: it does not fit the card); (c) relic_tiny's 8 x
+    256 step under "full" and "dots" beside "none", the losses equal. No
+    fallback: a failed checkpoint or an out-of-memory ends the run."""
+    cfg = get_config(WHISPER)
+    if cfg.remat != "full":
+        raise AssertionError(f"{cfg.name} trains under remat {cfg.remat!r}")
+    t0 = time.perf_counter()
+    state = make_train_state(build_model(cfg, device),
+                             torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = {n: p.detach().to("cpu", copy=True)
+            for n, p in state["params"].named_parameters()}
+    n_params = sum(t.numel() for t in host.values())
+    static = torch.cuda.memory_allocated()
+    print(f"[remat] {cfg.name}: {n_params / 1e9:.4f} B parameters (f32), "
+          f"{cfg.enc_layers} + {cfg.n_layers} layers, d_model {cfg.d_model}; "
+          f"state drawn in {init_s:.1f} s, {static / 1e9:.2f} GB with the "
+          f"moments; {card}", flush=True)
+
+    # (a) batch 2 from the same state under each policy
+    batch = _remat_batch(cfg, REMAT_CMP_BATCH, 0, device)
+    got = {}
+    for policy in REMAT_POLICIES:
+        m, held, peak, ms, state = _remat_step(cfg, policy, _first_step_state(
+            state, host), batch, device)
+        got[policy] = (m, held, peak, ms)
+        print(f"[remat] {cfg.name} batch {REMAT_CMP_BATCH} x ({cfg.frontend.n_tokens} "
+              f"frames, {REMAT_TEXT} tokens), remat {policy!r}: loss "
+              f"{m['loss']:.7f}, grad_norm {m['grad_norm']:.7g}; the forward "
+              f"holds {held / 1e9:.3f} GB for the backward; step peak "
+              f"{peak / 1e9:.3f} GB ({(peak - static) / 1e9:.3f} above the "
+              f"state), {ms:.2f} ms/step (the second step)", flush=True)
+    base = got["none"][0]
+    for policy in ("dots", "full"):
+        m = got[policy][0]
+        dl = abs(m["loss"] - base["loss"]) / abs(base["loss"])
+        dg = abs(m["grad_norm"] - base["grad_norm"]) / base["grad_norm"]
+        if not (dl <= 1e-6 and dg <= 1e-3):
+            raise AssertionError(f"[remat] {policy}: loss {dl:.3g}, grad_norm "
+                                 f"{dg:.3g} relative from 'none'")
+    # What remat changes is what the forward leaves for the backward. The
+    # step's peak is the larger of that phase and the optimizer's (the
+    # gradients and their clipped copy beside the state, the same under
+    # every policy), which sets it under "full" and "dots" alike.
+    helds = {k: v[1] for k, v in got.items()}
+    peaks = {k: v[2] for k, v in got.items()}
+    if not helds["full"] < helds["dots"] < helds["none"]:
+        raise AssertionError(f"[remat] held {helds}: not full < dots < none")
+    if not max(peaks["full"], peaks["dots"]) < peaks["none"]:
+        raise AssertionError(f"[remat] peaks {peaks}: not full, dots < none")
+
+    # (b) batch 8 under "full" for REMAT_STEPS steps
+    batch = _remat_batch(cfg, REMAT_BATCH, 1, device)
+    step = make_train_step(build_model(cfg, device), TRAIN_OC)
+    state = _first_step_state(state, host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch)
+    losses = [metrics["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REMAT_STEPS - 1):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    whisper_ms = (time.perf_counter() - t0) * 1e3 / (REMAT_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    act_none = (peaks["none"] - static) * REMAT_BATCH / REMAT_CMP_BATCH
+    print(f"[remat] {cfg.name} batch {REMAT_BATCH} x ({cfg.frontend.n_tokens} "
+          f"frames, {REMAT_TEXT} tokens), remat 'full': {whisper_ms:.2f} ms/step "
+          f"over steps 2-{REMAT_STEPS}, "
+          f"{REMAT_BATCH * REMAT_TEXT / whisper_ms * 1e3:.0f} decoder tokens/s "
+          f"({REMAT_BATCH * cfg.frontend.n_tokens / whisper_ms * 1e3:.0f}"
+          f" frames/s), peak {peak / 1e9:.3f} GB ({(peak - static) / 1e9:.3f} "
+          f"above the state); remat 'none' at this batch reckoned, not run: "
+          f"{(static + act_none) / 1e9:.1f} GB (the state plus "
+          f"{REMAT_BATCH // REMAT_CMP_BATCH} x batch 2's "
+          f"{(peaks['none'] - static) / 1e9:.2f} GB above it); {card}",
+          flush=True)
+    print(f"[remat] losses {' '.join(f'{x:.4f}' for x in losses)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[remat] non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[remat] loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    device_profile(lambda: step(state, batch), f"{cfg.name} train step, batch "
+                   f"{REMAT_BATCH} x ({cfg.frontend.n_tokens} frames, "
+                   f"{REMAT_TEXT} tokens), remat 'full'")
+    del state, host, step, batch
+    torch.cuda.empty_cache()
+
+    # (c) relic_tiny at full width under each policy
+    rcfg = get_config(ARCH)
+    batch = _train_batch(rcfg, TRAIN_BATCH, TRAIN_SEQ, 0, device)
+    small, small_held = {}, {}
+    for policy in ("none", "full", "dots"):
+        state = make_train_state(build_model(rcfg, device),
+                                 torch.Generator().manual_seed(0))
+        m, held, peak, ms, state = _remat_step(rcfg, policy, state, batch,
+                                               device)
+        small[policy], small_held[policy] = m["loss"], held
+        print(f"[remat] {rcfg.name} batch [{TRAIN_BATCH}, {TRAIN_SEQ}], remat "
+              f"{policy!r}: loss {m['loss']:.7f}, grad_norm "
+              f"{m['grad_norm']:.7g}; the forward holds {held / 1e9:.3f} GB; "
+              f"step peak {peak / 1e9:.3f} GB, {ms:.2f} ms/step (the second "
+              f"step)", flush=True)
+        del state
+    for policy in ("full", "dots"):
+        if abs(small[policy] - small["none"]) > 1e-6 * abs(small["none"]):
+            raise AssertionError(f"[remat] {rcfg.name} {policy}: loss "
+                                 f"{small[policy]} against {small['none']}")
+    if not small_held["full"] < small_held["dots"] < small_held["none"]:
+        raise AssertionError(f"[remat] {rcfg.name} held {small_held}")
+    torch.cuda.empty_cache()
+    return {"whisper_ms_per_step": whisper_ms, "peaks": peaks, "held": helds}
+
+
 def phase_train_optim(device):
     """relic_tiny at full width (f32 parameters, bf16 compute): OPTIM_STEPS
     steps with ``compress_grads=True`` beside the same steps without, from
@@ -2671,6 +2889,10 @@ def main() -> int:
     bare_ms = phase_train(device)
     phase_train_optim(device)
     phase_card_vs_cpu(device)
+    torch.cuda.empty_cache()
+    t_remat = time.perf_counter()
+    phase_train_remat(device, card)
+    print(f"[main] remat phase {time.perf_counter() - t_remat:.1f} s")
     _count_path("training", {}, entries)
     torch.cuda.empty_cache()
 

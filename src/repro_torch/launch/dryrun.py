@@ -33,10 +33,12 @@ There is no depth extrapolation (the reference's ``_cost_points``): XLA's
 cost analysis counts a scanned ``while`` body once, so the reference lowers
 two unrolled depths and extrapolates; eager execution runs, and so counts,
 every layer. The cells take the reference's cost configuration
-(``_prep_cfg``): decode in bf16 parameters without remat, and chunked
-attention in tiles of 4096 x 8192 (FLOPs do not depend on the tiles; the
-port keeps no remat, so every block's activations stay for the backward
-whatever the tiles).
+(``_prep_cfg``): decode in bf16 parameters without remat, train and
+prefill under the config's own remat (``cfg.remat``: "full" keeps only
+each block's inputs for the backward and recomputes the block there, so
+the FLOPs count that recompute and the live bytes fall; "dots" keeps the
+2-D products' outputs besides), and chunked attention in tiles of 4096 x
+8192 (FLOPs do not depend on the tiles).
 
 Run on the CPU, no card needed:
 
@@ -299,9 +301,10 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
 
 def _prep_cfg(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
     """The reference's cost configuration: decode in bf16 parameters with
-    no remat; the default chunked-attention tiles coarsened to 4096 x 8192
-    (FLOPs are tiling-invariant, and a long sequence in small tiles is
-    tens of thousands of eager ops a layer)."""
+    no remat (train and prefill keep the config's remat); the default
+    chunked-attention tiles coarsened to 4096 x 8192 (FLOPs are
+    tiling-invariant, and a long sequence in small tiles is tens of
+    thousands of eager ops a layer)."""
     kw = {}
     if shape.kind == "decode":
         kw["param_dtype"] = "bfloat16"

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,9 +36,13 @@ from repro_torch.models.encdec import encode, prefill_cross_cache
 from repro_torch.serve import ServeScheduler
 
 
-def load_model(arch: str, *, smoke: bool, device: torch.device):
-    """(cfg, model, params) in the serving layout; weights from seed 0."""
+def load_model(arch: str, *, smoke: bool, device: torch.device,
+               n_layers: Optional[int] = None):
+    """(cfg, model, params) in the serving layout; weights from seed 0.
+    ``n_layers`` cuts the config's depth (its width stays)."""
     cfg = get_config(arch, smoke=smoke).replace(param_dtype="bfloat16")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = build_model(cfg, device)
     params = model.init(torch.Generator().manual_seed(0))
     return cfg, model, params

@@ -265,13 +265,15 @@ class _GatheredHeadsGrad(torch.autograd.Function):
 
 
 def _to_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk"). On DTensors, a product with the heads
-    flattened, the flat dim gathered where it must be, then the heads
-    unflattened."""
-    if not isinstance(x, DTensor):
-        return torch.einsum("bsd,dhk->bshk", x, w)
+    """einsum("bsd,dhk->bshk") as a product with the heads flattened, a 2-D
+    product (``aten.mm``, which remat's "dots" keeps; torch's einsum would
+    reach a batch-1 ``aten.bmm``), then the heads unflattened. On DTensors
+    the flat dim is gathered first where it must be."""
     d, h, hd = w.shape
-    return _heads_gathered(x @ w.reshape(d, h * hd), h).unflatten(2, (h, hd))
+    y = x @ w.reshape(d, h * hd)
+    if isinstance(y, DTensor):
+        y = _heads_gathered(y, h)
+    return y.unflatten(2, (h, hd))
 
 
 def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
@@ -295,12 +297,11 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
 def _output(cfg: ModelConfig, p, o: torch.Tensor) -> torch.Tensor:
     cd = dt(cfg.compute_dtype)
     o, wo = o.to(cd), p["wo"].to(cd)
-    if isinstance(o, DTensor):   # flattened heads, as in ``_to_heads``
-        h, hd, d = wo.shape
-        o = _GatheredHeadsGrad.apply(o.flatten(2), h)
-        y = o @ wo.reshape(h * hd, d)
-    else:
-        y = torch.einsum("bshk,hkd->bsd", o, wo)
+    h, hd, d = wo.shape
+    o = o.flatten(2)             # flattened heads, as in ``_to_heads``
+    if isinstance(o, DTensor):
+        o = _GatheredHeadsGrad.apply(o, h)
+    y = o @ wo.reshape(h * hd, d)
     return shard_act(y, "batch", None, "model", kind="resid")
 
 

@@ -11,11 +11,13 @@ The reference stacks each side's layers and scans them; here each side is
 an ``nn.ModuleList`` run in a Python loop, with the reference's key paths
 (``enc_layers.<i>.attn.wq``, ``dec_layers.<i>.cross_attn.wk``, ...).
 The top level is an ``nn.ParameterDict`` so that ``pos_embed`` sits beside
-the module entries under its own name. Remat does not apply: the port
-trains with autograd's saved tensors.
+the module entries under its own name. Each encoder and decoder block runs
+under ``cfg.remat``, as the reference's ``_remat`` wraps them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -23,6 +25,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models.layers import remat as _remat
 from repro_torch.sharding import shard_act
 
 
@@ -87,8 +90,9 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(cd) + L.sinusoidal_positions(
         frames.shape[1], cfg.d_model, frames.device).to(cd)
     x = shard_act(x, "batch", None, "model", kind="resid")
+    blk = _remat(cfg.remat, functools.partial(_enc_block, cfg))
     for lp in params["enc_layers"]:
-        x = _enc_block(cfg, lp, x)
+        x = blk(lp, x)
     return L.norm(cfg, params["enc_norm"], x)
 
 
@@ -104,8 +108,9 @@ def decode_train(cfg: ModelConfig, params, tokens: torch.Tensor,
     x = L.embed(cfg, params["embed"], tokens)
     x = x + params["pos_embed"][:tokens.shape[1]].to(x.dtype)[None]
     x = shard_act(x, "batch", None, "model", kind="resid")
+    blk = _remat(cfg.remat, functools.partial(_dec_block, cfg))
     for lp in params["dec_layers"]:
-        x = _dec_block(cfg, lp, x, enc_out)
+        x = blk(lp, x, enc_out)
     return _logits(cfg, params, x)
 
 

@@ -9,10 +9,14 @@ Params live in ``cfg.param_dtype``; compute casts to ``cfg.compute_dtype``
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import current_mesh, embed_sharded, shard_act
@@ -37,6 +41,49 @@ def _normal(gen: torch.Generator, shape, scale, dtype, device) -> nn.Parameter:
 
 def _const(value: float, shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation (the reference's ``_remat``)
+# ---------------------------------------------------------------------------
+
+# The products with no batch dimensions, which the reference's "dots" policy
+# (``checkpoint_dots_with_no_batch_dims``) saves: every projection reaches
+# ``aten.mm`` (a [B, S, D] @ [D, N] folds its rows); attention's and the
+# experts' products carry batch dimensions (``aten.bmm``) and are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(policy: str, fn):
+    """``fn`` under the config's remat policy (``cfg.remat``), as the
+    reference's ``_remat`` wraps a block in ``jax.checkpoint``: "none" is
+    ``fn``; "full" keeps only the call's inputs for the backward and
+    recomputes the rest (non-reentrant ``torch.utils.checkpoint``, which
+    stops recomputing once the backward has what it needs, as XLA drops a
+    dead recompute); "dots" also keeps the outputs of the 2-D products
+    (``_DOTS``). Outside grad mode (serving, decode, the kernels' forwards)
+    every policy is ``fn`` itself. No forward draws random numbers, so no
+    RNG state is kept (which also lets meta tensors through)."""
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    extra = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+        if policy == "dots" else {})
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **extra, **kwargs)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------

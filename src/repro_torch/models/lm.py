@@ -11,6 +11,7 @@ projected image patches prepended as a bidirectional prefix.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -22,6 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as r6
+from repro_torch.models.layers import remat as _remat
 from repro_torch.sharding import shard_act
 
 
@@ -197,18 +199,36 @@ def _hybrid_groups(cfg: ModelConfig):
     return full, tail
 
 
+def _scan_blocks(cfg: ModelConfig, layers, x, *, prefix_len=None):
+    """The homogeneous block stack, each block under ``cfg.remat``:
+    (x, the blocks' summed aux loss)."""
+    blk = _remat(cfg.remat, functools.partial(block_fwd, cfg,
+                                              prefix_len=prefix_len))
+    aux = torch.zeros((), device=x.device)
+    for lp in layers:
+        x, a = blk(lp, x)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def _hybrid_fwd(cfg: ModelConfig, params, x):
     """Zamba2: groups of `attn_every` mamba layers + shared attention block,
-    then the tail layers."""
+    then the tail layers; each Mamba block and each application of the
+    shared block under ``cfg.remat``."""
     full, _ = _hybrid_groups(cfg)
     k = cfg.attn_every
     layers = params["layers"]
+    blk = _remat(cfg.remat, functools.partial(block_fwd, cfg))
+    if full:
+        shared = _remat(cfg.remat, functools.partial(
+            shared_attn_fwd, cfg, params["shared_attn"]))
     for g in range(full):
         for lp in layers[g * k:(g + 1) * k]:
-            x, _ = block_fwd(cfg, lp, x)
-        x = shared_attn_fwd(cfg, params["shared_attn"], x)
+            x, _ = blk(lp, x)
+        x = shared(x)
     for lp in layers[full * k:]:
-        x, _ = block_fwd(cfg, lp, x)
+        x, _ = blk(lp, x)
     return x
 
 
@@ -239,14 +259,11 @@ def lm_forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
         proj = extra_embed.to(x.dtype) @ params["img_proj"]["kernel"].to(x.dtype)
         x = torch.cat([proj, x], dim=1)
     x = shard_act(x, "batch", None, "model", kind="resid")
-    aux = torch.zeros((), device=x.device)
     if cfg.family == "hybrid":
+        aux = torch.zeros((), device=x.device)
         x = _hybrid_fwd(cfg, params, x)
     else:
-        for lp in params["layers"]:
-            x, a = block_fwd(cfg, lp, x, prefix_len=prefix_len)
-            if a is not None:
-                aux = aux + a
+        x, aux = _scan_blocks(cfg, params["layers"], x, prefix_len=prefix_len)
     return _head(cfg, params, x), aux
 
 

@@ -144,7 +144,7 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     e, k = mc.n_experts, mc.top_k
     cap = _capacity(mc, s)
 
-    logits = torch.einsum("bsd,de->bse", x.to(cd), p["router"].to(cd))
+    logits = x.to(cd) @ p["router"].to(cd)    # a 2-D product, as remat sees it
     expert_idx, probs, slot, keep, aux = route(mc, logits, cap)
 
     # ----- dispatch: a [B,E,C] token-index table, then one gather ----------

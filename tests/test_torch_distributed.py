@@ -330,6 +330,19 @@ def _job8(work: str):
     for name, p in plain["params"].named_parameters():
         out["p1/" + name] = p.detach()
         out["p2/" + name] = full["params"].get_parameter(name).detach()
+    # remat on the mesh: the f32 sharded step above keeps granite's
+    # remat="full" (every block checkpointed on DTensors, its shard_act
+    # points inside); the same sharded step without remat
+    _, _, nstate, n2 = _granite_step(mesh_a, "float32", batch,
+                                     cfg_kw={"remat": "none"})
+    out["noremat_step_loss"] = n2["loss"]
+    nfull = shd.full_state(nstate)
+    out["remat_step_param_err"] = max(
+        float((p - nfull["params"].get_parameter(n)).abs().max())
+        for n, p in full["params"].named_parameters())
+    out["remat_step_moment_err"] = max(
+        float((t - nfull["opt"][k][n]).abs().max())
+        for k in ("mu", "nu") for n, t in full["opt"][k].items())
     # the Relic-ring MLP trains on the mesh: the step with mlp_tp_overlap
     # against the same sharded step without it
     _, _, rstate, r2 = _granite_step(mesh_a, "float32", batch,
@@ -521,6 +534,16 @@ def test_mlp_ring_train_step_matches_plain_sharded_step(port8):
     assert abs(float(port8["ring_step_loss"])
                - float(port8["loss2_float32"])) < 1e-5
     assert float(port8["ring_step_param_err"]) < 1e-5
+
+
+def test_remat_train_step_matches_plain_sharded_step(port8):
+    from repro_torch.configs import get_config
+
+    assert get_config("granite_8b", smoke=True).remat == "full"
+    assert abs(float(port8["noremat_step_loss"])
+               - float(port8["loss2_float32"])) < 1e-5
+    assert float(port8["remat_step_param_err"]) < 1e-5
+    assert float(port8["remat_step_moment_err"]) < 1e-5
 
 
 def test_compressed_train_step_on_the_mesh(port8):

@@ -230,18 +230,63 @@ def test_ring_cell_costs_each_hop_as_a_collective_permute(fake8):
     # hops each (the gated forward, the gated backward's pass over x, and
     # the down product's two backward rings over dz), and two
     # reduce-scatter rings of f32 chunks, p hops each (the down product,
-    # and the gated backward's dx).
-    hops = cfg.n_layers * (4 * (p - 1) + 2 * p)
-    moved = cfg.n_layers * (4 * (p - 1) * chunk * act + 2 * p * chunk * acc)
+    # and the gated backward's dx). Under the config's remat="full" the
+    # backward recomputes the block's forward, so the gated forward's and
+    # the down product's rings run once more.
+    assert cfg.remat == "full"
+    hops = cfg.n_layers * (5 * (p - 1) + 3 * p)
+    moved = cfg.n_layers * (5 * (p - 1) * chunk * act + 3 * p * chunk * acc)
     assert plain["collective_counts"]["collective-permute"] == 0
     assert ring["collective_counts"]["collective-permute"] == hops
     assert ring["collective_by_kind"]["collective-permute"] == moved
     # The rings compute the same products on the same shards, and the gated
     # backward recomputes each chunk's gate and up products (it keeps no
     # gathered activations): two [rows, d_model] @ [d_model, d_ff / p]
-    # products a layer more.
-    recompute = cfg.n_layers * 2 * (2 * rows * cfg.d_model * cfg.d_ff // p)
+    # products a layer more. The remat recompute stops once the backward
+    # has what it needs: the plain block's down product, its last op, is
+    # not rerun, but the ring's is, inside the one ring call that the
+    # recompute reruns: one [rows, d_ff / p] @ [d_ff / p, d_model] more.
+    recompute = cfg.n_layers * 3 * (2 * rows * cfg.d_model * cfg.d_ff // p)
     assert ring["hlo_flops"] == plain["hlo_flops"] + recompute
+
+
+def test_remat_cell_costs_the_recompute(fake8, monkeypatch):
+    # The same cell under each remat policy. "full" runs every block's
+    # forward twice: its FLOPs are the cell's without remat plus each
+    # block's forward FLOPs counted alone (a meter of its own around each
+    # block call), less what the recompute need not rerun: it stops once
+    # the backward has what it needs, before the block's last product, the
+    # MLP's down projection ([rows, d_ff / p] @ [d_ff / p, d_model] on a
+    # rank). Keeping fewer activations, it holds the fewest temp bytes;
+    # "dots" keeps the 2-D products' outputs besides.
+    from repro_torch.models import lm
+
+    cfg = get_config("granite_8b", smoke=True)
+    recs = {pol: dr.analyze_cell(cfg.replace(remat=pol), CELL, fake8)
+            for pol in ("full", "dots")}
+    blocks, plain_remat = [], lm._remat
+
+    def metered(policy, fn):
+        inner = plain_remat(policy, fn)
+
+        def call(*args, **kwargs):
+            with dr._Meter() as m:
+                out = inner(*args, **kwargs)
+            blocks.append(m.flops)
+            return out
+        return call
+
+    monkeypatch.setattr(lm, "_remat", metered)
+    recs["none"] = dr.analyze_cell(cfg.replace(remat="none"), CELL, fake8)
+    assert len(blocks) == cfg.n_layers
+    data, p = 4, 2                                   # the (4, 2) mesh
+    rows = CELL.global_batch // data * CELL.seq_len
+    tail = cfg.n_layers * 2 * rows * (cfg.d_ff // p) * cfg.d_model
+    flops = {k: r["per_device"]["hlo_flops"] for k, r in recs.items()}
+    assert flops["full"] == flops["none"] + sum(blocks) - tail
+    assert flops["none"] < flops["dots"] < flops["full"]
+    temp = {k: r["memory"]["temp_bytes"] for k, r in recs.items()}
+    assert temp["full"] < temp["dots"] < temp["none"], temp
 
 
 # ---------------------------------------------------------------------------

@@ -240,25 +240,63 @@ def test_smoke_train_step(arch, rng):
     assert np.isfinite(float(metrics2["loss"])), arch
 
 
+class _GradsModel:
+    """A stand-in for the reference's ``Model`` in its train step: the loss
+    sum(p * G) over the leaves, whose gradient is the batch's G exactly, so
+    the jitted step runs its clip and AdamW on gradients it is handed."""
+
+    @staticmethod
+    def loss(params, batch):
+        total = sum(jnp.sum(p * g) for p, g in zip(jax.tree.leaves(params),
+                                                   jax.tree.leaves(batch["grads"])))
+        return total, {"loss": total}
+
+
 @pytest.mark.parametrize("arch", ["arctic_480b", "paligemma_3b", "whisper_large_v3"])
-def test_train_step_matches_reference_f32(rng, arch):
+def test_train_step_matches_reference_f32(rng, monkeypatch, arch):
     """One AdamW step of the MoE, the VLM and the encoder-decoder against the
-    reference's jitted step from the same state and batch (the moments and
-    parameters at test_torch_train.py's 1e-4 relative, 1e-6 absolute)."""
+    reference from the same state and batch, in two holds (as
+    test_torch_train.py splits them): the loss metrics and every gradient of
+    the port's step against ``jax.grad`` of the reference's loss; then the
+    reference's jitted clip-and-AdamW step and the port's on the same
+    gradients (the reference's, handed to both), parameters and moments at
+    1e-4 relative, 1e-6 absolute. AdamW's first step moves a weight by
+    about lr * g / (|g| + 1e-8), so held end to end it would turn the f32
+    summation order of a gradient near 1e-7 into a parameter difference
+    above the bar."""
     from repro import optim as joptim
     from repro.launch.steps import make_train_step as jmake_train_step
+    from repro_torch.launch import steps as tsteps
     from repro_torch.models.convert import train_state_from_numpy, train_state_to_numpy
 
     jcfg, tcfg = _cfgs(arch, **F32)
-    js = jmake_train_state(jbuild_model(jcfg), jax.random.PRNGKey(0))
+    jmodel = jbuild_model(jcfg)
+    js = jmake_train_state(jmodel, jax.random.PRNGKey(0))
     ts = train_state_from_numpy(tcfg, jax.tree.map(np.asarray, js))
     batch = _inputs(tcfg, rng)
     oc = dict(warmup_steps=2, total_steps=10)
-    js, jm = jax.jit(jmake_train_step(jbuild_model(jcfg), joptim.OptConfig(**oc)))(
-        js, _jax_batch(batch))
+    (_, jmetrics), jg = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(
+        js["params"], _jax_batch(batch))
+    handed = {n: p.detach() for n, p in
+              _port(tcfg, jg).named_parameters()}
+    own_grads = tsteps._grads
+
+    def reference_grads(model, params, b):
+        metrics, grads = own_grads(model, params, b)
+        for name, g in grads.items():
+            np.testing.assert_allclose(g.numpy(), handed[name].numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=name)
+        return metrics, handed
+
+    monkeypatch.setattr(tsteps, "_grads", reference_grads)
+    js, jm = jax.jit(jmake_train_step(_GradsModel, joptim.OptConfig(**oc)))(
+        js, {"grads": jg})
     ts, tm = make_train_step(build_model(tcfg, "cpu"), optim.OptConfig(**oc))(
         ts, _torch_batch(batch))
-    for key in ("loss", "ce", "grad_norm", "lr"):
+    for key in ("loss", "ce"):
+        np.testing.assert_allclose(float(tm[key]), float(jmetrics[key]),
+                                   rtol=1e-4, err_msg=key)
+    for key in ("grad_norm", "lr"):
         np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-4,
                                    err_msg=key)
     got, want = train_state_to_numpy(ts), jax.tree.map(np.asarray, js)

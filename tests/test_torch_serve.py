@@ -199,6 +199,25 @@ def test_serve_cli_serves_the_other_families(arch):
     assert int(toks.min()) >= 0 and int(toks.max()) < 512
 
 
+def test_load_model_cuts_depth_and_keeps_width():
+    """``n_layers`` cuts the depth (as chip_smoke.py serves granite_8b):
+    the first layers' weights are the full-depth draw's, in the serving
+    layout."""
+    cfg, _, params = serve.load_model("granite_8b", smoke=True, device="cpu",
+                                      n_layers=1)
+    full_cfg, _, full = serve.load_model("granite_8b", smoke=True, device="cpu")
+    assert cfg == full_cfg.replace(n_layers=1) and full_cfg.n_layers == 2
+    assert len(params["layers"]) == 1
+    assert params["embed"]["table"].dtype == torch.bfloat16
+    assert torch.equal(params["layers"][0]["attn"]["wq"],
+                       full["layers"][0]["attn"]["wq"])
+    toks, _ = serve.run(serve.parse_args(
+        ["--arch", "granite_8b", "--smoke", "--batch", "2", "--prompt-len",
+         "4", "--gen", "3", "--device", "cpu"]), cfg,
+        build_model(cfg, "cpu"), params, torch.device("cpu"))
+    assert toks.shape == (2, 3)
+
+
 # ---------------------------------------------------------------------------
 # behaviour of the copied runtime, driven through the port's package
 # ---------------------------------------------------------------------------
