@@ -121,17 +121,34 @@ Phases (any failure exits non-zero):
      ``FlopCounterMode`` over the real step, the predicted peak and the
      step time beside the measured ones, the train step under each remat
      policy ("none", "full", "dots"); and the mesh serve step's greedy
-     tokens against the plain serve step's, exactly;
- 14. a long relic_tiny forward and loss at [4, 2048] with the kernel against
+     tokens against the plain serve step's, exactly; granite_8b's
+     decode_32k record must count below 1e9 collective wire bytes a device
+     (split-T keeps each rank's slice of the cache where it is);
+ 14. split-T decode and the vocab-parallel log-likelihood at granite_8b's
+     full width (``phase_split_decode``, after the dry-run): a decode
+     attention over a [8, 32768, 8, 128] bf16 cache at position 30000, its
+     time axis cut into 16 slices on the card as the pod's "model" axis
+     cuts it, ``attention_partial`` on each and ``combine_partials`` over
+     them against ``attention_full``; the log-likelihood of [8, 192, 49152]
+     f32 logits cut 16 ways (``vocab_partial``, ``combine_vocab_partials``)
+     against ``torch.log_softmax`` and a gather, value and gradient; each
+     timed beside the unsplit function;
+ 15. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6, each family of 7, and 8 are the main paths: each starts
 with every kernel's launch count at 0 and its counts are read when it ends;
-every flash launch there and in phase 14 must go through the wgmma design
+every flash launch there and in phase 15 must go through the wgmma design
 (none through the CUDA-core kernel) and every ssd and wkv6 launch through
 the tensor-core one, and the
 quickstart's one relic_matmul launch through the f32 design; phases 9 to
-13 must launch no kernel (training runs the plain paths, as the
+14 must launch no kernel (training runs the plain paths, as the
 reference's does, and the workloads' kernels were never Pallas ones).
+On the one-rank mesh the cache's time axis is sharded over a "model" axis
+of one: every attention of the mesh serve step must take split-T (phase
+13), none the per-head path. The logits' vocab there is held whole by
+its one rank, so the mesh train step's loss keeps the single-device
+arithmetic (phase 12); the vocab-parallel loss runs on the card in phase
+14.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the card's name and power limit and the one before that
@@ -176,6 +193,8 @@ from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,  # noqa: E402
                                       make_train_state, make_train_step)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as m2  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import rwkv6 as r6  # noqa: E402
@@ -627,6 +646,28 @@ def _launched(counter: str, n: int, fn, label: str):
         raise AssertionError(f"{label}: {getattr(fa, counter) - before} "
                              f"{counter}, want {n}")
     return out
+
+
+@contextlib.contextmanager
+def _calls(*targets):
+    """Count the calls of ``(module, function name)`` targets while the
+    block runs: yields {name: calls}; the functions are restored after."""
+    counts = {name: 0 for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def time_flash(label, q, k, v, iters, causal=True):
@@ -1770,20 +1811,28 @@ def _mesh_checks(device, card, mesh):
     dstate = shd.distribute_state(plain, mesh)
     batches = [_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, device)
                for s in range(MESH_STEPS)]
-    runs = {}
+    runs, loss_calls = {}, {}
     for label, state, step in (
             ("DTensor", dstate, make_train_step(model, TRAIN_OC, mesh=mesh)),
             ("plain", plain, make_train_step(model, TRAIN_OC))):
         losses = []
-        for i, batch in enumerate(batches):
-            if i == 1:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            state, metrics = step(state, batch)
-            losses.append(float(metrics["loss"]))
-        torch.cuda.synchronize()
+        with _calls((L, "combine_vocab_partials")) as calls:
+            for i, batch in enumerate(batches):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / (MESH_STEPS - 1)
         runs[label] = (state, losses, ms)
+        loss_calls[label] = calls["combine_vocab_partials"]
+    # the DTensor step's vocab is "sharded" over a "model" axis of one rank,
+    # which holds it whole: its loss keeps the single-device arithmetic
+    # (models/layers.py::log_likelihood), bit for bit the plain step's
+    if loss_calls != {"DTensor": 0, "plain": 0}:
+        raise AssertionError(f"[mesh] vocab-parallel loss calls {loss_calls}"
+                             f" on a vocab one rank holds whole")
     (dstate, dl, dms), (plain, pl, pms) = runs["DTensor"], runs["plain"]
     full = shd.full_state(dstate)
     worst = 0.0
@@ -1800,7 +1849,8 @@ def _mesh_checks(device, card, mesh):
           f"{dms:.2f} ms/step, plain {pms:.2f} ms/step over steps 2-"
           f"{MESH_STEPS} ({dms / pms:.2f}x); losses {dl} against {pl}; "
           f"largest parameter difference {worst:.3g} (tol 1e-4 relative + "
-          f"1e-6); {card}")
+          f"1e-6); the DTensor loss over the whole vocab of its one rank; "
+          f"{card}")
 
     # The Relic rings at relic_tiny's MLP shape (bf16), against the plain
     # products; one rank moves nothing, so this is the rings' own cost.
@@ -1933,14 +1983,17 @@ DRYRUN_KEYS = ("memory", "per_device", "model_flops_global",
                "useful_flops_ratio", "roofline_terms_s", "dominant", "method")
 DRYRUN_DECODE_LEN = 2048   # the card check's cache length (batch 8)
 DRYRUN_TOKENS = 8          # decode steps of the mesh-vs-plain token check
+# granite_8b decode_32k on the pod mesh: 3.66e10 with the cache gathered
+DRYRUN_DECODE_WIRE_MAX = 1e9
 
 
 def _dryrun_records():
     """``python -m repro_torch.launch.dryrun`` for granite_8b's two cells on
     the 16 x 16 production mesh (a fake group of 256 ranks on this host's
     CPU, meta tensors): each record must hold every key, and positive
-    FLOPs, bytes and collective bytes."""
+    FLOPs, bytes and collective bytes. Returns {shape: record}."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    recs = {}
     for shape in DRYRUN_CELLS:
         t0 = time.perf_counter()
         out = subprocess.run(
@@ -1972,6 +2025,8 @@ def _dryrun_records():
               f"{rec['useful_flops_ratio']:.4f}; terms "
               f"{rec['roofline_terms_s']} (H100 SXM data-sheet rates); "
               f"dominant {rec['dominant']}", flush=True)
+        recs[shape] = rec
+    return recs
 
 
 def _active_blocks() -> dict:
@@ -2066,8 +2121,19 @@ def phase_dryrun(device, card):
     prediction for relic_tiny at full width, the 8 x 256 train step and a
     batch-8 decode step, held against the same steps on the card over a
     one-rank NCCL ``(1, 1)`` mesh; (c) the mesh serve step's tokens against
-    the plain serve step's, exactly."""
-    _dryrun_records()
+    the plain serve step's, exactly, every attention of the mesh step
+    split-T (its cache's time axis sharded over a "model" axis of one)."""
+    recs = _dryrun_records()
+    wire = {k: r["per_device"]["collective_wire_bytes"]
+            for k, r in recs.items()}
+    print(f"[dryrun] granite_8b collective wire bytes a device on the pod "
+          f"mesh: decode_32k {wire['decode_32k']:.6g} (split-T; below "
+          f"{DRYRUN_DECODE_WIRE_MAX:.0e}), train_4k {wire['train_4k']:.6g}",
+          flush=True)
+    if not wire["decode_32k"] < DRYRUN_DECODE_WIRE_MAX:
+        raise AssertionError(f"[dryrun] decode_32k moves "
+                             f"{wire['decode_32k']:.6g} collective bytes a "
+                             f"device: the cache is gathered")
 
     cfg = get_config(ARCH)
     train = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ,
@@ -2130,7 +2196,7 @@ def phase_dryrun(device, card):
 
         # (c) the same greedy tokens from the mesh step and the plain one
         prompt = batch_for(decode, dmodel)["tokens"]
-        runs = []
+        runs, paths = [], []
         for step, params, cache in (
                 (make_serve_step(dmodel), dparams,
                  dmodel.init_cache(SERVE_BATCH, DRYRUN_DECODE_LEN)),
@@ -2138,19 +2204,137 @@ def phase_dryrun(device, card):
                  shd.distribute_cache(dmodel.init_cache(
                      SERVE_BATCH, DRYRUN_DECODE_LEN), mesh))):
             tok, toks = prompt, []
-            for pos in range(DRYRUN_TOKENS):
-                tok, _, cache = step(params, cache, tok, pos)
-                tok = tok.full_tensor() if hasattr(tok, "full_tensor") else tok
-                toks.append(tok)
+            with _calls((attn, "combine_partials"),
+                        (attn, "_per_head_shard")) as calls:
+                for pos in range(DRYRUN_TOKENS):
+                    tok, _, cache = step(params, cache, tok, pos)
+                    tok = (tok.full_tensor() if hasattr(tok, "full_tensor")
+                           else tok)
+                    toks.append(tok)
             runs.append(torch.cat(toks, 1))
+            paths.append(dict(calls))
         same = torch.equal(runs[0], runs[1])
+        split = {"combine_partials": DRYRUN_TOKENS * cfg.n_layers,
+                 "_per_head_shard": 0}
         print(f"[dryrun] {cfg.name} serve step on the (1, 1) mesh against the "
               f"plain serve step, {DRYRUN_TOKENS} greedy steps of batch "
-              f"{SERVE_BATCH}: tokens equal {same}; {card}")
+              f"{SERVE_BATCH}: tokens equal {same}; mesh step's attention "
+              f"calls {paths[1]} (plain {paths[0]}); {card}")
         if not same:
             raise AssertionError("[dryrun] the mesh serve step's tokens differ")
+        if paths != [{"combine_partials": 0, "_per_head_shard": 0}, split]:
+            raise AssertionError(f"[dryrun] the mesh serve step's attention "
+                                 f"did not take split-T on every layer: "
+                                 f"{paths}, want {split}")
     finally:
         torch.distributed.destroy_process_group()
+
+
+# granite_8b's decode attention at full width on the pod's cache layout:
+# batch 8, a 32k cache of 8 kv heads of 128, 32 query heads, the time axis
+# cut 16 ways as the 16 x 16 pod's "model" axis cuts it; and its loss's
+# logits (vocab 49152) cut 16 ways.
+SPLIT_CACHE = (8, 32768, 8, 128)   # (b, t, kv, d)
+SPLIT_HEADS = 32
+SPLIT_POS = 30000
+SPLIT_SLICES = 16
+SPLIT_LOGITS = (8, 192, 49152)
+SPLIT_LL_TOL = 1e-5   # tests/test_torch_split_decode.py's f32 bar
+
+
+def phase_split_decode(device, card):
+    """Split-T decode attention and the vocab-parallel log-likelihood at
+    granite_8b's full width, each cut on the card as the pod mesh cuts it
+    and combined with the default ``reduce`` over the stacked slices (the
+    arithmetic of the mesh path, whose all-reduces one card cannot run
+    between ranks): held against the unsplit function and timed beside
+    it."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    b, t, kv, d = SPLIT_CACHE
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    q, k, v = rnd(b, 1, SPLIT_HEADS, d), rnd(b, t, kv, d), rnd(b, t, kv, d)
+    n, kv_len = SPLIT_SLICES, SPLIT_POS + 1
+    tl = t // n
+
+    def split():
+        parts = [attn.attention_partial(q, k[:, i * tl:(i + 1) * tl],
+                                        v[:, i * tl:(i + 1) * tl], t0=i * tl,
+                                        kv_len=kv_len) for i in range(n)]
+        o, m, l = (torch.stack(x) for x in zip(*parts))
+        return attn.combine_partials(o, m, l).to(q.dtype)
+
+    def full():
+        return attn.attention_full(q, k, v, causal=False, kv_len=kv_len)
+
+    with torch.no_grad():
+        got, want = split(), full()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=TOL[bf16], atol=TOL[bf16])
+        split_ms, full_ms = kernel_ms(split, n=5), kernel_ms(full, n=5)
+        split_ev, full_ev = time_ms(split, 10), time_ms(full, 10)
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    # bound: the cache read once, by bytes (the products are 2 x 32 x 128
+    # operations a position and row, far below the tensor cores' rate)
+    bound = 2 * k.numel() * k.element_size() / PEAK_BYTES_S * 1e3
+    print(f"[split] decode attention q [{b}, 1, {SPLIT_HEADS}, {d}] over a "
+          f"[{b}, {t}, {kv}, {d}] bf16 cache at position {SPLIT_POS}, T cut "
+          f"into {n} slices of {tl}: attention_partial x {n} + "
+          f"combine_partials device {ms(split_ms)} (events "
+          f"{split_ev:.4f} ms), attention_full {ms(full_ms)} (events "
+          f"{full_ev:.4f} ms), bound {bound:.4f} ms by bytes; max |diff| "
+          f"{err:.3g} (tol {TOL[bf16]}); {card}", flush=True)
+    del q, k, v, got, want
+
+    bs, s, vocab = SPLIT_LOGITS
+    x = rnd(bs, s, vocab, dtype=torch.float32) * 4
+    labels = torch.randint(0, vocab, (bs, s), generator=gen, device=device)
+    w = rnd(bs, s, dtype=torch.float32)
+    v0 = (torch.arange(n, device=device) * (vocab // n))[:, None, None]
+
+    def split_ll(xx):
+        stacked = xx.reshape(bs, s, n, vocab // n).permute(2, 0, 1, 3)
+        return L.combine_vocab_partials(*L.vocab_partial(stacked, labels,
+                                                         v0))
+
+    def full_ll(xx):
+        logp = torch.log_softmax(xx, dim=-1)
+        return torch.gather(logp, -1, labels[..., None])[..., 0]
+
+    grads = []
+    for fn in (split_ll, full_ll):
+        xx = x.clone().requires_grad_(True)
+        ll = fn(xx)
+        (ll * w).sum().backward()
+        grads.append((ll.detach(), xx.grad))
+    (got, g_got), (want, g_want) = grads
+    err = (got - want).abs().max().item()
+    g_err = (g_got - g_want).abs().max().item()
+    torch.testing.assert_close(got, want, rtol=SPLIT_LL_TOL, atol=SPLIT_LL_TOL)
+    torch.testing.assert_close(g_got, g_want, rtol=SPLIT_LL_TOL,
+                               atol=SPLIT_LL_TOL)
+    del grads, g_got, g_want
+    with torch.no_grad():
+        split_ms, full_ms = (kernel_ms(lambda: split_ll(x), n=5),
+                             kernel_ms(lambda: full_ll(x), n=5))
+        split_ev, full_ev = (time_ms(lambda: split_ll(x), 10),
+                             time_ms(lambda: full_ll(x), 10))
+    # bound: the logits read once, by bytes
+    bound = x.numel() * x.element_size() / PEAK_BYTES_S * 1e3
+    print(f"[split] log-likelihood of [{bs}, {s}, {vocab}] f32 logits, the "
+          f"vocab cut into {n} slices of {vocab // n}: vocab_partial + "
+          f"combine_vocab_partials device {ms(split_ms)} (events "
+          f"{split_ev:.4f} ms), log_softmax + gather {ms(full_ms)} (events "
+          f"{full_ev:.4f} ms), bound {bound:.4f} ms by bytes; max |diff| "
+          f"{err:.3g}, gradient {g_err:.3g} (tol {SPLIT_LL_TOL}); {card}",
+          flush=True)
 
 
 def phase_workloads(device, card):
@@ -2914,6 +3098,12 @@ def main() -> int:
     phase_dryrun(device, card)
     _count_path("dry-run", {}, entries)
     print(f"[main] dry-run phase {time.perf_counter() - t_dry:.1f} s")
+    torch.cuda.empty_cache()
+    _reset_launches()
+    t_split = time.perf_counter()
+    phase_split_decode(device, card)
+    _count_path("split decode", {}, entries)
+    print(f"[main] split decode phase {time.perf_counter() - t_split:.1f} s")
     torch.cuda.empty_cache()
     _reset_launches()
     t1 = time.perf_counter()

@@ -43,7 +43,7 @@ the FLOPs count that recompute and the live bytes fall; "dots" keeps the
 Run on the CPU, no card needed:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
-        [--mesh pod|multipod|both] [--force]
+        [--mesh pod|multipod|both] [--force] [--sites]
 
 Records go to ``build/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 """
@@ -54,7 +54,9 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import time
+import traceback
 import weakref
 from pathlib import Path
 from typing import Optional
@@ -175,16 +177,53 @@ def _under_fake_mode() -> bool:
     return detect_fake_mode() is not None
 
 
+_FRAME = re.compile(r'File "([^"]*)", line \d+, in (\S+)')
+# frames that issue collectives for their callers: the site is the caller
+_RELAY = ("sharding.py", "launch/dryrun.py")
+
+
+def _site(frames, relay=_RELAY) -> Optional[str]:
+    """``module:function`` of the innermost port frame in ``frames``
+    ((file, function) pairs, innermost first) that is not in ``relay``."""
+    for path, fn in frames:
+        _, pkg, rel = path.replace("\\", "/").rpartition("/repro_torch/")
+        if pkg and not rel.endswith(relay):
+            return f"{rel}:{fn}"
+    return None
+
+
+def _issuing_site() -> str:
+    """Where the collective being counted comes from: the live stack's
+    innermost port frame in the forward ("forward"); in the backward, the
+    block a remat recompute reruns ("recompute"), else the forward frame
+    that recorded the autograd node now running (anomaly mode keeps it:
+    "backward")."""
+    live = [(f.f_code.co_filename, f.f_code.co_name)
+            for f, _ in traceback.walk_stack(None)]
+    node = torch._C._current_autograd_node()
+    if node is None:
+        return f"{_site(live)} forward"
+    site = _site(live, _RELAY + ("launch/steps.py",))
+    if site is not None:
+        return f"{site} recompute"
+    tb = "".join(node.metadata.get("traceback_", []))
+    return f"{_site(reversed(_FRAME.findall(tb)))} backward"
+
+
 class _Meter(TorchDispatchMode):
     """Counts what this rank runs inside the block: FLOPs, bytes read and
     written, collective wire bytes by kind, and the bytes of local tensors
     alive (``live``, its high-water mark ``peak``), from zero at entry.
     DTensor ops return ``NotImplemented`` here, so DTensor runs them and
     the meter sees the local ops they become. ``hold`` marks storages that
-    existed before (the arguments), so views of them count nothing."""
+    existed before (the arguments), so views of them count nothing. With
+    ``sites`` the wire bytes are also summed by the port's call site that
+    issued them (``by_site``, from ``_issuing_site``; the backward's sites
+    need anomaly mode on while the step runs)."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
+        self.by_site = {} if sites else None
         self.flops = 0
         self.bytes = 0
         self.coll = {k: 0.0 for k in KINDS}
@@ -208,9 +247,15 @@ class _Meter(TorchDispatchMode):
     def _ring_move(self, size: int) -> None:
         """A ring's P2P move of ``size`` bytes, made on meta tensors (which
         no backend sends): a collective-permute, as ``c10d.send`` is."""
-        self.coll["collective-permute"] += wire_bytes("collective-permute",
-                                                      size, 2)
-        self.counts["collective-permute"] += 1
+        self._count("collective-permute",
+                    wire_bytes("collective-permute", size, 2))
+
+    def _count(self, kind: str, wire: float) -> None:
+        self.coll[kind] += wire
+        self.counts[kind] += 1
+        if self.by_site is not None:
+            site = _issuing_site()
+            self.by_site[site] = self.by_site.get(site, 0.0) + wire
 
     def _free(self, n: int) -> None:
         self.live -= n
@@ -243,8 +288,7 @@ class _Meter(TorchDispatchMode):
                 out if at is not None else args[0])
                 if isinstance(t, torch.Tensor))
             group = 2 if at is None else _group_size(args[at])
-            self.coll[kind] += wire_bytes(kind, size, group)
-            self.counts[kind] += 1
+            self._count(kind, wire_bytes(kind, size, group))
         elif not func.is_view and func.namespace not in ("_c10d_functional",
                                                          "c10d"):
             if packet in flop_registry:
@@ -316,11 +360,15 @@ def _prep_cfg(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
     return cfg.replace(**kw)
 
 
-def analyze_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
+def analyze_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                 sites: bool = False) -> dict:
     """Run one sharded step of ``cfg`` at ``shape`` on ``mesh`` over meta
     state under the meter; returns {"memory", "per_device", "step_s"} for
     this rank. ``cfg`` is taken as given (``run_cell`` preps it). With
-    ``mesh=None`` the same step runs unsharded, in one process."""
+    ``mesh=None`` the same step runs unsharded, in one process. With
+    ``sites`` the step runs in anomaly mode and ``per_device`` gains
+    ``collective_by_site`` ({"module:function phase": wire bytes}, largest
+    first)."""
     model = build_model(cfg, "meta")
     batch, cache_len = model.input_specs(shape)
     if mesh is not None:
@@ -341,10 +389,12 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
         step = make_train_step(model, OptConfig(), mesh=mesh)
         call = lambda: step(*args)                       # noqa: E731
     arg_local = list(_local_tensors(args))
-    meter = _Meter()
+    meter = _Meter(sites)
     meter.hold(arg_local)
+    anomaly = (torch.autograd.detect_anomaly(check_nan=False) if sites
+               else contextlib.nullcontext())
     t0 = time.perf_counter()
-    with meter:
+    with anomaly, meter:
         out = call()
     step_s = time.perf_counter() - t0
     held = {id(t.untyped_storage()) for t in arg_local}
@@ -366,13 +416,17 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
         "collective_by_kind": coll,
         "collective_counts": dict(meter.counts),
     }
+    if sites:
+        per_device["collective_by_site"] = dict(sorted(
+            meter.by_site.items(), key=lambda kv: -kv[1]))
     return {"memory": mem, "per_device": per_device, "step_s": step_s}
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str, *,
-             force: bool = False) -> dict:
+             force: bool = False, sites: bool = False) -> dict:
     """The record of one cell, from ``ART_DIR`` unless ``force``; the
-    default group must be the fake group of the mesh's size."""
+    default group must be the fake group of the mesh's size. ``sites``:
+    see ``analyze_cell``."""
     ART_DIR.mkdir(parents=True, exist_ok=True)
     out_path = ART_DIR / f"{arch}__{shape_name}__{mesh_name}.json"
     if out_path.exists() and not force:
@@ -390,7 +444,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
     mesh = make_production_mesh(multi_pod=(mesh_name == "multipod"),
                                 device="cpu")
     n_chips = mesh.size()
-    cost = analyze_cell(_prep_cfg(cfg, shape), shape, mesh)
+    cost = analyze_cell(_prep_cfg(cfg, shape), shape, mesh, sites=sites)
     mf = model_flops(cfg, shape)
     dev = cost["per_device"]
     terms = {
@@ -443,6 +497,9 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--mesh", default="both",
                     choices=["pod", "multipod", "both"])
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--sites", action="store_true",
+                    help="also sum the collective bytes by the call site "
+                         "that issued them (anomaly mode: slower)")
     args = ap.parse_args(argv)
 
     archs = [a for a in ARCH_IDS if a != "relic_tiny"] \
@@ -460,7 +517,7 @@ def main(argv: Optional[list] = None) -> int:
                     try:
                         t0 = time.time()
                         rec = run_cell(arch, shape, mesh_name,
-                                       force=args.force)
+                                       force=args.force, sites=args.sites)
                         if "skipped" in rec:
                             print(f"[skip] {tag}: {rec['skipped']}",
                                   flush=True)

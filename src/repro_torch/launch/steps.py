@@ -165,15 +165,10 @@ def make_serve_step(model: Model, mesh=None):
         with shd.use_sharding_rules(mesh), implicit_replication():
             logits, cache = model.decode_step(params, cache, tokens, pos)
             batch = shd.batch_axes(mesh, logits.shape[0])
-
-            def laid_out(entries):
-                return logits.redistribute(mesh, shd.placements(
-                    mesh, shd.fit_spec(mesh, entries, logits.shape)))
-
-            # the greedy pick over the whole vocab of each row (DTensor's
-            # argmax over a sharded dim fails for a replicated batch)
-            nxt = laid_out([batch, None, None]).argmax(dim=-1)
-            return nxt, laid_out([batch, None, "model"]), cache
+            spec = shd.fit_spec(mesh, [batch, None, "model"], logits.shape)
+            logits = logits.redistribute(mesh, shd.placements(mesh, spec))
+            # the greedy pick over the vocab shards, none gathered
+            return shd.argmax_sharded(logits), logits, cache
 
     return serve_step
 

@@ -19,7 +19,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, apply_rope, dt, rms_norm_headwise
-from repro_torch.sharding import on_local_shards, shard_act
+from repro_torch.sharding import (mesh_reduce, on_local_shards, shard_act,
+                                  shard_index, sharding_dims, stacked_reduce)
 
 NEG_INF = -1e30
 
@@ -79,6 +80,52 @@ def attention_full(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
     return o.reshape(q.shape).to(q.dtype)
+
+
+def attention_partial(
+    q: torch.Tensor,          # [B,Sq,H,Dh]
+    k: torch.Tensor,          # [B,Tk,Kv,Dh], positions t0 .. t0 + Tk
+    v: torch.Tensor,          # [B,Tk,Kv,Dh]
+    *,
+    t0: int = 0,
+    kv_len: Optional[int] = None,
+):
+    """The softmax partials of ``q`` over one slice of the keys' time axis
+    (flash-decoding's split-T), no causal mask: (o [B,Sq,H,Dh], the sum of
+    ``exp(s - m) v`` unnormalised; m [B,Sq,H], the slice's largest score;
+    l [B,Sq,H], the sum of ``exp(s - m)``), all f32. Global positions
+    ``t0 + j`` at or past ``kv_len`` score ``NEG_INF``, as in
+    ``attention_full``. ``combine_partials`` joins the slices."""
+    n_kv = k.shape[2]
+    qg = _grouped(q, n_kv)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg.float() * scale, k.float())
+    if kv_len is not None:
+        kpos = t0 + torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(~(kpos < kv_len), NEG_INF)
+    m = s.amax(-1)                                      # [B,Kv,G,Sq]
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
+    b, sq, h, _ = q.shape
+
+    def per_head(t):                                    # -> [B,Sq,H]
+        return t.permute(0, 3, 1, 2).reshape(b, sq, h)
+
+    return o.reshape(q.shape), per_head(m), per_head(p.sum(-1))
+
+
+def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     reduce=stacked_reduce) -> torch.Tensor:
+    """The attention output (f32) from the slices' partials
+    (``attention_partial``): ``reduce(t, op)`` takes the max or the sum over
+    the slices, of partials stacked on dim 0 by default, across the ranks
+    that hold the slices on a mesh (``sharding.mesh_reduce``). Each slice is
+    rescaled by ``exp(m - max m)``."""
+    m_all = reduce(m, "max")
+    c = torch.exp(m - m_all)
+    l_all = reduce(l * c, "sum")
+    o_all = reduce(o * c[..., None], "sum")
+    return o_all / l_all[..., None]
 
 
 def attention_chunked(
@@ -150,16 +197,6 @@ def _pick_chunk(n: int, target: int) -> int:
     return n
 
 
-def _shard_index(mesh, placements, dim: int) -> int:
-    """This rank's shard of tensor dim ``dim`` under ``placements`` (the mesh
-    dims that shard it, in mesh order, as ``placements`` lays them out)."""
-    idx = 0
-    for i, p in enumerate(placements):
-        if isinstance(p, Shard) and p.dim == dim:
-            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
-    return idx
-
-
 def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, h_loc: int,
                   group: int):
     """The kv heads that local q heads ``h0 .. h0 + h_loc`` read (global q
@@ -184,7 +221,7 @@ def _per_head_shard(fn, q: DTensor, k, v) -> DTensor:
     rank's q heads. The result keeps q's layout. (Local tensors: DTensor's
     einsum rules cannot flatten a sharded dim on every release.)"""
     h, n_kv = q.shape[2], k.shape[2]
-    h0 = _shard_index(q.device_mesh, q.placements, 2)
+    h0 = shard_index(q.device_mesh, q.placements, 2)
 
     def local(ql, kl, vl):
         h_loc = ql.shape[2]
@@ -195,6 +232,39 @@ def _per_head_shard(fn, q: DTensor, k, v) -> DTensor:
     bshd, batch = (0, 1, 2, 3), (0, None, None, None)
     return on_local_shards(local, q, (0, 2), [(q, bshd), (k, batch),
                                               (v, batch)], [bshd])
+
+
+def _split_t_dims(k: torch.Tensor, v: torch.Tensor):
+    """The mesh dims that shard k's and v's time axis (dim 1), as
+    ``distribute_cache`` lays out (evenly) a cache whose T the ``model``
+    axis divides; empty where they do not."""
+    if not isinstance(v, DTensor) or v.placements != k.placements:
+        return ()
+    return sharding_dims(k, 1)
+
+
+def _split_t(q: DTensor, k: DTensor, v: DTensor, dims,
+             kv_len: Optional[int]) -> DTensor:
+    """Attention against a cache whose time axis the mesh dims ``dims``
+    shard, the cache left where it is: q is laid out on the cache's batch
+    sharding with its heads whole (a few KB), each rank computes the
+    partials over its own slice (global positions ``t0 + j``), and the
+    partials are combined by all-reduces over ``dims``. The result takes
+    q's layout again (a partial sum in q's layout is replicated there)."""
+    mesh = k.device_mesh
+    shard = shard_index(mesh, k.placements, 1)
+    reduce = mesh_reduce(mesh, dims)
+
+    def local(ql, kl, vl):
+        o, m, l = attention_partial(ql, kl, vl, t0=shard * kl.shape[1],
+                                    kv_len=kv_len)
+        return combine_partials(o, m, l, reduce).to(ql.dtype)
+
+    bthd, batch = (0, 1, 2, 3), (0, None, None, None)
+    o = on_local_shards(local, k, (0, 1), [(q, batch), (k, bthd), (v, bthd)],
+                        [batch])
+    return o.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                 for p in q.placements])
 
 
 def attention_core(
@@ -210,12 +280,18 @@ def attention_core(
 ) -> torch.Tensor:
     """Dispatch: kernels > chunked (long S) > full. DTensors (a sharded
     forward) take the plain paths on each rank's local q heads and batch
-    rows (``_per_head_shard``): the kernels refuse them."""
+    rows (``_per_head_shard``), or, against a cache whose time axis is
+    sharded, split-T on each rank's slice (``_split_t``): the kernels
+    refuse them."""
     sq, sk = q.shape[1], k.shape[1]
     if cfg.use_kernels and sq > 1 and prefix_len is None:
         from repro_torch.kernels import ops  # deferred: kernels are optional
 
         return ops.flash_attention(q, k, v, causal=causal)
+    if isinstance(q, DTensor) and not causal and prefix_len is None:
+        dims = _split_t_dims(k, v)
+        if dims:
+            return _split_t(q, k, v, dims, kv_len)
     if isinstance(q, DTensor):
         return _per_head_shard(
             lambda q_, k_, v_: attention_core(
@@ -352,7 +428,7 @@ def _write_position(cache_t: torch.Tensor, pos: int, new: torch.Tensor):
     new = new.redistribute(mesh, batch_pl).to_local()
     local = cache_t.to_local()
     t_loc = local.shape[1]
-    if _shard_index(mesh, pl, 1) == pos // t_loc:
+    if shard_index(mesh, pl, 1) == pos // t_loc:
         local[:, pos % t_loc] = new.to(local.dtype)
 
 

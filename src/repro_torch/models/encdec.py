@@ -129,8 +129,7 @@ def encdec_loss(cfg: ModelConfig, params, batch: dict):
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, device=labels.device)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    ll = L.log_likelihood(logits, labels)
     ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce, {"loss": ce, "ce": ce, "aux": aux, "tokens": mask.sum()}
 

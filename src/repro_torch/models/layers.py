@@ -10,6 +10,7 @@ Params live in ``cfg.param_dtype``; compute casts to ``cfg.compute_dtype``
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +20,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import current_mesh, embed_sharded, shard_act
+from repro_torch.sharding import (current_mesh, embed_sharded, mesh_reduce,
+                                  on_local_shards, shard_act, shard_index,
+                                  sharding_dims, stacked_reduce)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -150,12 +153,76 @@ def embed(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor, *, tied_table=None):
-    """Project to vocab logits (f32)."""
+    """Project to vocab logits (f32). On a mesh the input's model dim is
+    gathered first (in the compute dtype), so that each rank's product
+    yields its vocab columns whole: a product over a sharded model dim
+    would leave f32 partial sums of every column to reduce-scatter, and
+    their gradient to gather back."""
     if tied_table is not None:
         w = tied_table.to(dt(cfg.compute_dtype)).T  # [D, V]
     else:
         w = p["kernel"].to(dt(cfg.compute_dtype))
+    x = shard_act(x, "batch", None, None)
     return shard_act((x @ w).float(), "batch", None, "model")
+
+
+def vocab_partial(x: torch.Tensor, labels: torch.Tensor, v0=0):
+    """The log-likelihood's partials over one slice of the vocab: ``x``
+    [..., V_slice] holds the logits of columns ``v0 ..`` (``v0`` an int, or
+    a tensor that broadcasts against ``labels``). Returns (m, the slice's
+    largest logit, no gradient; s, the sum of ``exp(x - m)``; the label's
+    logit where the slice holds the label, else 0), each [...].
+    ``combine_vocab_partials`` joins the slices."""
+    m = x.detach().amax(-1)
+    s = torch.exp(x - m[..., None]).sum(-1)
+    rel = labels - v0
+    hit = (rel >= 0) & (rel < x.shape[-1])
+    picked = torch.gather(x, -1, rel.clamp(0, x.shape[-1] - 1)[..., None])
+    return m, s, torch.where(hit, picked[..., 0], torch.zeros_like(m))
+
+
+def combine_vocab_partials(m: torch.Tensor, s: torch.Tensor,
+                           x_label: torch.Tensor,
+                           reduce=stacked_reduce) -> torch.Tensor:
+    """``log_softmax(x)[label]`` from the slices' partials
+    (``vocab_partial``): ``reduce(t, op)`` takes the max or the sum over the
+    slices, of partials stacked on dim 0 by default, across the ranks that
+    hold them on a mesh (``sharding.mesh_reduce``). The max carries no
+    gradient (it cancels); the gradient on each slice is ``onehot -
+    softmax`` of its own columns."""
+    m_all = reduce(m, "max")
+    s_all = reduce(s * torch.exp(m - m_all), "sum")
+    return reduce(x_label, "sum") - m_all - torch.log(s_all)
+
+
+def log_likelihood(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``log_softmax(logits)[label]`` in f32: [..., V] and [...] -> [...].
+    Logits sharded on the vocab over more than one rank (evenly:
+    ``unembed``'s layout on a mesh, the reference's vocab-parallel head)
+    stay sharded: each rank's partials over its columns (``vocab_partial``)
+    are combined by all-reduces over the vocab's mesh dims
+    (``combine_vocab_partials``). Anything else, a vocab that one rank
+    holds whole included, takes ``torch.log_softmax`` and a gather, bit for
+    bit the single-device arithmetic: the optimizer's first steps move a
+    weight by about ``lr * g / (|g| + eps)``, which turns a last-bit change
+    in a gradient near 0 into a visible one in the weight."""
+    x = logits.float()
+    d = x.ndim - 1
+    dims = sharding_dims(x, d)
+    if math.prod(x.device_mesh.size(i) for i in dims) == 1:
+        logp = torch.log_softmax(x, dim=-1)
+        return torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    mesh = x.device_mesh
+    shard = shard_index(mesh, x.placements, d)
+    reduce = mesh_reduce(mesh, dims)
+
+    def local(xl, lab):
+        parts = vocab_partial(xl, lab.long(), shard * xl.shape[-1])
+        return combine_vocab_partials(*parts, reduce)
+
+    lead = tuple(range(d))
+    return on_local_shards(local, x, (0, d),
+                           [(x, lead + (d,)), (labels, lead)], [lead])
 
 
 def init_unembed(cfg: ModelConfig, gen, dim: int, vocab: int, device):

@@ -281,8 +281,7 @@ def lm_loss(cfg: ModelConfig, params, batch: dict):
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, device=labels.device)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    ll = L.log_likelihood(logits, labels)
     denom = torch.clamp(mask.sum(), min=1.0)
     ce = -(ll * mask).sum() / denom
     loss = ce + aux

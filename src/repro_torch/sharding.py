@@ -245,11 +245,7 @@ def embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
                     for v, b in zip(vocab, batch))
     local = table.redistribute(mesh, t_pl).to_local(grad_placements=grad_pl)
     idx = tokens.redistribute(mesh, tok_pl).to_local()
-    shard = 0
-    for i, v in enumerate(vocab):
-        if v:
-            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
-    rel = idx - shard * local.shape[0]
+    rel = idx - shard_index(mesh, t_pl, 0) * local.shape[0]
     hit = (rel >= 0) & (rel < local.shape[0])
     y = local[rel.clamp(0, local.shape[0] - 1)] * hit[..., None].to(local.dtype)
     out_pl = tuple(Partial() if v else (Shard(0) if b else Replicate())
@@ -257,6 +253,94 @@ def embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
     shape = torch.Size((*tokens.shape, table.shape[1]))
     return DTensor.from_local(y, mesh, out_pl, run_check=False, shape=shape,
                               stride=contiguous_stride(shape))
+
+
+def argmax_sharded(logits: DTensor) -> DTensor:
+    """``logits.argmax(-1)`` without gathering the last dim (the vocab,
+    sharded evenly by ``unembed``'s layout): each rank's largest logit and
+    its index, offset by the rank's first column, are combined by two
+    all-reduces over the vocab's mesh dims, the largest value and then the
+    smallest index that holds it, as ``argmax`` breaks ties. The result
+    keeps the logits' batch (dim 0) sharding."""
+    d = logits.ndim - 1
+    mesh = logits.device_mesh
+    shard = shard_index(mesh, logits.placements, d)
+    reduce = mesh_reduce(mesh, sharding_dims(logits, d))
+
+    def local(x):
+        val, idx = x.max(dim=-1)
+        idx = idx + shard * x.shape[-1]
+        best = reduce(val, "max")
+        return reduce(torch.where(val == best, idx,
+                                  torch.full_like(idx, logits.shape[d])),
+                      "min")
+
+    lead = tuple(range(d))
+    return on_local_shards(local, logits, (0, d), [(logits, lead + (d,))],
+                           [lead])
+
+
+def shard_index(mesh, placements, dim: int) -> int:
+    """This rank's shard of tensor dim ``dim`` under ``placements`` (the mesh
+    dims that shard it, in mesh order, as ``placements`` lays them out)."""
+    idx = 0
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+def sharding_dims(t: torch.Tensor, dim: int) -> Tuple[int, ...]:
+    """The mesh dims that shard dim ``dim`` of ``t`` (none for a plain
+    tensor)."""
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def stacked_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+    """``op`` ("max" or "sum") over dim 0 of ``t``: the slices' partials
+    stacked on one device, as the tests and the card's checks combine
+    them."""
+    return t.amax(0) if op == "max" else t.sum(0)
+
+
+def _all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    for i in dims:
+        t = funcol.all_reduce(t, op, (mesh, i))
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over ranks, whose result every rank holds; its gradient is
+    the result's, which every rank holds whole, so the backward moves
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        return _all_reduce(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def mesh_reduce(mesh, dims):
+    """``reduce(t, op)`` across the ranks of the mesh dims ``dims`` (c10d
+    functional all-reduces, one per mesh dim, which the dry-run's meter
+    counts): "max" and "min" carry no gradient, "sum" carries the result's
+    gradient to every rank's input. What ``stacked_reduce`` does over
+    stacked slices on one device."""
+    def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+        if op == "sum":
+            return _AllReduceSum.apply(t, mesh, tuple(dims))
+        return _all_reduce(t.detach(), op, mesh, dims)
+    return reduce
 
 
 def on_local_shards(fn, like: torch.Tensor, keep, inputs, outputs):

@@ -33,6 +33,8 @@ SRC = str(Path(__file__).resolve().parent.parent / "src")
 JOB_TIMEOUT_S = 300
 DTYPE_BYTES = {"bf16": 2, "f32": 4, "s32": 4}
 CELL = dataclasses.replace(SHAPES["train_4k"], seq_len=128, global_batch=8)
+# granite_8b SMOKE's decode_32k cell at two cache lengths, batch 8
+DECODE_T = (4096, 8192)
 
 
 def _hlo_lines():
@@ -96,6 +98,13 @@ out["cell"] = {
     "flops": float(cost_analysis(compiled).get("flops", 0.0)),
     "collective_bytes": dr.parse_collectives(compiled.as_text())["total"],
 }
+out["decode"] = {}
+for t in DECODE_T:
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=t,
+                                global_batch=8)
+    _, compiled, _ = dr.lower_cell(dr._prep_cfg(cfg, shape, scan=True),
+                                   shape, mesh)
+    out["decode"][str(t)] = dr.parse_collectives(compiled.as_text())
 json.dump(out, open(os.path.join(out_dir, "ref.json"), "w"))
 """
 
@@ -108,9 +117,10 @@ def work(tmp_path_factory):
     (d / "lines.json").write_text(json.dumps([x[0] for x in _hlo_lines()]))
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    proc = subprocess.Popen([sys.executable, "-c", textwrap.dedent(REF),
-                             str(d)], env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    script = f"DECODE_T = {DECODE_T!r}\n" + textwrap.dedent(REF)
+    proc = subprocess.Popen([sys.executable, "-c", script, str(d)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
     try:
         yield d, proc
     finally:
@@ -213,6 +223,131 @@ def test_reference_cell_bytes_flops_and_collectives(ref, fake8):
                                                            one)
 
 
+def test_decode_cell_keeps_the_cache_where_it_is(ref, fake8):
+    # granite SMOKE's decode on (4, 2): the cache's time axis over "model"
+    # stays there (split-T: only q's heads and the softmax partials move),
+    # so the collective bytes do not grow with the cache, and they stay
+    # within 1.25x of the reference's lowered cell at each length.
+    cfg = get_config("granite_8b", smoke=True)
+    got = {}
+    for t in DECODE_T:
+        shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=t,
+                                    global_batch=8)
+        dev = dr.analyze_cell(dr._prep_cfg(cfg, shape), shape,
+                              fake8)["per_device"]
+        got[t] = dev["collective_wire_bytes"]
+        want = ref["decode"][str(t)]["total"]
+        assert 0 < got[t] <= 1.25 * want, (t, got[t], want)
+    assert len(set(got.values())) == 1, got
+    # the meter sees split-T's all-reduces at the ring factors: per layer
+    # the f32 max and sum [2, 1, 4] and the output [2, 1, 4, 16] of a
+    # rank's 2 batch rows and 4 heads, over "model" = 2
+    dev = dr.analyze_cell(dr._prep_cfg(cfg, shape), shape, fake8,
+                          sites=True)["per_device"]
+    b, h, hd = 8 // 4, cfg.n_heads, cfg.resolved_head_dim
+    partials = sum(dr.wire_bytes("all-reduce", n * 4, 2)
+                   for n in (b * h, b * h, b * h * hd))
+    assert dev["collective_by_site"][
+        "models/attention.py:combine_partials forward"] \
+        == cfg.n_layers * partials
+
+
+# Collective wire bytes before the vocab-parallel loss (this file's
+# analyze_cell at the commit before it): the CELL's by kind on fake8, and
+# granite_8b train_4k's on the pod mesh (``python -m
+# repro_torch.launch.dryrun --arch granite_8b --shape train_4k --mesh pod
+# --force``). The loss gathered each rank's logits from their vocab slices.
+GATHERED_LOSS_BYTES = {"all-gather": 1_877_632.0, "all-reduce": 198_572.0,
+                       "reduce-scatter": 1_049_600.0}
+GATHERED_LOSS_POD_BYTES = 1_215_364_224_060.0
+
+
+def test_train_cell_loses_the_logits_gather(fake8):
+    # The loss keeps the logits' vocab sharded: the all-gather of a rank's
+    # [2, 128, 512] f32 logits from vocab slices of 256 over "model" goes.
+    # Its backward was free (DTensor slices the gathered gradient back to
+    # the shards), and stays so. Three all-reduces of a [2, 128] f32
+    # partial over "model" (the max, the sum of exp, the label's logit) are
+    # all that replace it.
+    cfg = get_config("granite_8b", smoke=True)
+    dev = dr.analyze_cell(cfg, CELL, fake8)["per_device"]
+    data, p = 4, 2                                  # the (4, 2) mesh
+    rows = CELL.global_batch // data * CELL.seq_len
+    gather = dr.wire_bytes("all-gather", rows * cfg.vocab_size * 4, p)
+    backward = 0
+    partials = 3 * dr.wire_bytes("all-reduce", rows * 4, p)
+    assert gather == 262_144
+    kind = dev["collective_by_kind"]
+    before = GATHERED_LOSS_BYTES
+    assert before["all-gather"] - kind["all-gather"] >= gather + backward
+    assert sum(before.values()) - dev["collective_wire_bytes"] \
+        >= gather + backward
+    assert kind["all-reduce"] - before["all-reduce"] == partials
+    assert kind["reduce-scatter"] == before["reduce-scatter"]
+
+
+def test_collective_bytes_by_site(fake8):
+    # With sites the same step's bytes are summed by the port's call site
+    # that issued them: they add up to the total, the backward's collectives
+    # are named by the forward code that recorded them, and the loss's three
+    # [2, 128] f32 all-reduces by the vocab-parallel combine.
+    cfg = get_config("granite_8b", smoke=True)
+    plain = dr.analyze_cell(cfg, CELL, fake8)["per_device"]
+    dev = dr.analyze_cell(cfg, CELL, fake8, sites=True)["per_device"]
+    sites = dev["collective_by_site"]
+    assert dev["collective_wire_bytes"] == plain["collective_wire_bytes"]
+    assert sum(sites.values()) == dev["collective_wire_bytes"]
+    assert list(sites.values()) == sorted(sites.values(), reverse=True)
+    assert not any(k.startswith("None") for k in sites), sites
+    assert {k.rsplit(" ", 1)[1] for k in sites} \
+        == {"forward", "backward", "recompute"}
+    rows = CELL.global_batch // 4 * CELL.seq_len
+    assert sites["models/layers.py:combine_vocab_partials forward"] \
+        == 3 * dr.wire_bytes("all-reduce", rows * 4, 2)
+
+
+@pytest.fixture(scope="module")
+def pod_cells():
+    """granite_8b's decode_32k and train_4k on the 16 x 16 pod mesh (a fake
+    group of 256 ranks, meta tensors), as the dry-run costs them."""
+    cfg = get_config("granite_8b")
+    out = {}
+    with dr.fake_group(256):
+        mesh = make_production_mesh(device="cpu")
+        for name in ("decode_32k", "train_4k"):
+            shape = SHAPES[name]
+            out[name] = dr.analyze_cell(dr._prep_cfg(cfg, shape), shape,
+                                        mesh)["per_device"]
+    return out
+
+
+def test_pod_decode_cell_moves_no_cache(pod_cells):
+    # Gathering every layer's K and V over "model" was 3.62e10 bytes a
+    # device (36 layers x K, V x 8 kv heads x 128 x bf16 x 32768 positions x
+    # 8 rows a rank x 15/16); split-T moves q and the partials only.
+    cfg = get_config("granite_8b")
+    cache = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 \
+        * SHAPES["decode_32k"].seq_len * SHAPES["decode_32k"].global_batch \
+        // 16
+    gathered = dr.wire_bytes("all-gather", cache, 16)
+    got = pod_cells["decode_32k"]["collective_wire_bytes"]
+    assert got < 1e9 < gathered, (got, gathered)
+
+
+def test_pod_train_cell_loses_the_logits_moves(pod_cells):
+    # At train_4k (batch 256: 16 rows of 4096 a rank) the unembedding's
+    # product over the model-sharded d_model left f32 partial sums of every
+    # vocab column, reduce-scattered to the vocab shards, and the loss
+    # gathered them back. The product now reads its bf16 input gathered
+    # and yields its vocab columns whole, and the loss keeps the shards.
+    cfg, m = get_config("granite_8b"), 16
+    logits = 16 * SHAPES["train_4k"].seq_len * cfg.vocab_size * 4
+    moved = dr.wire_bytes("reduce-scatter", logits // m, m) \
+        + dr.wire_bytes("all-gather", logits, m)
+    got = pod_cells["train_4k"]["collective_wire_bytes"]
+    assert GATHERED_LOSS_POD_BYTES - got >= moved, (got, moved)
+
+
 def test_ring_cell_costs_each_hop_as_a_collective_permute(fake8):
     # The same cell with mlp_tp_overlap=True: the Relic rings run on meta
     # tensors (nothing is sent) and the meter counts each hop as a
@@ -295,6 +430,10 @@ def test_remat_cell_costs_the_recompute(fake8, monkeypatch):
 
 DECODE_STEPS = 8
 FAMILIES = [a for a in ARCH_IDS if a != "relic_tiny"]
+# Positions in a 16-long cache that "model" = 2 splits into [0, 8) and
+# [8, 16): two in the first shard, either side of the boundary, two in the
+# last shard (the prompt forced at the first four).
+SPLIT_POSITIONS = (0, 3, 7, 8, 12, 15)
 
 
 def _batch(cfg, rng, b, s):
@@ -311,25 +450,33 @@ def _batch(cfg, rng, b, s):
     return batch
 
 
-def _decode(model, params, mesh, prompt, steps, cache_len=16):
-    """Greedy tokens and logits of ``steps`` serve steps from ``prompt``'s
-    first token (the prompt forced while it lasts), plain or on ``mesh``;
-    with the mesh, also the logits' and the cache's placements."""
+def _decode(model, params, mesh, prompt, steps, cache_len=16, frames=None):
+    """Greedy tokens and logits of serve steps from ``prompt``'s first token
+    (the prompt forced at its first positions), plain or on ``mesh``, at
+    positions ``range(steps)`` or the positions ``steps`` lists; with
+    ``frames`` the encoder-decoder's cross caches are written first; with
+    the mesh, also the logits' and the cache's placements."""
     from repro_torch import sharding as shd
     from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.encdec import encode, prefill_cross_cache
 
     cache = model.init_cache(prompt.shape[0], cache_len)
+    if frames is not None:
+        with torch.no_grad():
+            cache = prefill_cross_cache(model.cfg, params, cache,
+                                        encode(model.cfg, params, frames))
     if mesh is not None:
         params = shd.distribute_params(params, mesh)
         cache = shd.distribute_cache(cache, mesh)
     step = make_serve_step(model, mesh)
     tok, toks, logits, placed = prompt[:, :1], [], [], None
-    for pos in range(steps):
-        if pos < prompt.shape[1]:
-            tok = prompt[:, pos:pos + 1]
+    positions = range(steps) if isinstance(steps, int) else steps
+    for i, pos in enumerate(positions):
+        if i < prompt.shape[1]:
+            tok = prompt[:, i:i + 1]
         tok, lg, cache = step(params, cache, tok, pos)
         if mesh is not None:
-            k = cache["layers"]["cache"].get("k")
+            k = cache["layers"].get("cache", cache["layers"]).get("k")
             placed = (str(lg.placements),
                       None if k is None else str(k.placements))
             tok, lg = tok.full_tensor(), lg.full_tensor()
@@ -340,11 +487,35 @@ def _decode(model, params, mesh, prompt, steps, cache_len=16):
 
 def _mesh_job():
     """granite SMOKE served on (4, 2) against plain; then every family's
-    sharded train step and serve step against its plain steps (f32)."""
+    sharded train step and serve step against its plain steps (f32), the
+    serve step also at positions across the cache's shards, with the calls
+    of split-T, of the per-head path and of the vocab-parallel loss
+    counted."""
     from repro_torch import sharding as shd
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as L
     from repro_torch.optim import OptConfig
+
+    calls = {"split": 0, "per_head": 0, "vocab": 0}
+
+    def counted(mod, name, key):
+        plain = getattr(mod, name)
+
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return plain(*args, **kwargs)
+        setattr(mod, name, call)
+
+    counted(attn, "combine_partials", "split")
+    counted(attn, "_per_head_shard", "per_head")
+    counted(L, "combine_vocab_partials", "vocab")
+
+    def delta(fn):
+        before = dict(calls)
+        out = fn()
+        return out, {k: calls[k] - before[k] for k in calls}
 
     mesh = make_mesh((4, 2), ("data", "model"), "cpu")
     rng = np.random.default_rng(0)
@@ -363,16 +534,22 @@ def _mesh_job():
         state = make_train_state(model, torch.Generator().manual_seed(0))
         dstate = shd.distribute_state(state, mesh)
         plain, m1 = make_train_step(model, oc)(state, batch)
-        sharded, m2 = make_train_step(model, oc, mesh=mesh)(dstate, batch)
+        (sharded, m2), train_calls = delta(
+            lambda: make_train_step(model, oc, mesh=mesh)(dstate, batch))
         full = shd.full_state(sharded)["params"]
         rec = {"loss": (float(m1["loss"]), float(m2["loss"])),
                "param_err": max(
                    float((p.detach() - full.get_parameter(n)).abs().max())
-                   for n, p in plain["params"].named_parameters())}
-        if cfg.family != "encdec":   # its decode reads a prefilled cross cache
-            params = model.init(torch.Generator().manual_seed(0))
-            rec["tokens"] = [_decode(model, params, m, batch["tokens"], 4)[0]
-                             for m in (None, mesh)]
+                   for n, p in plain["params"].named_parameters()),
+               "train_calls": train_calls}
+        params = model.init(torch.Generator().manual_seed(0))
+        frames = batch.get("frames")
+        for key, steps in (("tokens", 4), ("split", SPLIT_POSITIONS)):
+            toks = [_decode(model, params, None, batch["tokens"], steps,
+                            frames=frames)[0]]
+            res, rec[f"{key}_calls"] = delta(lambda: _decode(
+                model, params, mesh, batch["tokens"], steps, frames=frames))
+            rec[key] = toks + [res[0]]
         out[arch] = rec
     return out if dist.get_rank() == 0 else None
 
@@ -403,5 +580,34 @@ def test_every_family_trains_and_serves_on_the_mesh(mesh_job, arch):
     l1, l2 = rec["loss"]
     assert abs(l1 - l2) < 1e-5, (l1, l2)
     assert rec["param_err"] < 1e-4
-    if "tokens" in rec:
-        np.testing.assert_array_equal(*rec["tokens"])
+    np.testing.assert_array_equal(*rec["tokens"])
+    # the loss over the vocab shards, once a step
+    assert rec["train_calls"]["vocab"] == 1, rec["train_calls"]
+
+
+def _attention_reads(cfg) -> int:
+    """Attention calls of one decode step: each layer's (the decoder's self
+    and cross attention), the hybrid's shared block per full group."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_family_serves_across_the_cache_shards(mesh_job, arch):
+    """The serve step at positions in the first shard of the cache's time
+    axis, either side of the boundary and in the last shard gives the plain
+    step's greedy tokens exactly; every attention read of a cache took
+    split-T, none the per-head path, at both sets of positions."""
+    rec = mesh_job[arch]
+    np.testing.assert_array_equal(*rec["split"])
+    cfg = get_config(arch, smoke=True)
+    for key, steps in (("tokens_calls", 4), ("split_calls",
+                                             len(SPLIT_POSITIONS))):
+        assert rec[key]["split"] == steps * _attention_reads(cfg), (key,
+                                                                    rec[key])
+        assert rec[key]["per_head"] == 0, (key, rec[key])
