@@ -101,8 +101,8 @@ Phases (any failure exits non-zero):
  12. the multi-device layer over a one-rank NCCL group (``phase_mesh``, after
      the train driver): a ``(1, 1)`` ``("data", "model")`` mesh; relic_tiny
      at full width trains 3 steps with its state distributed as DTensors
-     beside 3 plain steps from the same state (the losses and parameters
-     must agree), the Relic rings (``tp_allgather_matmul``,
+     beside 3 plain steps from the same state (the losses must agree, the
+     parameters bit for bit), the Relic rings (``tp_allgather_matmul``,
      ``tp_matmul_reducescatter``, ``mlp_ring``) at its MLP shape against the
      plain products, ``compressed_psum`` of its gradients against
      ``dequantize(quantize(g))``, ``pipeline_apply`` with one stage against
@@ -123,7 +123,10 @@ Phases (any failure exits non-zero):
      policy ("none", "full", "dots"); and the mesh serve step's greedy
      tokens against the plain serve step's, exactly; granite_8b's
      decode_32k record must count below 1e9 collective wire bytes a device
-     (split-T keeps each rank's slice of the cache where it is);
+     (split-T keeps each rank's slice of the cache where it is), its
+     train_4k record at most the reference's depth-exact count (6.43986e11)
+     with a predicted peak of at most 34.79 GB, its three largest call
+     sites printed (``--sites``);
  14. split-T decode and the vocab-parallel log-likelihood at granite_8b's
      full width (``phase_split_decode``, after the dry-run): a decode
      attention over a [8, 32768, 8, 128] bf16 cache at position 30000, its
@@ -1844,6 +1847,11 @@ def _mesh_checks(device, card, mesh):
         worst = max(worst, (q - p).abs().max().item())
     if not np.allclose(dl, pl, rtol=1e-5, atol=0):
         raise AssertionError(f"[mesh] losses differ: {dl} against {pl}")
+    # one rank moves nothing: the sharded step keeps DTensor's plan, whose
+    # ops are the plain step's (``sharding.spread``), bit for bit
+    if worst != 0.0:
+        raise AssertionError(f"[mesh] the one-rank step's parameters differ "
+                             f"from the plain step's by up to {worst:.3g}")
     print(f"[mesh] {cfg.name} on a (1, 1) data x model mesh over NCCL, "
           f"batch [{TRAIN_BATCH}, {TRAIN_SEQ}], {MESH_STEPS} steps: DTensor "
           f"{dms:.2f} ms/step, plain {pms:.2f} ms/step over steps 2-"
@@ -1985,47 +1993,66 @@ DRYRUN_DECODE_LEN = 2048   # the card check's cache length (batch 8)
 DRYRUN_TOKENS = 8          # decode steps of the mesh-vs-plain token check
 # granite_8b decode_32k on the pod mesh: 3.66e10 with the cache gathered
 DRYRUN_DECODE_WIRE_MAX = 1e9
+# granite_8b train_4k on the pod mesh: the reference's depth-exact
+# collective wire bytes a device (``repro.launch.dryrun._cost_points``:
+# granite_8b lowered unrolled at 2 and 3 layers and extrapolated to 36;
+# jax 0.9.0 on a CPU), and the port's predicted peak bytes a device before
+# its train step's collective plan was made explicit (1.190577e12 wire bytes
+# then)
+DRYRUN_TRAIN_WIRE_MAX = 6.43986e11
+DRYRUN_TRAIN_PEAK_MAX = 34.79e9
 
 
 def _dryrun_records():
     """``python -m repro_torch.launch.dryrun`` for granite_8b's two cells on
     the 16 x 16 production mesh (a fake group of 256 ranks on this host's
-    CPU, meta tensors): each record must hold every key, and positive
-    FLOPs, bytes and collective bytes. Returns {shape: record}."""
+    CPU, meta tensors; one process each, run together; train_4k with its
+    collective bytes by call site): each record must hold every key, and
+    positive FLOPs, bytes and collective bytes. Returns {shape: record}."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "granite_8b", "--shape", shape, "--mesh", "pod", "--force"]
+        + (["--sites"] if shape == "train_4k" else []),
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for shape in DRYRUN_CELLS}
     recs = {}
-    for shape in DRYRUN_CELLS:
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "granite_8b", "--shape", shape, "--mesh", "pod", "--force"],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        if out.returncode:
-            raise AssertionError(f"[dryrun] {shape} failed:\n{out.stdout}"
-                                 f"\n{out.stderr[-4000:]}")
-        path = Path(ROOT) / "build" / "dryrun_torch" / \
-            f"granite_8b__{shape}__pod.json"
-        rec = json.loads(path.read_text())
-        missing = [k for k in DRYRUN_KEYS if k not in rec]
-        mem, dev = rec.get("memory", {}), rec.get("per_device", {})
-        if missing or not (dev.get("hlo_flops", 0) > 0
-                           and mem.get("argument_bytes", 0) > 0
-                           and dev.get("hlo_bytes", 0) > 0
-                           and dev.get("collective_wire_bytes", 0) > 0):
-            raise AssertionError(f"[dryrun] {shape}: missing {missing} or "
-                                 f"a zero count: {rec}")
-        print(f"[dryrun] granite_8b x {shape} x pod (16 x 16, 256 fake "
-              f"ranks, this host's CPU, {time.perf_counter() - t0:.1f} s): "
-              f"per device {dev['hlo_flops']:.6g} FLOPs, "
-              f"{dev['hlo_bytes']:.6g} bytes accessed, "
-              f"{dev['collective_wire_bytes']:.6g} collective wire bytes "
-              f"{ {k: v for k, v in dev['collective_by_kind'].items() if v} }; "
-              f"arguments {mem['argument_bytes']} B, peak "
-              f"{mem['peak_bytes_est']} B; useful FLOPs "
-              f"{rec['useful_flops_ratio']:.4f}; terms "
-              f"{rec['roofline_terms_s']} (H100 SXM data-sheet rates); "
-              f"dominant {rec['dominant']}", flush=True)
-        recs[shape] = rec
+    try:
+        for shape, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"[dryrun] {shape} failed:\n{stdout}"
+                                     f"\n{stderr[-4000:]}")
+            path = Path(ROOT) / "build" / "dryrun_torch" / \
+                f"granite_8b__{shape}__pod.json"
+            rec = json.loads(path.read_text())
+            missing = [k for k in DRYRUN_KEYS if k not in rec]
+            mem, dev = rec.get("memory", {}), rec.get("per_device", {})
+            if missing or not (dev.get("hlo_flops", 0) > 0
+                               and mem.get("argument_bytes", 0) > 0
+                               and dev.get("hlo_bytes", 0) > 0
+                               and dev.get("collective_wire_bytes", 0) > 0):
+                raise AssertionError(f"[dryrun] {shape}: missing {missing} "
+                                     f"or a zero count: {rec}")
+            print(f"[dryrun] granite_8b x {shape} x pod (16 x 16, 256 fake "
+                  f"ranks, this host's CPU, {time.perf_counter() - t0:.1f} "
+                  f"s since both started): per device "
+                  f"{dev['hlo_flops']:.6g} FLOPs, "
+                  f"{dev['hlo_bytes']:.6g} bytes accessed, "
+                  f"{dev['collective_wire_bytes']:.6g} collective wire bytes "
+                  f"{ {k: v for k, v in dev['collective_by_kind'].items() if v} }; "
+                  f"arguments {mem['argument_bytes']} B, peak "
+                  f"{mem['peak_bytes_est']} B; useful FLOPs "
+                  f"{rec['useful_flops_ratio']:.4f}; terms "
+                  f"{rec['roofline_terms_s']} (H100 SXM data-sheet rates); "
+                  f"dominant {rec['dominant']}", flush=True)
+            recs[shape] = rec
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     return recs
 
 
@@ -2126,14 +2153,28 @@ def phase_dryrun(device, card):
     recs = _dryrun_records()
     wire = {k: r["per_device"]["collective_wire_bytes"]
             for k, r in recs.items()}
+    peak = recs["train_4k"]["memory"]["peak_bytes_est"]
+    sites = recs["train_4k"]["per_device"]["collective_by_site"]
+    top = "; ".join(f"{k} {v:.6g}" for k, v in list(sites.items())[:3])
     print(f"[dryrun] granite_8b collective wire bytes a device on the pod "
           f"mesh: decode_32k {wire['decode_32k']:.6g} (split-T; below "
-          f"{DRYRUN_DECODE_WIRE_MAX:.0e}), train_4k {wire['train_4k']:.6g}",
-          flush=True)
+          f"{DRYRUN_DECODE_WIRE_MAX:.0e}), train_4k {wire['train_4k']:.6g} "
+          f"(the reference's depth-exact count {DRYRUN_TRAIN_WIRE_MAX:.6g}), "
+          f"its predicted peak {peak / 1e9:.4f} GB (at most "
+          f"{DRYRUN_TRAIN_PEAK_MAX / 1e9:.2f}); train_4k's largest sites: "
+          f"{top}", flush=True)
     if not wire["decode_32k"] < DRYRUN_DECODE_WIRE_MAX:
         raise AssertionError(f"[dryrun] decode_32k moves "
                              f"{wire['decode_32k']:.6g} collective bytes a "
                              f"device: the cache is gathered")
+    if not wire["train_4k"] <= DRYRUN_TRAIN_WIRE_MAX:
+        raise AssertionError(f"[dryrun] train_4k moves "
+                             f"{wire['train_4k']:.6g} collective bytes a "
+                             f"device, above the reference's "
+                             f"{DRYRUN_TRAIN_WIRE_MAX:.6g}")
+    if not peak <= DRYRUN_TRAIN_PEAK_MAX:
+        raise AssertionError(f"[dryrun] train_4k's predicted peak {peak} B "
+                             f"is above {DRYRUN_TRAIN_PEAK_MAX:.6g}")
 
     cfg = get_config(ARCH)
     train = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ,

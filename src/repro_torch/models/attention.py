@@ -11,6 +11,7 @@ dispatches between them exactly as the JAX package does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -19,8 +20,10 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, apply_rope, dt, rms_norm_headwise
-from repro_torch.sharding import (mesh_reduce, on_local_shards, shard_act,
-                                  shard_index, sharding_dims, stacked_reduce)
+from repro_torch.sharding import (from_local_parts, local_part, mesh_reduce,
+                                  on_local_shards, shard_act, shard_index,
+                                  sharding_dims, split_layout, spread,
+                                  stacked_reduce, zero_gather_pays)
 
 NEG_INF = -1e30
 
@@ -198,19 +201,19 @@ def _pick_chunk(n: int, target: int) -> int:
 
 
 def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, h_loc: int,
-                  group: int):
-    """The kv heads that local q heads ``h0 .. h0 + h_loc`` read (global q
-    head ``h`` reads kv head ``h // group``), laid out so that the local
-    call's own GQA grouping maps local head ``j`` to its kv head: a
-    contiguous slice where the heads split evenly, else one kv head per q
-    head."""
+                  group: int, dim: int = 2):
+    """The kv heads (dim ``dim`` of ``k`` and ``v``) that local q heads
+    ``h0 .. h0 + h_loc`` read (global q head ``h`` reads kv head
+    ``h // group``), laid out so that the local call's own GQA grouping
+    maps local head ``j`` to its kv head: a contiguous slice where the
+    heads split evenly, else one kv head per q head."""
     want = [(h0 + j) // group for j in range(h_loc)]
     lo, n = want[0], want[-1] - want[0] + 1
     if h_loc % n == 0 and all(w - lo == j // (h_loc // n)
                               for j, w in enumerate(want)):
-        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+        return k.narrow(dim, lo, n), v.narrow(dim, lo, n)
     idx = torch.tensor(want, device=k.device)
-    return k.index_select(2, idx), v.index_select(2, idx)
+    return k.index_select(dim, idx), v.index_select(dim, idx)
 
 
 def _per_head_shard(fn, q: DTensor, k, v) -> DTensor:
@@ -361,12 +364,15 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
     q = _to_heads(x, p["wq"].to(cd))
     k = _to_heads(src, p["wk"].to(cd))
     v = _to_heads(src, p["wv"].to(cd))
-    if cfg.qk_norm:
-        q = rms_norm_headwise(q, p["q_norm"])
-        k = rms_norm_headwise(k, p["k_norm"])
+    # On a mesh the heads are laid out first, so that each head's products
+    # are whole where the qk-norm takes its sums over the head dim (which no
+    # rank splits): the norm then moves nothing.
     q = shard_act(q, "batch", None, "model", None)
     k = shard_act(k, "batch", None, None, None)
     v = shard_act(v, "batch", None, None, None)
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, p["q_norm"])
+        k = rms_norm_headwise(k, p["k_norm"])
     return q, k, v
 
 
@@ -381,6 +387,69 @@ def _output(cfg: ModelConfig, p, o: torch.Tensor) -> torch.Tensor:
     return shard_act(y, "batch", None, "model", kind="resid")
 
 
+def _takes_local_plan(cfg: ModelConfig, p, x: torch.Tensor) -> bool:
+    """Whether attention over ``x`` runs ``_attention_sharded``: a DTensor
+    over more than one rank (``sharding.spread``), the plain paths (the
+    kernels refuse DTensors), and enough rows a rank that gathering the
+    weights' ZeRO shards pays (``sharding.zero_gather_pays``; a decode
+    step's few rows leave them in place)."""
+    return (spread(x) and not cfg.use_kernels
+            and zero_gather_pays(x, p["wq"]))
+
+
+def _attention_sharded(cfg: ModelConfig, p, x: DTensor, src=None, *,
+                       causal: bool, positions=None,
+                       prefix_len: Optional[int] = None) -> DTensor:
+    """Megatron's attention on each rank's local tensors, laid out from the
+    parameters' rules on any mesh: the block input (and the
+    cross-attention's ``src``) gathered over every mesh dim but the batch's,
+    in the compute dtype; wq column-parallel and wo row-parallel over the
+    mesh dims that shard wq's heads, each gathered over the others (the
+    ZeRO-3 gather of its ``data`` shard); wk and wv whole (the rules
+    replicate the kv heads over ``model``), cut to the kv heads the rank's
+    q heads read (``_kv_for_heads``). Each rank projects, normalises and
+    rotates its own q heads and those kv heads, and attends; the output, a
+    partial sum over the heads' shards, is reduce-scattered into the
+    residual layout. Every rank's use of an input or weight that all of
+    them read covers its own heads only, so each such gradient is partial
+    and summed in the backward: the block input's reduce-scattered, the
+    weights' reduce-scattered over the batch mesh dims (all-reduced over
+    the heads' too for wk, wv and the norms' scales)."""
+    cd = dt(cfg.compute_dtype)
+    mesh = x.device_mesh
+    pl = functools.partial(split_layout, mesh.ndim)
+    wq, wk, wv, wo = (p[n].to(cd) for n in ("wq", "wk", "wv", "wo"))
+    rows = sharding_dims(x, 0)
+    heads = tuple(i for i in sharding_dims(wq, 1) if i not in rows)
+    every = rows + heads
+    xl = local_part(x.to(cd), pl(0, rows), heads)
+    srcl = xl if src is None else local_part(src.to(cd), pl(0, rows), heads)
+    wq_l = local_part(wq, pl(1, heads), rows)
+    wk_l = local_part(wk, pl(0, ()), every)
+    wv_l = local_part(wv, pl(0, ()), every)
+    h, h_loc = wq.shape[1], wq_l.shape[1]
+    if h_loc < h:   # project only the kv heads this rank's q heads read
+        h0 = shard_index(mesh, pl(1, heads), 1) * h_loc
+        wk_l, wv_l = _kv_for_heads(wk_l, wv_l, h0, h_loc, h // wk.shape[1],
+                                   dim=1)
+    q, k, v = (_to_heads(xl, wq_l), _to_heads(srcl, wk_l),
+               _to_heads(srcl, wv_l))
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, local_part(p["q_norm"], pl(0, ()), every))
+        k = rms_norm_headwise(k, local_part(p["k_norm"], pl(0, ()), every))
+    if cfg.use_rope and src is None:
+        if positions is None:
+            positions = torch.arange(xl.shape[1], device=xl.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention_core(cfg, q, k, v, causal=causal, prefix_len=prefix_len)
+    wo_l = local_part(wo, pl(0, heads), rows)
+    y = o.to(cd).flatten(2) @ wo_l.reshape(-1, wo_l.shape[-1])
+    y = from_local_parts(y, mesh, pl(0, rows, heads),
+                         (*x.shape[:-1], wo.shape[-1]))
+    return shard_act(y, "batch", None, "model", kind="resid")
+
+
 def self_attention(
     cfg: ModelConfig,
     p,
@@ -391,6 +460,9 @@ def self_attention(
     prefix_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Training / prefill self-attention over [B,S,D]."""
+    if _takes_local_plan(cfg, p, x):
+        return _attention_sharded(cfg, p, x, causal=causal,
+                                  positions=positions, prefix_len=prefix_len)
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.use_rope:
         if positions is None:
@@ -406,6 +478,8 @@ def cross_attention(cfg: ModelConfig, p, x: torch.Tensor,
     """Decoder queries over the encoder output [B,T,D], no mask and no rope;
     with ``sq > 1`` and ``use_kernels`` it goes to the flash kernel,
     non-causal, as the reference's ``attention_core`` sends it."""
+    if _takes_local_plan(cfg, p, x):
+        return _attention_sharded(cfg, p, x, enc, causal=False)
     q, k, v = _project_qkv(cfg, p, x, x_kv=enc)
     o = attention_core(cfg, q, k, v, causal=False)
     return _output(cfg, p, o)

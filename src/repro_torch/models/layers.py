@@ -20,9 +20,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import (current_mesh, embed_sharded, mesh_reduce,
+from repro_torch.sharding import (current_mesh, embed_sharded,
+                                  from_local_parts, local_part, mesh_reduce,
                                   on_local_shards, shard_act, shard_index,
-                                  sharding_dims, stacked_reduce)
+                                  sharding_dims, split_layout, spread,
+                                  stacked_reduce, zero_gather_pays)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -101,6 +103,15 @@ def init_norm(cfg: ModelConfig, dim: int, device) -> nn.ParameterDict:
     return p
 
 
+def _split(t: torch.Tensor, dim: int) -> int:
+    """The number of ranks that share dim ``dim`` of ``t`` (1 for a plain
+    tensor). Where it is 1 the norm and the loss keep the single device's
+    arithmetic, bit for bit (``sharding.spread`` says why)."""
+    if not isinstance(t, DTensor):
+        return 1
+    return math.prod(t.device_mesh.size(i) for i in sharding_dims(t, dim))
+
+
 def _row_mean(t: torch.Tensor) -> torch.Tensor:
     """``t.mean(-1, keepdim=True)``. On a DTensor, a sum over the last dim
     divided by its size, then replicated over the model axis: DTensor keeps
@@ -112,11 +123,43 @@ def _row_mean(t: torch.Tensor) -> torch.Tensor:
     return t.mean(-1, keepdim=True)
 
 
+def _norm_sharded(xf: DTensor, scale: torch.Tensor,
+                  bias=None) -> DTensor:
+    """The RMS norm of ``xf`` (f32) whose last dim the mesh shards (the
+    layer norm where ``bias`` is given), on each rank's own shards: the
+    row statistics are sums over the local columns all-reduced over the
+    mesh dims that shard them (a [..., 1] f32 tensor; the reference's GSPMD
+    plan), whose gradient is all-reduced back, since each rank normalises
+    only its own columns with them. The activations never move; the scale
+    and bias are cut to the local columns (their gradients summed over the
+    batch's mesh dims)."""
+    d = xf.ndim - 1
+    mesh, n = xf.device_mesh, xf.shape[d]
+    cols = sharding_dims(xf, d)
+    reduce = mesh_reduce(mesh, cols, partial_grad=True)
+    pl = split_layout(mesh.ndim, 0, cols)
+    rows = tuple(i for i, q in enumerate(xf.placements)
+                 if i not in cols and q.is_shard())
+    xl = xf.to_local()
+    if bias is None:
+        ms = reduce((xl * xl).sum(-1, keepdim=True), "sum") / n
+        y = xl * torch.rsqrt(ms + 1e-6) * local_part(scale.float(), pl, rows)
+    else:
+        xl = xl - reduce(xl.sum(-1, keepdim=True), "sum") / n
+        var = reduce((xl * xl).sum(-1, keepdim=True), "sum") / n
+        y = xl * torch.rsqrt(var + 1e-5) * local_part(scale.float(), pl, rows) \
+            + local_part(bias.float(), pl, rows)
+    return from_local_parts(y, mesh, xf.placements, xf.shape)
+
+
 def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     # Keep the f32 widening sharded like the residual stream.
     xf = shard_act(xf, "batch", None, "model", kind="resid")
-    if cfg.norm == "layernorm":
+    if _split(xf, xf.ndim - 1) > 1:
+        y = _norm_sharded(xf, p["scale"],
+                          p["bias"] if cfg.norm == "layernorm" else None)
+    elif cfg.norm == "layernorm":
         mu = _row_mean(xf)
         var = _row_mean((xf - mu) ** 2)
         y = (xf - mu) * torch.rsqrt(var + 1e-5)
@@ -162,6 +205,17 @@ def unembed(cfg: ModelConfig, p, x: torch.Tensor, *, tied_table=None):
         w = tied_table.to(dt(cfg.compute_dtype)).T  # [D, V]
     else:
         w = p["kernel"].to(dt(cfg.compute_dtype))
+    if spread(x) and zero_gather_pays(x, w):
+        # column-parallel over the vocab, as ``_mlp_sharded`` lays out its
+        # up projection: the weight's d_model shards gathered
+        mesh, d = x.device_mesh, x.ndim - 1
+        pl = functools.partial(split_layout, mesh.ndim)
+        rows = sharding_dims(x, 0)
+        cols = tuple(i for i in sharding_dims(w, 1) if i not in rows)
+        y = local_part(x, pl(0, rows), cols) @ local_part(w, pl(1, cols),
+                                                          rows)
+        return from_local_parts(y.float(), mesh, pl(d, cols, batch=rows),
+                                (*x.shape[:-1], w.shape[-1]))
     x = shard_act(x, "batch", None, None)
     return shard_act((x @ w).float(), "batch", None, "model")
 
@@ -209,7 +263,7 @@ def log_likelihood(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     x = logits.float()
     d = x.ndim - 1
     dims = sharding_dims(x, d)
-    if math.prod(x.device_mesh.size(i) for i in dims) == 1:
+    if _split(x, d) == 1:
         logp = torch.log_softmax(x, dim=-1)
         return torch.gather(logp, -1, labels[..., None].long())[..., 0]
     mesh = x.device_mesh
@@ -303,12 +357,46 @@ def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
         if isinstance(x, DTensor) and cm.ring_eligible(mesh, x.shape[1]):
             return cm.mlp_ring(cfg.act, x, p["w_gate"].to(cd),
                                p["w_up"].to(cd), p["w_down"].to(cd), mesh)
+    w_up, w_down = p["w_up"].to(cd), p["w_down"].to(cd)
+    w_gate = p["w_gate"].to(cd) if cfg.gated_mlp else None
+    if spread(x) and zero_gather_pays(x, w_up):
+        return _mlp_sharded(cfg, x, w_up, w_down, w_gate)
+    # One device or one rank; or a few rows a rank (a decode step), where
+    # moving the weights would cost more than moving the activations:
+    # DTensor's plan.
     x = shard_act(x, "batch", None, None, kind="blockin")
-    up = x @ p["w_up"].to(cd)
-    if cfg.gated_mlp:
-        h = _act(cfg.act, x @ p["w_gate"].to(cd)) * up
-    else:
-        h = _act(cfg.act, up)
+    y = _mlp_local(cfg, x, w_up, w_down, w_gate)
+    return shard_act(y, "batch", None, "model", kind="resid")
+
+
+def _mlp_local(cfg: ModelConfig, x, w_up, w_down, w_gate=None):
+    up = x @ w_up
+    h = _act(cfg.act, x @ w_gate) * up if w_gate is not None \
+        else _act(cfg.act, up)
     h = shard_act(h, "batch", None, "model")
-    y = h @ p["w_down"].to(cd)
+    return h @ w_down
+
+
+def _mlp_sharded(cfg: ModelConfig, x: DTensor, w_up: DTensor,
+                 w_down: DTensor, w_gate=None) -> DTensor:
+    """Megatron's column- then row-parallel MLP on each rank's local
+    tensors, laid out from the parameters' rules (``param_placements``) on
+    any mesh: the block input gathered over every mesh dim but its batch
+    dims, in the compute dtype; each weight gathered over every mesh dim
+    but those that shard d_ff (the ZeRO-3 gather of its ``data`` shard).
+    The hidden stays sharded on d_ff and never moves; the down product is
+    a partial sum over the d_ff shards, reduce-scattered into the residual
+    layout. The backward runs the duals: the output's gradient gathered,
+    the input's reduce-scattered over the d_ff mesh dims, each weight's
+    reduce-scattered over the batch mesh dims."""
+    mesh = x.device_mesh
+    rows = sharding_dims(x, 0)
+    cols = tuple(i for i in sharding_dims(w_up, 1) if i not in rows)
+    pl = functools.partial(split_layout, mesh.ndim)
+    w_in = [local_part(w, pl(1, cols), rows) for w in (w_up, w_gate)
+            if w is not None]
+    y = _mlp_local(cfg, local_part(x, pl(0, rows), cols), w_in[0],
+                   local_part(w_down, pl(0, cols), rows), *w_in[1:])
+    y = from_local_parts(y, mesh, pl(0, rows, cols),
+                         (*x.shape[:-1], w_down.shape[-1]))
     return shard_act(y, "batch", None, "model", kind="resid")

@@ -16,15 +16,20 @@ Decode carries (shift_state [B,D], wkv_state [B,H,Dh,Dh]): O(1) in context.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, dt
-from repro_torch.sharding import on_local_shards, shard_act
+from repro_torch.sharding import (act_spec, dividing_dims, from_local_parts,
+                                  local_part, on_local_shards, placements,
+                                  shard_act, sharding_dims, split_layout,
+                                  spread)
 
 LORA_RANK = 64
 
@@ -129,11 +134,10 @@ def wkv6_step(r, k, v, logw, u, state):
 
 def _project_streams(cfg: ModelConfig, p, x, prev):
     cd = dt(cfg.compute_dtype)
-    h = cfg.d_model // cfg.ssm.head_dim
     k_dim = cfg.ssm.head_dim
 
     def heads(y):
-        return y.reshape(*y.shape[:-1], h, k_dim)
+        return y.reshape(*y.shape[:-1], -1, k_dim)
 
     mu = p["mu"].float()
     xs = [_mix(x, prev, mu[i]).to(cd) for i in range(5)]
@@ -155,11 +159,22 @@ def _group_norm(o: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def rwkv_time_mix(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """Train/prefill path. x: [B,S,D]."""
+    """Train/prefill path. x: [B,S,D]. A DTensor ``x`` over more than one
+    rank takes the plain recurrence on each rank's own heads
+    (``_time_mix_sharded``); the kernel refuses DTensors."""
+    if spread(x) and not cfg.use_kernels:
+        return _time_mix_sharded(cfg, p, x)
+    return _time_mix_local(cfg, p, x)
+
+
+def _time_mix_local(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The time mix of ``x`` [B,S,D] with the parameters ``p`` (the block's,
+    or the columns of its heads that one rank holds: w_r/k/v/g [D, Da],
+    w_o [Da, D], decay_B [R, Da], w0, u, ln_scale [Da])."""
     cd = dt(cfg.compute_dtype)
-    h = cfg.d_model // cfg.ssm.head_dim
     prev = _token_shift(x)
     r, k, v, g, logw = _project_streams(cfg, p, x, prev)
+    h = r.shape[2]
     u = p["u"].float().reshape(h, cfg.ssm.head_dim)
     if cfg.use_kernels:
         from repro_torch.kernels import ops  # deferred: kernels are optional
@@ -176,6 +191,41 @@ def rwkv_time_mix(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
             [bthk, (0, 2, None, None)])
     out = _group_norm(out, p["ln_scale"]).to(cd) * g
     y = out @ p["w_o"].to(cd)
+    return shard_act(y, "batch", None, "model", kind="resid")
+
+
+def _time_mix_sharded(cfg: ModelConfig, p, x: DTensor) -> DTensor:
+    """The time mix on each rank's local tensors, laid out from the rules:
+    the streams' projections column-parallel over the mesh dims that shard
+    w_r's columns (whole heads on each rank), the output projection
+    row-parallel, as ``layers._mlp_sharded`` lays out the MLP. The block
+    input is gathered (compute dtype) over every mesh dim but the batch's,
+    the weights over every mesh dim but the heads'; the per-head vectors
+    and the decay LoRA's B are cut to the local heads, the LoRA's A and the
+    token-shift mixes read whole. Each rank's recurrence and group norm run
+    on its own heads; the output, a partial sum over the heads' shards, is
+    reduce-scattered into the residual layout, and every gradient of an
+    input or parameter that all ranks read comes back summed."""
+    cd = dt(cfg.compute_dtype)
+    mesh = x.device_mesh
+    pl = functools.partial(split_layout, mesh.ndim)
+    rows = sharding_dims(x, 0)
+    heads = cfg.d_model // cfg.ssm.head_dim
+    cols = dividing_dims(mesh, [i for i in sharding_dims(p["w_r"], 1)
+                                if i not in rows], heads)
+    every = rows + cols
+    loc = {}
+    for name in ("w_r", "w_k", "w_v", "w_g"):
+        loc[name] = local_part(p[name].to(cd), pl(1, cols), rows)
+    loc["w_o"] = local_part(p["w_o"].to(cd), pl(0, cols), rows)
+    loc["decay_B"] = local_part(p["decay_B"].float(), pl(1, cols), rows)
+    for name in ("w0", "u", "ln_scale"):
+        loc[name] = local_part(p[name].float(), pl(0, cols), rows)
+    for name in ("decay_A", "mu"):
+        loc[name] = local_part(p[name].float(), pl(0, ()), every)
+    y = _time_mix_local(cfg, loc, local_part(x, pl(0, rows), cols))
+    y = from_local_parts(y, mesh, pl(0, rows, cols),
+                         (*x.shape[:-1], p["w_o"].shape[-1]))
     return shard_act(y, "batch", None, "model", kind="resid")
 
 
@@ -213,13 +263,53 @@ def init_rwkv_channel_mix(cfg: ModelConfig, gen, device) -> nn.ParameterDict:
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor, shift_state=None):
+    if spread(x):
+        return _channel_mix_sharded(cfg, p, x, shift_state)
     cd = dt(cfg.compute_dtype)
-    prev = _token_shift(x, shift_state)
+    r, kv = _channel_mix_local(p, x, _token_shift(x, shift_state), cd)
+    return shard_act(r * kv, "batch", None, "model", kind="resid")
+
+
+def _channel_mix_local(p, x, prev, cd):
+    """(the receptance, the value product) of the channel mix, from the
+    block's weights or one rank's columns of them: w_k [D, F], w_v [F, D],
+    w_r [D, D]."""
     mu = p["mu"].float()
     xk = _mix(x, prev, mu[0]).to(cd)
     xr = _mix(x, prev, mu[1]).to(cd)
     k = torch.square(F.relu(xk @ p["w_k"].to(cd)))
     k = shard_act(k, "batch", None, "model")
     r = torch.sigmoid(xr @ p["w_r"].to(cd))
-    y = r * (k @ p["w_v"].to(cd))
-    return shard_act(y, "batch", None, "model", kind="resid")
+    return r, k @ p["w_v"].to(cd)
+
+
+def _channel_mix_sharded(cfg: ModelConfig, p, x: DTensor, shift_state=None):
+    """The channel mix on each rank's local tensors. Its weights are
+    replicated by the rules; each rank reads the columns of the mesh dims
+    that shard the residual's d_model (when they divide d_ff too): w_k's
+    and w_r's columns, w_v's rows, a local cut that moves nothing. The
+    block input is gathered over every mesh dim but the batch's; the value
+    product, a partial sum over the d_ff shards, is reduce-scattered onto
+    the receptance's columns, which are the residual's."""
+    cd = dt(cfg.compute_dtype)
+    mesh = x.device_mesh
+    pl = functools.partial(split_layout, mesh.ndim)
+    rows = sharding_dims(x, 0)
+    resid = placements(mesh, act_spec(mesh, x.shape, "batch", None, "model",
+                                      kind="resid"))
+    d = x.ndim - 1
+    cols = dividing_dims(mesh, [i for i, q in enumerate(resid)
+                                if q == Shard(d) and i not in rows], cfg.d_ff)
+    loc = {"w_k": local_part(p["w_k"].to(cd), pl(1, cols), rows),
+           "w_r": local_part(p["w_r"].to(cd), pl(1, cols), rows),
+           "w_v": local_part(p["w_v"].to(cd), pl(0, cols), rows),
+           "mu": local_part(p["mu"].float(), pl(0, ()), rows + cols)}
+    xl = local_part(x, pl(0, rows), cols)
+    prev = None if shift_state is None else \
+        local_part(shift_state, pl(0, rows), cols)
+    r, kv = _channel_mix_local(loc, xl, _token_shift(xl, prev), cd)
+    shape = (*x.shape[:-1], p["w_v"].shape[-1])
+    kv = shard_act(from_local_parts(kv, mesh, pl(0, rows, cols), shape),
+                   "batch", None, "model", kind="resid")
+    r = from_local_parts(r, mesh, pl(d, cols, batch=rows), shape)
+    return shard_act(r * kv, "batch", None, "model", kind="resid")

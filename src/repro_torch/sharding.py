@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import math
 import re
 import threading
 from typing import Optional, Tuple
@@ -317,30 +318,99 @@ def _all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over ranks, whose result every rank holds; its gradient is
-    the result's, which every rank holds whole, so the backward moves
-    nothing."""
+    """The sum over ranks, whose result every rank holds. With ``partial``
+    False every rank uses the sum the same way (a replicated result), so its
+    gradient is whole on every rank and the backward moves nothing; with
+    ``partial`` True each rank uses it on its own shard, so its gradient is
+    a partial sum and the backward all-reduces it too."""
 
     @staticmethod
-    def forward(ctx, t, mesh, dims):
+    def forward(ctx, t, mesh, dims, partial):
+        ctx.mesh, ctx.dims, ctx.partial = mesh, dims, partial
         return _all_reduce(t, "sum", mesh, dims)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        if ctx.partial:
+            g = _all_reduce(g, "sum", ctx.mesh, ctx.dims)
+        return g, None, None, None
 
 
-def mesh_reduce(mesh, dims):
+def mesh_reduce(mesh, dims, partial_grad: bool = False):
     """``reduce(t, op)`` across the ranks of the mesh dims ``dims`` (c10d
     functional all-reduces, one per mesh dim, which the dry-run's meter
     counts): "max" and "min" carry no gradient, "sum" carries the result's
-    gradient to every rank's input. What ``stacked_reduce`` does over
-    stacked slices on one device."""
+    gradient to every rank's input, all-reduced as well where
+    ``partial_grad`` says each rank uses the sum on its own shard. What
+    ``stacked_reduce`` does over stacked slices on one device."""
     def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
         if op == "sum":
-            return _AllReduceSum.apply(t, mesh, tuple(dims))
+            return _AllReduceSum.apply(t, mesh, tuple(dims), partial_grad)
         return _all_reduce(t.detach(), op, mesh, dims)
     return reduce
+
+
+def split_layout(n: int, dim: int, on, partial=(),
+                 batch=()) -> Tuple[Placement, ...]:
+    """Placements over ``n`` mesh dims: ``Shard(dim)`` on the mesh dims
+    ``on``, ``Shard(0)`` on ``batch``, ``Partial()`` on ``partial``,
+    ``Replicate()`` elsewhere."""
+    return tuple(Shard(dim) if i in on else Shard(0) if i in batch else
+                 Partial() if i in partial else Replicate()
+                 for i in range(n))
+
+
+def dividing_dims(mesh, dims, size: int) -> Tuple[int, ...]:
+    """``dims`` (mesh dims) where their sizes' product divides ``size``,
+    else none: the split a dim of ``size`` can take over them."""
+    return tuple(dims) if size % math.prod(mesh.size(i) for i in dims) == 0 \
+        else ()
+
+
+def spread(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a DTensor over more than one rank. On one rank
+    nothing moves, and the sharded paths take DTensor's plan, whose ops are
+    the single device's in its order: bit for bit the plain step (AdamW's
+    first steps turn a last-bit gradient change near 0 into a visible
+    weight difference; a local plan sums a gradient's terms in another
+    order where an input feeds several blocks)."""
+    return isinstance(t, DTensor) and t.device_mesh.size() > 1
+
+
+def zero_gather_pays(x: torch.Tensor, w: torch.Tensor, dim: int = 0) -> bool:
+    """Whether a product of ``x`` [..., d] with the weight ``w`` (a DTensor
+    whose dim ``dim``, of size d, is contracted) should gather ``w``'s
+    shards of that dim (ZeRO-3) rather than keep them in place: with ``n``
+    shards the gather moves ``(n - 1) / n * d`` elements of each output
+    column, a product against the shards in place leaves partial sums of
+    each of the rank's ``rows`` rows to reduce, ``(n - 1) * rows`` a
+    column. A train step holds thousands of rows a rank, a decode step a
+    few."""
+    if not isinstance(w, DTensor):
+        return False
+    n = math.prod(w.device_mesh.size(i) for i in sharding_dims(w, dim))
+    rows = x.numel() // x.shape[-1] // math.prod(
+        w.device_mesh.size(i) for i in sharding_dims(x, 0))
+    return w.shape[dim] <= n * rows
+
+
+def local_part(t: DTensor, pl, partial=()) -> torch.Tensor:
+    """``t`` redistributed to the placements ``pl``, as its local tensor;
+    differentiable, its gradient taken as partial over the mesh dims
+    ``partial`` (which ``pl`` replicates), so that the redistribution's
+    backward sums it back into ``t``'s layout: a reduce-scatter onto a
+    sharded dim, an all-reduce onto a replicated one."""
+    grad = tuple(Partial() if i in partial else p for i, p in enumerate(pl))
+    return t.redistribute(t.device_mesh, pl).to_local(grad_placements=grad)
+
+
+def from_local_parts(t: torch.Tensor, mesh, pl, shape) -> DTensor:
+    """The DTensor of global ``shape`` whose local tensor on this rank is
+    ``t`` under the placements ``pl`` (a Partial entry: a partial sum over
+    that mesh dim)."""
+    return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def on_local_shards(fn, like: torch.Tensor, keep, inputs, outputs):

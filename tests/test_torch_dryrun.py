@@ -1,14 +1,23 @@
 """The port's dry-run (``repro_torch.launch.dryrun``) held against the JAX
 package's (``repro.launch.dryrun``) on the same cells.
 
-The JAX side runs once, in one subprocess with 8 fake host devices, and
-writes what it computes to disk: ``count_params`` and ``model_flops`` for
-every arch and shape, ``input_specs``, ``parse_collectives`` of synthetic
-HLO lines, and the reference test's cell (``tests/test_distributed.py::
-test_dryrun_single_cell_on_8_devices``: granite_8b SMOKE on ``(4, 2)``,
-train_4k cut to seq 128 and batch 8) lowered and compiled. The port's side
-runs here, over a fake process group that each test destroys, and in one
-job of 8 gloo ranks for the mesh serve step's tokens.
+The JAX side runs in three subprocesses, started together, and writes
+what it computes to disk. With 8 fake host devices: ``count_params`` and
+``model_flops`` for every arch and shape, ``input_specs``,
+``parse_collectives`` of synthetic HLO lines and the reference test's cell
+(``tests/test_distributed.py::test_dryrun_single_cell_on_8_devices``:
+granite_8b SMOKE on ``(4, 2)``, train_4k cut to seq 128 and batch 8)
+lowered and compiled (``REF``); the depth-exact collective counts of the
+SMOKE cells on ``(4, 2)``: every family's train cell, granite's at 2 and 3
+layers and at seq 128 and 1024, its decode cell at two cache lengths
+(``REF_DEPTH``). Depth-exact: lowered with the layers unrolled
+(``_prep_cfg(..., scan=False)``), since ``parse_collectives`` counts a
+scanned layer loop's body once whatever the depth. With the 512 host
+devices that ``repro.launch.dryrun`` sets: granite_8b's pod cells by
+``_cost_points``, the counts the reference's records hold (two unrolled
+depths, extrapolated; ``REF_POD``). None writes a record (no
+``run_cell``). The port's side runs here, over a fake process group that
+each test destroys, and in jobs of gloo ranks.
 """
 
 import dataclasses
@@ -35,6 +44,9 @@ DTYPE_BYTES = {"bf16": 2, "f32": 4, "s32": 4}
 CELL = dataclasses.replace(SHAPES["train_4k"], seq_len=128, global_batch=8)
 # granite_8b SMOKE's decode_32k cell at two cache lengths, batch 8
 DECODE_T = (4096, 8192)
+# granite_8b SMOKE's train cell at these sequence lengths and depths
+GRANITE_SEQ = (128, 1024)
+GRANITE_LAYERS = (2, 3)
 
 
 def _hlo_lines():
@@ -96,49 +108,115 @@ _, compiled, _ = dr.lower_cell(cfg, shape, mesh)
 out["cell"] = {
     "argument_bytes": int(compiled.memory_analysis().argument_size_in_bytes),
     "flops": float(cost_analysis(compiled).get("flops", 0.0)),
-    "collective_bytes": dr.parse_collectives(compiled.as_text())["total"],
 }
+json.dump(out, open(os.path.join(out_dir, "ref.json"), "w"))
+"""
+
+# The depth-exact collective counts of the SMOKE cells on (4, 2): the
+# layers unrolled, since parse_collectives counts a scanned layer loop once.
+REF_DEPTH = """
+import dataclasses, json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+from repro.configs import ARCH_IDS, SHAPES, get_config
+from repro.launch import dryrun as dr
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+from repro.launch.mesh import make_mesh
+
+out_dir = sys.argv[1]
+mesh = make_mesh((4, 2), ("data", "model"))
+cfg = get_config("granite_8b", smoke=True)
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=128, global_batch=8)
+out = {}
+
+
+def unrolled(c, shape):
+    _, compiled, _ = dr.lower_cell(dr._prep_cfg(c, shape, scan=False),
+                                   shape, mesh)
+    return dr.parse_collectives(compiled.as_text())
+
+
+out["train"] = {arch: unrolled(get_config(arch, smoke=True), shape)
+                for arch in ARCH_IDS}
+out["granite"] = {}
+for s in GRANITE_SEQ:
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=s, global_batch=8)
+    for n in GRANITE_LAYERS:
+        out["granite"][f"{s}/{n}"] = unrolled(cfg.replace(n_layers=n), shape)
 out["decode"] = {}
 for t in DECODE_T:
     shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=t,
                                 global_batch=8)
-    _, compiled, _ = dr.lower_cell(dr._prep_cfg(cfg, shape, scan=True),
-                                   shape, mesh)
-    out["decode"][str(t)] = dr.parse_collectives(compiled.as_text())
-json.dump(out, open(os.path.join(out_dir, "ref.json"), "w"))
+    out["decode"][str(t)] = unrolled(cfg, shape)
+json.dump(out, open(os.path.join(out_dir, "ref_depth.json"), "w"))
+"""
+
+# The reference's records' counts for granite_8b's pod cells. Importing
+# repro.launch.dryrun sets 512 host devices, so this runs on its own.
+REF_POD = """
+import json, os, sys
+from repro.launch import dryrun as dr
+from repro.configs import SHAPES, get_config
+from repro.launch.mesh import make_production_mesh
+
+mesh = make_production_mesh(multi_pod=False)
+cfg = get_config("granite_8b")
+out = {name: dr._cost_points(cfg, SHAPES[name], mesh)
+       for name in ("train_4k", "decode_32k")}
+json.dump(out, open(os.path.join(sys.argv[1], "ref_pod.json"), "w"))
 """
 
 
 @pytest.fixture(scope="module")
 def work(tmp_path_factory):
-    """The synthetic lines on disk, and the JAX reference started at once
-    (``ref`` waits for it)."""
+    """The synthetic lines on disk, and the two JAX reference scripts
+    started at once (``ref`` and ``ref_pod`` wait for them)."""
     d = tmp_path_factory.mktemp("dryrun")
     (d / "lines.json").write_text(json.dumps([x[0] for x in _hlo_lines()]))
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    script = f"DECODE_T = {DECODE_T!r}\n" + textwrap.dedent(REF)
-    proc = subprocess.Popen([sys.executable, "-c", script, str(d)], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    consts = (f"DECODE_T = {DECODE_T!r}\nGRANITE_SEQ = {GRANITE_SEQ!r}\n"
+              f"GRANITE_LAYERS = {GRANITE_LAYERS!r}\n")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", script, str(d)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, script in (("ref", textwrap.dedent(REF)),
+                             ("ref_depth", consts + textwrap.dedent(REF_DEPTH)),
+                             ("ref_pod", textwrap.dedent(REF_POD)))}
     try:
-        yield d, proc
+        yield d, procs
     finally:
-        if proc.poll() is None:
-            proc.kill()
-        proc.communicate()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
 
 
-@pytest.fixture(scope="module")
-def ref(work):
-    d, proc = work
+def _finished(work, name):
+    d, procs = work
+    proc = procs[name]
     try:
         out, err = proc.communicate(timeout=JOB_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         raise
     assert proc.returncode == 0, f"stdout:\n{out}\nstderr:\n{err}"
-    return json.loads((d / "ref.json").read_text())
+    return json.loads((d / f"{name}.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def ref(work):
+    return _finished(work, "ref")
+
+
+@pytest.fixture(scope="module")
+def ref_depth(work):
+    return _finished(work, "ref_depth")
+
+
+@pytest.fixture(scope="module")
+def ref_pod(work):
+    return _finished(work, "ref_pod")
 
 
 @pytest.fixture()
@@ -223,11 +301,12 @@ def test_reference_cell_bytes_flops_and_collectives(ref, fake8):
                                                            one)
 
 
-def test_decode_cell_keeps_the_cache_where_it_is(ref, fake8):
+def test_decode_cell_keeps_the_cache_where_it_is(ref_depth, fake8):
     # granite SMOKE's decode on (4, 2): the cache's time axis over "model"
     # stays there (split-T: only q's heads and the softmax partials move),
-    # so the collective bytes do not grow with the cache, and they stay
-    # within 1.25x of the reference's lowered cell at each length.
+    # so the collective bytes do not grow with the cache; at each length
+    # they stay at or under the reference's depth-exact count, and no
+    # higher than before the train step's plan was made explicit.
     cfg = get_config("granite_8b", smoke=True)
     got = {}
     for t in DECODE_T:
@@ -236,8 +315,9 @@ def test_decode_cell_keeps_the_cache_where_it_is(ref, fake8):
         dev = dr.analyze_cell(dr._prep_cfg(cfg, shape), shape,
                               fake8)["per_device"]
         got[t] = dev["collective_wire_bytes"]
-        want = ref["decode"][str(t)]["total"]
-        assert 0 < got[t] <= 1.25 * want, (t, got[t], want)
+        want = ref_depth["decode"][str(t)]["total"]
+        assert 0 < got[t] <= min(want, SPLIT_T_DECODE_BYTES), (t, got[t],
+                                                               want)
     assert len(set(got.values())) == 1, got
     # the meter sees split-T's all-reduces at the ring factors: per layer
     # the f32 max and sum [2, 1, 4] and the output [2, 1, 4, 16] of a
@@ -260,30 +340,150 @@ def test_decode_cell_keeps_the_cache_where_it_is(ref, fake8):
 GATHERED_LOSS_BYTES = {"all-gather": 1_877_632.0, "all-reduce": 198_572.0,
                        "reduce-scatter": 1_049_600.0}
 GATHERED_LOSS_POD_BYTES = 1_215_364_224_060.0
+# granite_8b's decode cells with split-T, before the train step's plan was
+# made explicit (the same analyze_cell): SMOKE on fake8 at both cache
+# lengths, decode_32k on the pod mesh. The decode step keeps DTensor's plan
+# for its few rows (``sharding.zero_gather_pays``); neither may rise.
+SPLIT_T_DECODE_BYTES = 90_432.0
+SPLIT_T_POD_DECODE_BYTES = 350_350_800.0
+# granite_8b train_4k's predicted peak bytes a device on the pod mesh before
+# the plan was explicit (remat "full"): the peak may not rise.
+PARENT_POD_TRAIN_PEAK = 34_785_352_724
 
 
 def test_train_cell_loses_the_logits_gather(fake8):
     # The loss keeps the logits' vocab sharded: the all-gather of a rank's
     # [2, 128, 512] f32 logits from vocab slices of 256 over "model" goes.
     # Its backward was free (DTensor slices the gathered gradient back to
-    # the shards), and stays so. Three all-reduces of a [2, 128] f32
-    # partial over "model" (the max, the sum of exp, the label's logit) are
-    # all that replace it.
+    # the shards), and stays so. By site: three all-reduces of a [2, 128]
+    # f32 partial over "model" (the max, the sum of exp, the label's
+    # logit) are all the loss moves beside the mean's scalars, and no site
+    # moves as many bytes as one gather of the logits.
     cfg = get_config("granite_8b", smoke=True)
-    dev = dr.analyze_cell(cfg, CELL, fake8)["per_device"]
+    dev = dr.analyze_cell(cfg, CELL, fake8, sites=True)["per_device"]
+    sites = dev["collective_by_site"]
     data, p = 4, 2                                  # the (4, 2) mesh
     rows = CELL.global_batch // data * CELL.seq_len
     gather = dr.wire_bytes("all-gather", rows * cfg.vocab_size * 4, p)
     backward = 0
     partials = 3 * dr.wire_bytes("all-reduce", rows * 4, p)
     assert gather == 262_144
-    kind = dev["collective_by_kind"]
-    before = GATHERED_LOSS_BYTES
-    assert before["all-gather"] - kind["all-gather"] >= gather + backward
-    assert sum(before.values()) - dev["collective_wire_bytes"] \
-        >= gather + backward
-    assert kind["all-reduce"] - before["all-reduce"] == partials
-    assert kind["reduce-scatter"] == before["reduce-scatter"]
+    assert sum(GATHERED_LOSS_BYTES.values()) \
+        - dev["collective_wire_bytes"] >= gather + backward
+    loss = {k: v for k, v in sites.items()
+            if k.split(" ")[0] in ("models/lm.py:lm_loss",
+                                   "models/layers.py:log_likelihood",
+                                   "models/layers.py:vocab_partial",
+                                   "models/layers.py:combine_vocab_partials")}
+    assert loss.pop("models/layers.py:combine_vocab_partials forward") \
+        == partials
+    assert set(loss) <= {"models/lm.py:lm_loss forward"}, loss
+    assert sum(loss.values()) < 64                  # f32 scalars
+    assert max(sites.values()) < gather, sites
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_cell_within_the_reference(ref_depth, fake8, arch):
+    # Every family's SMOKE train cell on (4, 2) moves at most the
+    # reference's collective bytes a device, counted depth-exact.
+    cfg = get_config(arch, smoke=True)
+    got = dr.analyze_cell(cfg, CELL, fake8)["per_device"]
+    want = ref_depth["train"][arch]["total"]
+    assert 0 < got["collective_wire_bytes"] <= want, (
+        got["collective_wire_bytes"], want)
+
+
+def _granite_layer_bytes(cfg, rows: int) -> dict:
+    """The collective wire bytes a device of one granite block on the
+    (4, 2) mesh, reckoned from shapes, by site and phase, for ``rows`` rows
+    (batch x sequence) a rank. ``data`` = 4 shards the batch and every
+    weight's d_model, ``model`` = 2 the residual's d_model, d_ff and the
+    heads; every activation moves in bf16, the norms' statistics in f32."""
+    data, model, bf16, f32 = 4, 2, 2, 4
+    w = dr.wire_bytes
+    d, f = cfg.d_model, cfg.d_ff
+    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    block = w("all-gather", rows * d * bf16, model)       # input gathered
+    out = w("reduce-scatter", rows * d // model * bf16, model)
+    # the MLP: gate, up and down, d_ff cut over model, each gathered over
+    # data forward and its gradient reduce-scattered over data backward
+    mlp_w = 3 * d * f // model * bf16
+    mlp = {"forward": block + w("all-gather", mlp_w, data) + out,
+           "backward": block + w("reduce-scatter", mlp_w // data, data) + out,
+           # the recompute stops before the down product's reduce-scatter
+           "recompute": block + w("all-gather", mlp_w, data)}
+    # attention: wq and wo a rank's heads, wk and wv whole (the rules
+    # replicate the kv heads over model; a rank projects those its q heads
+    # read), each gathered over data; wk's and wv's gradients then summed
+    # over model too
+    q_w = d * h // model * hd * bf16
+    kv_w = d * kv * hd * bf16
+    gathered = w("all-gather", 2 * q_w + 2 * kv_w, data)
+    attn = {"forward": block + gathered + out,
+            "recompute": block + gathered + out,
+            "backward": block + out
+            + w("reduce-scatter", (2 * q_w + 2 * kv_w) // data, data)
+            + w("all-reduce", 2 * kv_w // data, model)}
+    # each RMSNorm: the [rows, 1] f32 sum of squares all-reduced over
+    # model, forward and backward; the scale's gradient gathered over
+    # model and summed over data
+    stat = w("all-reduce", rows * f32, model)
+    scale = w("all-gather", d * f32, model) + w("all-reduce", d * f32, data)
+    norm = {"forward": stat, "recompute": stat, "backward": stat + scale}
+    return {"models/layers.py:_mlp_sharded": mlp,
+            "models/attention.py:_attention_sharded": attn,
+            "models/layers.py:_norm_sharded": norm}
+
+
+def test_mlp_and_norm_sites_reckoned_from_shapes(fake8):
+    # granite SMOKE's cell by site: the MLP's and the norms' collectives are
+    # exactly the bf16 block-input gathers, the output reduce-scatters, the
+    # weights' data gathers and gradient reduce-scatters, and the f32
+    # [B, S, 1] statistics' all-reduces. No other site of the MLP or the
+    # norm moves anything: the [B, S, d_ff] hidden and the f32 activations
+    # stay where they are.
+    cfg = get_config("granite_8b", smoke=True)
+    sites = dr.analyze_cell(cfg, CELL, fake8,
+                            sites=True)["per_device"]["collective_by_site"]
+    rows = CELL.global_batch // 4 * CELL.seq_len
+    layer = _granite_layer_bytes(cfg, rows)
+    n = cfg.n_layers
+    counts = {"models/layers.py:_mlp_sharded": dict.fromkeys(
+                  ("forward", "backward", "recompute"), n),
+              # two norms a block, and the final norm outside any block
+              "models/layers.py:_norm_sharded": {
+                  "forward": 2 * n + 1, "backward": 2 * n + 1,
+                  "recompute": 2 * n}}
+    for site, phases in counts.items():
+        for phase, k in phases.items():
+            assert sites.pop(f"{site} {phase}") == k * layer[site][phase], (
+                site, phase)
+    assert not [k for k in sites if k.startswith((
+        "models/layers.py:mlp", "models/layers.py:_act",
+        "models/layers.py:_mlp", "models/layers.py:norm",
+        "models/layers.py:_norm", "models/layers.py:_row_mean"))], sites
+
+
+@pytest.mark.parametrize("seq", GRANITE_SEQ)
+def test_granite_depth_within_the_reference(ref_depth, fake8, seq):
+    # granite SMOKE at 2 and 3 layers: each depth at or under the
+    # reference's depth-exact count, and the third layer's extra bytes (a
+    # block's) at or under the reference's; a block moves what its MLP,
+    # attention and two norms do, reckoned from shapes.
+    cfg = get_config("granite_8b", smoke=True)
+    shape = dataclasses.replace(CELL, seq_len=seq)
+    got = {n: dr.analyze_cell(cfg.replace(n_layers=n), shape, fake8)[
+        "per_device"]["collective_wire_bytes"] for n in GRANITE_LAYERS}
+    want = {n: ref_depth["granite"][f"{seq}/{n}"]["total"]
+            for n in GRANITE_LAYERS}
+    for n in GRANITE_LAYERS:
+        assert 0 < got[n] <= want[n], (n, got[n], want[n])
+    lo, hi = GRANITE_LAYERS
+    per_layer = got[hi] - got[lo]
+    assert 0 < per_layer <= want[hi] - want[lo]
+    layer = _granite_layer_bytes(cfg, 8 // 4 * seq)
+    norms = 2 * sum(layer.pop("models/layers.py:_norm_sharded").values())
+    assert per_layer == norms + sum(sum(v.values()) for v in layer.values())
 
 
 def test_collective_bytes_by_site(fake8):
@@ -316,9 +516,23 @@ def pod_cells():
         mesh = make_production_mesh(device="cpu")
         for name in ("decode_32k", "train_4k"):
             shape = SHAPES[name]
-            out[name] = dr.analyze_cell(dr._prep_cfg(cfg, shape), shape,
-                                        mesh)["per_device"]
+            rec = dr.analyze_cell(dr._prep_cfg(cfg, shape), shape, mesh)
+            out[name] = dict(rec["per_device"],
+                             peak_bytes_est=rec["memory"]["peak_bytes_est"])
     return out
+
+
+def test_pod_cells_within_the_reference(pod_cells, ref_pod):
+    # granite_8b on the 16 x 16 pod mesh against the reference's records
+    # (``_cost_points``: depth-exact). Train moves at most the reference's
+    # collective bytes a device; its predicted peak stays under what it was
+    # before the plan was explicit; decode does not rise.
+    train, decode = pod_cells["train_4k"], pod_cells["decode_32k"]
+    assert 0 < train["collective_wire_bytes"] \
+        <= ref_pod["train_4k"]["coll"], train["collective_wire_bytes"]
+    assert 0 < train["peak_bytes_est"] <= PARENT_POD_TRAIN_PEAK
+    assert 0 < decode["collective_wire_bytes"] \
+        <= min(SPLIT_T_POD_DECODE_BYTES, ref_pod["decode_32k"]["coll"])
 
 
 def test_pod_decode_cell_moves_no_cache(pod_cells):
@@ -560,6 +774,52 @@ def mesh_job(tmp_path_factory):
     return spawn(_mesh_job, 8, timeout_s=JOB_TIMEOUT_S, store_dir=str(d))[0]
 
 
+def _mesh3_job():
+    """Every family's sharded train step on the multipod mesh's axes,
+    ("pod", "data", "model") = (2, 2, 2): the batch over two mesh dims."""
+    from repro_torch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.optim import OptConfig
+
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    rng = np.random.default_rng(0)
+    oc = OptConfig(warmup_steps=1, total_steps=10)
+    out = {}
+    for arch in FAMILIES:
+        cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+        model = build_model(cfg, "cpu")
+        batch = _batch(cfg, rng, 8, 16)
+        state = make_train_state(model, torch.Generator().manual_seed(0))
+        dstate = shd.distribute_state(state, mesh)
+        plain, m1 = make_train_step(model, oc)(state, batch)
+        sharded, m2 = make_train_step(model, oc, mesh=mesh)(dstate, batch)
+        full = shd.full_state(sharded)["params"]
+        out[arch] = {"loss": (float(m1["loss"]), float(m2["loss"])),
+                     "param_err": max(
+                         float((p.detach() - full.get_parameter(n)).abs().max())
+                         for n, p in plain["params"].named_parameters())}
+    return out if dist.get_rank() == 0 else None
+
+
+@pytest.fixture(scope="module")
+def mesh3_job(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh3_job")
+    return spawn(_mesh3_job, 8, timeout_s=JOB_TIMEOUT_S, store_dir=str(d))[0]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_family_trains_on_three_mesh_axes(mesh3_job, arch):
+    """The explicit plan on the multipod mesh's axes: the batch's rows over
+    "pod" and "data" together, so the weights' ZeRO gathers and their
+    gradients' reduce-scatters run over "data" alone while the gradients
+    sum over both. The same bars as on (4, 2)."""
+    rec = mesh3_job[arch]
+    l1, l2 = rec["loss"]
+    assert abs(l1 - l2) < 1e-5, (l1, l2)
+    assert rec["param_err"] < 1e-4
+
+
 def test_serve_step_on_the_mesh_gives_the_plain_tokens(mesh_job):
     (t1, l1, _), (t2, l2, placed) = mesh_job["granite"]
     np.testing.assert_array_equal(t1, t2)
@@ -583,6 +843,62 @@ def test_every_family_trains_and_serves_on_the_mesh(mesh_job, arch):
     np.testing.assert_array_equal(*rec["tokens"])
     # the loss over the vocab shards, once a step
     assert rec["train_calls"]["vocab"] == 1, rec["train_calls"]
+
+
+ONE_RANK_ARCHS = ("relic_tiny", "whisper_large_v3", "qwen3_14b",
+                  "rwkv6_1p6b")
+ONE_RANK_STEPS = 3
+
+
+def _one_rank_job():
+    """Each of ``ONE_RANK_ARCHS`` (SMOKE, its own dtypes): AdamW steps of
+    the DTensor state on a (1, 1) mesh and of the plain state, from the
+    same draw and batches; the largest parameter difference and both
+    losses."""
+    from repro_torch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.optim import OptConfig
+
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    oc = OptConfig(warmup_steps=1, total_steps=10)
+    out = {}
+    for arch in ONE_RANK_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg, "cpu")
+        rng = np.random.default_rng(0)
+        batches = [_batch(cfg, rng, 4, 16) for _ in range(ONE_RANK_STEPS)]
+        plain = make_train_state(model, torch.Generator().manual_seed(0))
+        dstate = shd.distribute_state(plain, mesh)
+        losses = {"plain": [], "mesh": []}
+        for batch in batches:
+            plain, m1 = make_train_step(model, oc)(plain, batch)
+            dstate, m2 = make_train_step(model, oc, mesh=mesh)(dstate, batch)
+            losses["plain"].append(float(m1["loss"]))
+            losses["mesh"].append(float(m2["loss"]))
+        full = shd.full_state(dstate)["params"]
+        out[arch] = {"losses": losses, "param_err": max(
+            float((p.detach() - full.get_parameter(n)).abs().max())
+            for n, p in plain["params"].named_parameters())}
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_rank_job(tmp_path_factory):
+    d = tmp_path_factory.mktemp("one_rank_job")
+    return spawn(_one_rank_job, 1, timeout_s=JOB_TIMEOUT_S,
+                 store_dir=str(d))[0]
+
+
+@pytest.mark.parametrize("arch", ONE_RANK_ARCHS)
+def test_one_rank_mesh_trains_bit_for_bit(one_rank_job, arch):
+    """On a mesh of one rank (the card's) every sharded path keeps the
+    single device's arithmetic: the losses and the parameters after
+    AdamW's first steps equal the plain step's exactly (AdamW turns a
+    last-bit gradient change near 0 into a visible weight difference)."""
+    rec = one_rank_job[arch]
+    assert rec["losses"]["mesh"] == rec["losses"]["plain"]
+    assert rec["param_err"] == 0.0
 
 
 def _attention_reads(cfg) -> int:
