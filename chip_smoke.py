@@ -126,7 +126,9 @@ Phases (any failure exits non-zero):
      (split-T keeps each rank's slice of the cache where it is), its
      train_4k record at most the reference's depth-exact count (6.43986e11)
      with a predicted peak of at most 34.79 GB, its three largest call
-     sites printed (``--sites``);
+     sites printed (``--sites``); every family's SMOKE train cell on a
+     (4, 2) mesh over a fake group of 8 (``--smoke``), each count within
+     0.02% of the torch 2.13 count (every block's plan explicit);
  14. split-T decode and the vocab-parallel log-likelihood at granite_8b's
      full width (``phase_split_decode``, after the dry-run): a decode
      attention over a [8, 32768, 8, 128] bf16 cache at position 30000, its
@@ -136,15 +138,19 @@ Phases (any failure exits non-zero):
      f32 logits cut 16 ways (``vocab_partial``, ``combine_vocab_partials``)
      against ``torch.log_softmax`` and a gather, value and gradient; each
      timed beside the unsplit function;
- 15. a long relic_tiny forward and loss at [4, 2048] with the kernel against
+ 15. the port's two device examples as a user runs them
+     (``phase_examples``, after the workloads): ``repro_torch.serve_batch``
+     (qwen3_14b at SMOKE size) and ``repro_torch.train_lm --steps 20``, their
+     tensors on the card;
+ 16. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6, each family of 7, and 8 are the main paths: each starts
 with every kernel's launch count at 0 and its counts are read when it ends;
-every flash launch there and in phase 15 must go through the wgmma design
+every flash launch there and in phase 16 must go through the wgmma design
 (none through the CUDA-core kernel) and every ssd and wkv6 launch through
 the tensor-core one, and the
 quickstart's one relic_matmul launch through the f32 design; phases 9 to
-14 must launch no kernel (training runs the plain paths, as the
+15 must launch no kernel (training runs the plain paths, as the
 reference's does, and the workloads' kernels were never Pallas ones).
 On the one-rank mesh the cache's time axis is sharded over a "model" axis
 of one: every attention of the mesh serve step must take split-T (phase
@@ -181,7 +187,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch import quickstart  # noqa: E402
+from repro_torch import quickstart, serve_batch, train_lm  # noqa: E402
 from repro_torch import sharding as shd  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager, elastic_restore  # noqa: E402
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
@@ -2001,6 +2007,25 @@ DRYRUN_DECODE_WIRE_MAX = 1e9
 # then)
 DRYRUN_TRAIN_WIRE_MAX = 6.43986e11
 DRYRUN_TRAIN_PEAK_MAX = 34.79e9
+# Every family's SMOKE train cell (``dryrun.SMOKE_CELL`` on a (4, 2) mesh
+# over a fake group of 8): collective wire bytes a device with torch 2.13
+# on a CPU (``python -m repro_torch.launch.dryrun --smoke``). Every block's
+# plan is explicit, so the card host's release must count the same within
+# ``DRYRUN_SMOKE_REL``.
+DRYRUN_SMOKE_WIRE_213 = {
+    "whisper_large_v3": 1193896,
+    "llama4_maverick_400b_a17b": 1757944,
+    "arctic_480b": 1499896,
+    "granite_8b": 760360,
+    "phi3_mini_3p8b": 773672,
+    "llama3_405b": 1097256,
+    "qwen3_14b": 761000,
+    "rwkv6_1p6b": 992546,
+    "zamba2_1p2b": 1845592,
+    "paligemma_3b": 726376,
+    "relic_tiny": 568872,
+}
+DRYRUN_SMOKE_REL = 2e-4
 
 
 def _dryrun_records():
@@ -2008,22 +2033,34 @@ def _dryrun_records():
     the 16 x 16 production mesh (a fake group of 256 ranks on this host's
     CPU, meta tensors; one process each, run together; train_4k with its
     collective bytes by call site): each record must hold every key, and
-    positive FLOPs, bytes and collective bytes. Returns {shape: record}."""
+    positive FLOPs, bytes and collective bytes; beside them, in a third
+    process, every family's SMOKE train cell (``--smoke``). Returns
+    ({shape: record}, {arch: SMOKE collective wire bytes a device})."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
     procs = {shape: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "granite_8b", "--shape", shape, "--mesh", "pod", "--force"]
-        + (["--sites"] if shape == "train_4k" else []),
+        cmd + ["--arch", "granite_8b", "--shape", shape, "--mesh", "pod",
+               "--force"] + (["--sites"] if shape == "train_4k" else []),
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for shape in DRYRUN_CELLS}
-    recs = {}
+    procs["smoke"] = subprocess.Popen(
+        cmd + ["--smoke"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    recs, smoke = {}, None
     try:
         for shape, proc in procs.items():
             stdout, stderr = proc.communicate(timeout=600)
             if proc.returncode:
                 raise AssertionError(f"[dryrun] {shape} failed:\n{stdout}"
                                      f"\n{stderr[-4000:]}")
+            if shape == "smoke":
+                smoke = json.loads(stdout.strip().splitlines()[-1])
+                print(f"[dryrun] every family's SMOKE train cell on (4, 2), "
+                      f"this host's CPU: "
+                      f"{time.perf_counter() - t0:.1f} s since all started",
+                      flush=True)
+                continue
             path = Path(ROOT) / "build" / "dryrun_torch" / \
                 f"granite_8b__{shape}__pod.json"
             rec = json.loads(path.read_text())
@@ -2053,7 +2090,26 @@ def _dryrun_records():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    return recs
+    return recs, smoke
+
+
+def _hold_smoke_counts(smoke: dict) -> None:
+    """Every family's SMOKE train count on this host's torch within
+    ``DRYRUN_SMOKE_REL`` of the torch 2.13 count."""
+    off = {}
+    for arch, want in DRYRUN_SMOKE_WIRE_213.items():
+        got = smoke[arch]
+        rel = abs(got - want) / want
+        print(f"[dryrun] {arch} SMOKE train (4, 2): {got:.0f} collective "
+              f"wire bytes a device on torch {torch.__version__}, "
+              f"{want:.0f} on torch 2.13 (relative difference {rel:.2e})",
+              flush=True)
+        if rel > DRYRUN_SMOKE_REL:
+            off[arch] = (got, want)
+    if off or set(smoke) != set(DRYRUN_SMOKE_WIRE_213):
+        raise AssertionError(f"[dryrun] SMOKE train counts off the torch 2.13 "
+                             f"counts by more than {DRYRUN_SMOKE_REL}: {off}; "
+                             f"families {sorted(smoke)}")
 
 
 def _active_blocks() -> dict:
@@ -2150,7 +2206,8 @@ def phase_dryrun(device, card):
     one-rank NCCL ``(1, 1)`` mesh; (c) the mesh serve step's tokens against
     the plain serve step's, exactly, every attention of the mesh step
     split-T (its cache's time axis sharded over a "model" axis of one)."""
-    recs = _dryrun_records()
+    recs, smoke = _dryrun_records()
+    _hold_smoke_counts(smoke)
     wire = {k: r["per_device"]["collective_wire_bytes"]
             for k, r in recs.items()}
     peak = recs["train_4k"]["memory"]["peak_bytes_est"]
@@ -3005,6 +3062,54 @@ def phase_train_optim(device):
         raise AssertionError("the Adafactor step did not train")
 
 
+EXAMPLE_TRAIN_STEPS = 20
+
+
+def phase_examples(device, card):
+    """The port's two device examples as a user runs them, on the card:
+    ``repro_torch.serve_batch`` (qwen3_14b at SMOKE size, its defaults) and
+    ``repro_torch.train_lm`` (``--steps 20``, its defaults otherwise:
+    relic_tiny at SMOKE size, batch 8 x 128, a checkpoint at the end).
+    The served tokens and every train step's parameters and batch must lie
+    on ``device``; the loss must be finite."""
+    t0 = time.perf_counter()
+    toks = serve_batch.main(["--arch", "qwen3_14b", "--device", device.type])
+    if toks.device.type != device.type or tuple(toks.shape) != (4, 24):
+        raise AssertionError(f"[examples] serve_batch gave {tuple(toks.shape)} "
+                             f"tokens on {toks.device}")
+    t1 = time.perf_counter()
+    seen, plain = [], train.make_train_step
+
+    def watched(*args, **kwargs):
+        step = plain(*args, **kwargs)
+
+        def run(state, batch):
+            seen.append({next(state["params"].parameters()).device.type}
+                        | {v.device.type for v in batch.values()})
+            return step(state, batch)
+        return run
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_lm")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    train.make_train_step = watched
+    try:
+        loss = train_lm.main(["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt",
+                              ckpt, "--device", device.type])
+    finally:
+        train.make_train_step = plain
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if len(seen) != EXAMPLE_TRAIN_STEPS or any(d != {device.type}
+                                               for d in seen):
+        raise AssertionError(f"[examples] train_lm's steps ran on {seen}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"[examples] train_lm's final loss {loss}")
+    print(f"[examples] on {card}: serve_batch (qwen3_14b, SMOKE) "
+          f"{tuple(toks.shape)} tokens on {toks.device}, "
+          f"{(t1 - t0):.1f} s; train_lm {EXAMPLE_TRAIN_STEPS} steps, every "
+          f"step's parameters and batch on {device.type}, final loss "
+          f"{loss:.4f}, {time.perf_counter() - t1:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -3152,6 +3257,12 @@ def main() -> int:
     _count_path("workloads", {}, entries)
     print(f"[main] train driver {t1 - t0:.1f} s, workloads "
           f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    _reset_launches()
+    t_ex = time.perf_counter()
+    phase_examples(device, card)
+    _count_path("examples", {}, entries)
+    print(f"[main] examples phase {time.perf_counter() - t_ex:.1f} s")
 
     phase_long(*relic, device)
     print(f"[main] every phase {time.perf_counter() - t_start:.1f} s")

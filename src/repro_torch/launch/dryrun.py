@@ -44,6 +44,7 @@ Run on the CPU, no card needed:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
         [--mesh pod|multipod|both] [--force] [--sites]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --smoke
 
 Records go to ``build/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 """
@@ -52,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -339,6 +341,71 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     return 2.0 * n_active * tokens
 
 
+def kv_plan_costs(cfg: ModelConfig, shape: ShapeConfig,
+                  mesh_shape: tuple) -> Optional[dict]:
+    """Attention's k and v projections on a ("data", "model") mesh of
+    ``mesh_shape`` whose ``model`` axis cuts the q heads, costed per device
+    for one train step at the data-sheet rates, two ways.
+    "duplicated" (``models/attention.py::_attention_sharded``): every rank
+    projects, from its gathered block input, the kv heads its q heads read,
+    so a kv head read by q heads on several ranks is projected on each:
+    ``flops`` above one projection of each kv head over the mesh (forward,
+    the two backward products, and the remat recompute under "full").
+    "all_reduced" (DTensor's plan before it): each rank projects every kv
+    head from its d_model shard and all-reduces the partial k and v over
+    ``model``, forward and backward (and again in the recompute): ``bytes``
+    on the wire. ``s`` is each at its rate (``PEAK_FLOPS``, ``NVLINK_BW``).
+    None where ``model`` does not divide the q heads (no rank cuts them)."""
+    data, model = mesh_shape
+    rows = shape.global_batch // data * shape.seq_len
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if h % model:
+        return None     # the q heads stay whole on every rank: no cut
+    q_loc, group = h // model, h // kv
+    read = max(len({(r * q_loc + j) // group for j in range(q_loc)})
+               for r in range(model))
+    passes = 3 + (cfg.remat == "full")
+    head = 2 * rows * cfg.d_model * hd          # one kv head's product
+    flops = cfg.n_layers * passes * 2 * head * (read - kv / model)
+    moved = cfg.n_layers * (2 + (cfg.remat == "full")) * 2 * wire_bytes(
+        "all-reduce", rows * kv * hd * 2, model)
+    return {"duplicated": {"flops": flops, "s": flops / PEAK_FLOPS},
+            "all_reduced": {"bytes": moved, "s": moved / NVLINK_BW}}
+
+
+def mamba2_w_in_costs(cfg: ModelConfig, shape: ShapeConfig,
+                      mesh_shape: tuple) -> dict:
+    """Mamba-2's w_in [D, in_dim] (columns ``[z | x | B | C | dt]``, cut
+    contiguously over ``model`` by the rules, d_model over ``data``) on a
+    ("data", "model") mesh of ``mesh_shape`` whose ``model`` axis cuts the
+    heads: the forward's wire bytes a device a layer of the two routes to
+    each rank's heads' columns (the backward mirrors each). "gather"
+    (``models/mamba2.py::_mamba2_sharded``): w_in gathered whole in bf16
+    and cut. "move": the rank's contiguous columns gathered over ``data``
+    and projected, then the bf16 activations of the columns its heads need
+    (their z, x and dt, and B and C) that another rank projected moved to
+    it (the largest such share of any rank)."""
+    data, model = mesh_shape
+    rows = shape.global_batch // data * shape.seq_len
+    s, d = cfg.ssm, cfg.d_model
+    d_inner = s.expand * d
+    h, n = d_inner // s.head_dim, s.state_dim
+    in_dim = 2 * d_inner + 2 * n + h
+    weight = d * in_dim * 2
+    c_loc, h_loc, per = d_inner // model, h // model, in_dim // model
+    remote = 0
+    for r in range(model):
+        need = (set(range(r * c_loc, (r + 1) * c_loc))
+                | set(range(d_inner + r * c_loc, d_inner + (r + 1) * c_loc))
+                | set(range(2 * d_inner, 2 * d_inner + 2 * n))
+                | set(range(2 * d_inner + 2 * n + r * h_loc,
+                            2 * d_inner + 2 * n + (r + 1) * h_loc)))
+        remote = max(remote, len(need - set(range(r * per, (r + 1) * per))))
+    return {"gather": wire_bytes("all-gather", weight, data * model),
+            "move": wire_bytes("all-gather", weight // model, data)
+            + rows * remote * 2}
+
+
 # ---------------------------------------------------------------------------
 # One cell
 # ---------------------------------------------------------------------------
@@ -486,6 +553,28 @@ def fake_group(world_size: int):
         dist.destroy_process_group()
 
 
+# every family's SMOKE train cell: train_4k cut to sequence 128 and batch 8,
+# on the reference test's (4, 2) mesh
+SMOKE_CELL = ("train_4k", 128, 8)
+SMOKE_MESH = (4, 2)
+
+
+def smoke_train_counts() -> dict:
+    """{arch: collective wire bytes a device} of each family's SMOKE train
+    cell (``SMOKE_CELL``) on a ``SMOKE_MESH`` ("data", "model") mesh over a
+    fake group in this process (none may exist)."""
+    name, seq, batch = SMOKE_CELL
+    shape = dataclasses.replace(SHAPES[name], seq_len=seq, global_batch=batch)
+    out = {}
+    with fake_group(math.prod(SMOKE_MESH)):
+        mesh = dist.device_mesh.init_device_mesh(
+            "cpu", SMOKE_MESH, mesh_dim_names=("data", "model"))
+        for arch in ARCH_IDS:
+            cost = analyze_cell(get_config(arch, smoke=True), shape, mesh)
+            out[arch] = cost["per_device"]["collective_wire_bytes"]
+    return out
+
+
 def _mesh_size(mesh_name: str) -> int:
     return math.prod(PRODUCTION_MESHES[mesh_name == "multipod"][0])
 
@@ -500,7 +589,14 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--sites", action="store_true",
                     help="also sum the collective bytes by the call site "
                          "that issued them (anomaly mode: slower)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="print every family's SMOKE train cell's collective "
+                         "wire bytes a device as JSON (SMOKE_CELL on "
+                         "SMOKE_MESH) and stop")
     args = ap.parse_args(argv)
+    if args.smoke:
+        print(json.dumps(smoke_train_counts()), flush=True)
+        return 0
 
     archs = [a for a in ARCH_IDS if a != "relic_tiny"] \
         if args.arch == "all" else [args.arch]

@@ -188,11 +188,15 @@ def init_embed(cfg: ModelConfig, gen, vocab: int, dim: int, device):
 
 
 def embed(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    table = p["table"]
-    y = (embed_sharded(table, tokens) if isinstance(table, DTensor)
-         else table[tokens])
-    return shard_act(y.to(dt(cfg.compute_dtype)), "batch", None, "model",
-                     kind="resid")
+    """``table[tokens]`` in the compute dtype, in the residual layout on a
+    mesh (``sharding.embed_sharded``: the vocab partials reduce-scattered
+    straight into it)."""
+    table, cd = p["table"], dt(cfg.compute_dtype)
+    if isinstance(table, DTensor):
+        y = embed_sharded(table, tokens, cd)
+    else:
+        y = table[tokens].to(cd)
+    return shard_act(y, "batch", None, "model", kind="resid")
 
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor, *, tied_table=None):

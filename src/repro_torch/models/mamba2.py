@@ -13,16 +13,22 @@ Decode carries (conv_state [B,K-1,conv_dim], ssm_state [B,H,P,N]): O(1).
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, dt
-from repro_torch.sharding import on_local_shards, shard_act
+from repro_torch.sharding import (cast_local, dividing_dims, from_local_parts,
+                                  local_part, mesh_reduce, on_local_shards,
+                                  shard_act, shard_index, sharding_dims,
+                                  split_layout, spread, zero_gather_pays)
 
 
 def _dims(cfg: ModelConfig):
@@ -140,7 +146,13 @@ def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """Train/prefill path. x: [B,S,D] -> [B,S,D]."""
+    """Train/prefill path. x: [B,S,D] -> [B,S,D]. A DTensor ``x`` over more
+    than one rank takes the plain recurrence on each rank's own heads
+    (``_mamba2_sharded``; the kernel refuses DTensors), where gathering the
+    weights' ZeRO shards pays (not a few rows a rank)."""
+    if (spread(x) and not cfg.use_kernels
+            and zero_gather_pays(x, p["w_in"])):
+        return _mamba2_sharded(cfg, p, x)
     cd = dt(cfg.compute_dtype)
     s = cfg.ssm
     d_inner, n_heads, _ = _dims(cfg)
@@ -173,6 +185,74 @@ def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     y = y.reshape(*x.shape[:-1], d_inner).to(cd)
     y = _rms(y * F.silu(z), p["norm_scale"])
     out = y.to(cd) @ p["w_out"].to(cd)
+    return shard_act(out, "batch", None, "model", kind="resid")
+
+
+def _mamba2_sharded(cfg: ModelConfig, p, x: DTensor) -> DTensor:
+    """The Mamba-2 block on each rank's local tensors, cut by heads over the
+    mesh dims that shard w_out's rows (d_inner, heads contiguous), as
+    Megatron cuts attention. w_in's contiguous column cut does not follow
+    the heads, so w_in is gathered whole (its ``data`` and ``model`` shards,
+    in the compute dtype) and cut to the rank's columns: the z, x and dt
+    columns of its heads, and B and C whole (shared by every head, projected
+    on every rank as the kv heads are in attention). Gathering the weight
+    moves fewer bytes than moving the activations of the contiguous cut
+    into the heads' layout in every train and prefill cell
+    (``launch.dryrun.mamba2_w_in_costs``). The depthwise conv runs on the
+    rank's x channels and B and C; the conv weights, A_log, D, dt_bias and
+    the norm's scale are cut to them. The SSD runs per head. The gated
+    RMSNorm's [rows, 1] f32 sum of squares is all-reduced over the heads'
+    mesh dims (its gradient too), and w_out is row-parallel: its rows of the
+    rank's heads, the output a partial sum reduce-scattered into the
+    residual layout."""
+    cd = dt(cfg.compute_dtype)
+    s = cfg.ssm
+    d_inner, n_heads, _ = _dims(cfg)
+    n, hp = s.state_dim, s.head_dim
+    mesh = x.device_mesh
+    pl = functools.partial(split_layout, mesh.ndim)
+    rows = sharding_dims(x, 0)
+    heads = dividing_dims(mesh, [i for i in sharding_dims(p["w_out"], 0)
+                                 if i not in rows], n_heads)
+    every = rows + heads
+    h_loc = n_heads // math.prod(mesh.size(i) for i in heads)
+    h0 = shard_index(mesh, pl(0, heads), 0) * h_loc
+    c0, c_loc = h0 * hp, h_loc * hp
+
+    def cut(t, spans, dim):
+        return torch.cat([t.narrow(dim, a, m) for a, m in spans], dim=dim)
+
+    w_in = local_part(cast_local(p["w_in"], cd), pl(0, ()), every)
+    w_in = cut(w_in, [(c0, c_loc), (d_inner + c0, c_loc), (2 * d_inner, 2 * n),
+                      (2 * d_inner + 2 * n + h0, h_loc)], 1)
+    xl = local_part(x, pl(0, rows), heads)
+    z, xi, bc, dt_raw = torch.split(xl.to(cd) @ w_in,
+                                    [c_loc, c_loc, 2 * n, h_loc], dim=-1)
+    conv = local_part(p["conv"], pl(0, ()), every)
+    conv = cut(conv, [(c0, c_loc), (d_inner, 2 * n)], 1)
+    conv_out, _ = _causal_conv(torch.cat([xi, bc], dim=-1), conv.to(cd))
+    xi, bi, ci = torch.split(conv_out, [c_loc, n, n], dim=-1)
+
+    # the per-head vectors cut to the rank's heads, the norm's scale to its
+    # channels
+    vec = {name: local_part(p[name], pl(0, ()), every).narrow(0, *span).float()
+           for name, span in (("dt_bias", (h0, h_loc)), ("A_log", (h0, h_loc)),
+                              ("D", (h0, h_loc)), ("norm_scale", (c0, c_loc)))}
+    dt_v = F.softplus(dt_raw.float() + vec["dt_bias"])
+    a = -torch.exp(vec["A_log"]) * dt_v                  # [B,S,H] log decay
+    xh = xi.reshape(*xi.shape[:-1], h_loc, hp)
+    x_dt = xh.float() * dt_v[..., None]
+    state0 = torch.zeros((xl.shape[0], h_loc, hp, n), device=xl.device)
+    y, _ = ssd_chunked(x_dt, a, bi, ci, state0, s.chunk)
+    y = y + vec["D"][None, None, :, None] * xh.float()
+    g = (y.reshape(*xl.shape[:-1], c_loc).to(cd) * F.silu(z)).float()
+    # the gated RMSNorm over all of d_inner: the statistic summed over heads
+    reduce = mesh_reduce(mesh, heads, partial_grad=True)
+    ms = reduce((g * g).sum(-1, keepdim=True), "sum") / d_inner
+    y = (g * torch.rsqrt(ms + 1e-6) * vec["norm_scale"]).to(cd)
+    w_out = local_part(cast_local(p["w_out"], cd), pl(0, heads), rows)
+    out = from_local_parts(y @ w_out, mesh, pl(0, rows, heads),
+                           (*x.shape[:-1], w_out.shape[-1]))
     return shard_act(out, "batch", None, "model", kind="resid")
 
 

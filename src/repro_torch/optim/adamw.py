@@ -19,6 +19,9 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import mesh_reduce, spread
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +58,26 @@ def init_opt_state(params: nn.Module) -> dict:
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    """sqrt of the sum of squares of every tensor, in f32. Over DTensors on
+    more than one rank (gradients in their parameters' Shard / Replicate
+    layouts) each rank sums the squares of its local tensors, grouped by the
+    mesh dims that shard them, and each group's sum is all-reduced over
+    those dims once: a plain f32 scalar, the same on every rank. DTensor's
+    own reductions would all-reduce each tensor's sum on some releases."""
+    xs = list(tree.values())
+    if not any(spread(x) for x in xs):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in xs))
+    groups = {}
+    for x in xs:
+        local = x.to_local() if isinstance(x, DTensor) else x
+        key = ((x.device_mesh, tuple(i for i, p in enumerate(x.placements)
+                                     if p.is_shard()))
+               if isinstance(x, DTensor) else (None, ()))
+        sq = torch.sum(torch.square(local.float()))
+        groups[key] = groups[key] + sq if key in groups else sq
+    sums = [mesh_reduce(mesh, dims)(sq, "sum") if dims else sq
+            for (mesh, dims), sq in groups.items()]
+    return torch.sqrt(sum(sums))
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float

@@ -224,14 +224,21 @@ def shard_act(x: torch.Tensor, *logical: Optional[str],
                               stride=y.stride())
 
 
-def embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
-    """``table[tokens]`` for a DTensor table, vocab-parallel by hand on the
-    local shards: the table keeps its vocab (dim 0) sharding and gathers the
-    rest, the tokens keep their batch (dim 0) sharding, each rank looks up
-    the rows it holds (zero for the others), and the result is a partial
-    sum over the vocab shards. DTensor's own rules for this lookup fail on a
-    2D mesh (indexing's backward, index_put, in torch 2.11; the embedding
-    op's masked partial with a sharded batch, in 2.13)."""
+def embed_sharded(table: DTensor, tokens: torch.Tensor, dtype) -> DTensor:
+    """``table[tokens]`` in ``dtype`` for a DTensor table, vocab-parallel by
+    hand on the local shards: the table keeps its vocab (dim 0) sharding and
+    gathers the rest, the tokens keep their batch (dim 0) sharding, each
+    rank looks up the rows it holds (zero for the others), and the result is
+    a partial sum over the vocab shards, which the caller reduce-scatters
+    into the residual layout. Over more than one rank, with enough tokens a
+    rank that gathering the table's d_model shards pays (a train step, not a
+    decode step), the table is cast to ``dtype`` first, as the reference
+    casts it before its lookup: the gather moves ``dtype`` and the
+    gradient's reduce-scatter too. Else the lookup is in the table's dtype
+    and the cast follows (bit for bit the single device on one rank).
+    DTensor's own rules for this lookup fail on a 2D mesh (indexing's
+    backward, index_put, in torch 2.11; the embedding op's masked partial
+    with a sharded batch, in 2.13)."""
     mesh = table.device_mesh
     vocab = tuple(isinstance(p, Shard) and p.dim == 0 for p in table.placements)
     t_pl = tuple(Shard(0) if v else Replicate() for v in vocab)
@@ -241,6 +248,12 @@ def embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
     batch = tuple(not v and isinstance(p, Shard) and p.dim == 0
                   for v, p in zip(vocab, tokens.placements))
     tok_pl = tuple(Shard(0) if b else Replicate() for b in batch)
+    rows = tokens.numel() // math.prod(
+        mesh.size(i) for i, b in enumerate(batch) if b)
+    gathered = math.prod(mesh.size(i) for i in sharding_dims(table, 1))
+    planned = spread(table) and table.shape[1] <= gathered * rows
+    if planned:
+        table = cast_local(table, dtype)
     # each batch shard contributes a partial gradient to a gathered table
     grad_pl = tuple(Shard(0) if v else (Partial() if b else Replicate())
                     for v, b in zip(vocab, batch))
@@ -252,8 +265,20 @@ def embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
     out_pl = tuple(Partial() if v else (Shard(0) if b else Replicate())
                    for v, b in zip(vocab, batch))
     shape = torch.Size((*tokens.shape, table.shape[1]))
-    return DTensor.from_local(y, mesh, out_pl, run_check=False, shape=shape,
-                              stride=contiguous_stride(shape))
+    y = DTensor.from_local(y, mesh, out_pl, run_check=False, shape=shape,
+                           stride=contiguous_stride(shape))
+    return y if planned else y.to(dtype)
+
+
+def cast_local(t: DTensor, dtype) -> DTensor:
+    """``t.to(dtype)`` cast on each rank's local tensor (differentiable), so
+    that the cast never reaches DTensor's dispatch: no rule of a torch
+    release decides its layout."""
+    if t.dtype == dtype:
+        return t
+    return DTensor.from_local(t.to_local().to(dtype), t.device_mesh,
+                              t.placements, run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def argmax_sharded(logits: DTensor) -> DTensor:

@@ -382,15 +382,38 @@ def test_train_cell_loses_the_logits_gather(fake8):
     assert max(sites.values()) < gather, sites
 
 
+@pytest.fixture(scope="module")
+def smoke_counts():
+    """Every family's SMOKE train cell's collective wire bytes a device on
+    (4, 2) (``dryrun.smoke_train_counts``: the CELL on a fake group of 8)."""
+    assert dr.SMOKE_CELL == ("train_4k", CELL.seq_len, CELL.global_batch)
+    return dr.smoke_train_counts()
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_train_cell_within_the_reference(ref_depth, fake8, arch):
+def test_train_cell_within_the_reference(ref_depth, smoke_counts, arch):
     # Every family's SMOKE train cell on (4, 2) moves at most the
     # reference's collective bytes a device, counted depth-exact.
-    cfg = get_config(arch, smoke=True)
-    got = dr.analyze_cell(cfg, CELL, fake8)["per_device"]
+    got = smoke_counts[arch]
     want = ref_depth["train"][arch]["total"]
-    assert 0 < got["collective_wire_bytes"] <= want, (
-        got["collective_wire_bytes"], want)
+    assert 0 < got <= want, (got, want)
+
+
+def test_chip_smoke_holds_these_smoke_counts(smoke_counts):
+    # chip_smoke.py holds the card host's torch release to this table of
+    # torch 2.13's counts: every block's plan is explicit, so a release
+    # counts the same, and a change to a plan must refresh the table.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(SRC).parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    table = cs.DRYRUN_SMOKE_WIRE_213
+    assert set(table) == set(smoke_counts)
+    for arch, want in table.items():
+        assert abs(smoke_counts[arch] - want) <= cs.DRYRUN_SMOKE_REL * want, (
+            arch, smoke_counts[arch], want)
 
 
 def _granite_layer_bytes(cfg, rows: int) -> dict:
@@ -435,33 +458,191 @@ def _granite_layer_bytes(cfg, rows: int) -> dict:
             "models/layers.py:_norm_sharded": norm}
 
 
+def _embed_bytes(cfg, rows: int) -> dict:
+    """The embedding's collective wire bytes a device on the (4, 2) mesh,
+    reckoned from shapes, by phase: the table ([V, D], vocab over model,
+    d_model over data) cast to bf16 and its data shard gathered, the vocab
+    partials of the rank's ``rows`` tokens reduce-scattered into the
+    residual layout; backward the duals, the table's gradient
+    reduce-scattered over data in bf16."""
+    data, model, bf16 = 4, 2, 2
+    w = dr.wire_bytes
+    v, d = cfg.vocab_size, cfg.d_model
+    return {"forward": w("all-gather", v // model * d * bf16, data)
+            + w("reduce-scatter", rows * d // model * bf16, model),
+            "backward": w("all-gather", rows * d * bf16, model)
+            + w("reduce-scatter", v // model * d // data * bf16, data)}
+
+
+def _moe_layer_bytes(cfg, rows: int) -> dict:
+    """One MoE block's collective wire bytes a device on the (4, 2) mesh,
+    reckoned from shapes, by phase: the bf16 block input gathered over
+    model; each rank's E / 2 experts' three weights and the router gathered
+    over data (their gradients reduce-scattered there, the router's then
+    summed over model: every rank of a row routes it); the f32 [2, E / 2]
+    means of the rank's experts all-reduced over data and the f32 aux
+    scalar over model; the partial output reduce-scattered into the
+    residual layout (the recompute stops short of it). The buffers
+    [B, E, C, D] never move."""
+    data, model, bf16, f32 = 4, 2, 2, 4
+    w = dr.wire_bytes
+    mc, d = cfg.moe, cfg.d_model
+    e_loc = mc.n_experts // model
+    block = w("all-gather", rows * d * bf16, model)
+    out = w("reduce-scatter", rows * d // model * bf16, model)
+    experts = 3 * e_loc * d * mc.d_ff * bf16
+    router = d * mc.n_experts * bf16
+    forward = (block + w("all-gather", experts + router, data)
+               + w("all-reduce", 2 * e_loc * f32, data)
+               + w("all-reduce", f32, model))
+    return {"forward": forward + out, "recompute": forward,
+            "backward": block + out
+            + w("reduce-scatter", (experts + router) // data, data)
+            + w("all-reduce", router // data, model)}
+
+
+def _mamba2_layer_bytes(cfg, rows: int) -> dict:
+    """One Mamba-2 block's collective wire bytes a device on the (4, 2)
+    mesh, reckoned from shapes, by phase: the bf16 block input gathered
+    over model; w_in gathered whole over all 8 ranks (its columns do not
+    follow the heads) and w_out's data shard, in bf16, their gradients
+    reduce-scattered back; the gated norm's f32 [rows, 1] sum of squares
+    all-reduced over model, forward and backward; the partial output
+    reduce-scattered into the residual layout (the recompute stops short
+    of it); the replicated parameters' f32 gradients (conv, dt_bias, A_log,
+    D, the norm's scale) summed over both mesh dims."""
+    data, model, bf16, f32 = 4, 2, 2, 4
+    w = dr.wire_bytes
+    s, d = cfg.ssm, cfg.d_model
+    d_inner = s.expand * d
+    h = d_inner // s.head_dim
+    w_in = d * (2 * d_inner + 2 * s.state_dim + h) * bf16
+    w_out = d_inner // model * d * bf16
+    small = (s.conv_kernel * (d_inner + 2 * s.state_dim) + 3 * h
+             + d_inner) * f32
+    block = w("all-gather", rows * d * bf16, model)
+    out = w("reduce-scatter", rows * d // model * bf16, model)
+    stat = w("all-reduce", rows * f32, model)
+    forward = (block + w("all-gather", w_in, data * model)
+               + w("all-gather", w_out, data) + stat)
+    return {"forward": forward + out, "recompute": forward,
+            "backward": block + out + stat
+            + w("reduce-scatter", w_in // (data * model), data * model)
+            + w("reduce-scatter", w_out // data, data)
+            + w("all-reduce", small, model) + w("all-reduce", small, data)}
+
+
+def _pop_sites(sites: dict, counts: dict, reckoned: dict) -> None:
+    """Take each ``site`` ``phase``'s bytes out of ``sites``, each equal to
+    ``counts[site][phase]`` times ``reckoned[site][phase]``."""
+    for site, phases in counts.items():
+        for phase, k in phases.items():
+            assert sites.pop(f"{site} {phase}") == k * reckoned[site][phase], (
+                site, phase)
+
+
 def test_mlp_and_norm_sites_reckoned_from_shapes(fake8):
     # granite SMOKE's cell by site: the MLP's and the norms' collectives are
     # exactly the bf16 block-input gathers, the output reduce-scatters, the
     # weights' data gathers and gradient reduce-scatters, and the f32
     # [B, S, 1] statistics' all-reduces. No other site of the MLP or the
     # norm moves anything: the [B, S, d_ff] hidden and the f32 activations
-    # stay where they are.
+    # stay where they are. The embedding moves its bf16 table's gather and
+    # the partials' reduce-scatter, and their duals.
     cfg = get_config("granite_8b", smoke=True)
     sites = dr.analyze_cell(cfg, CELL, fake8,
                             sites=True)["per_device"]["collective_by_site"]
     rows = CELL.global_batch // 4 * CELL.seq_len
     layer = _granite_layer_bytes(cfg, rows)
+    layer["models/layers.py:embed"] = _embed_bytes(cfg, rows)
     n = cfg.n_layers
     counts = {"models/layers.py:_mlp_sharded": dict.fromkeys(
                   ("forward", "backward", "recompute"), n),
               # two norms a block, and the final norm outside any block
               "models/layers.py:_norm_sharded": {
                   "forward": 2 * n + 1, "backward": 2 * n + 1,
-                  "recompute": 2 * n}}
-    for site, phases in counts.items():
-        for phase, k in phases.items():
-            assert sites.pop(f"{site} {phase}") == k * layer[site][phase], (
-                site, phase)
+                  "recompute": 2 * n},
+              "models/layers.py:embed": {"forward": 1, "backward": 1}}
+    _pop_sites(sites, counts, layer)
     assert not [k for k in sites if k.startswith((
         "models/layers.py:mlp", "models/layers.py:_act",
         "models/layers.py:_mlp", "models/layers.py:norm",
-        "models/layers.py:_norm", "models/layers.py:_row_mean"))], sites
+        "models/layers.py:_norm", "models/layers.py:_row_mean",
+        "models/layers.py:embed"))], sites
+
+
+BLOCK_SITES = {"arctic_480b": ("models/moe.py", "_moe_sharded",
+                               _moe_layer_bytes),
+               "llama4_maverick_400b_a17b": ("models/moe.py", "_moe_sharded",
+                                             _moe_layer_bytes),
+               "zamba2_1p2b": ("models/mamba2.py", "_mamba2_sharded",
+                               _mamba2_layer_bytes)}
+
+
+@pytest.mark.parametrize("arch", list(BLOCK_SITES))
+def test_moe_mamba2_and_embed_sites_reckoned_from_shapes(fake8, arch):
+    # The MoE (arctic's top-2 with a dense residual, llama4's top-1 with a
+    # shared expert) and Mamba-2 (zamba2) on their explicit plans: each
+    # block's site moves exactly the bytes reckoned from shapes, by phase,
+    # the embedding's table moves in bf16, and no other site of the block's
+    # module or of the embedding moves anything (the MoE's expert buffers,
+    # Mamba-2's activations and every f32 activation stay where they are).
+    cfg = get_config(arch, smoke=True)
+    sites = dr.analyze_cell(cfg, CELL, fake8,
+                            sites=True)["per_device"]["collective_by_site"]
+    rows = CELL.global_batch // 4 * CELL.seq_len
+    module, fn, reckon = BLOCK_SITES[arch]
+    site, n = f"{module}:{fn}", cfg.n_layers
+    _pop_sites(sites, {site: dict.fromkeys(("forward", "backward",
+                                            "recompute"), n),
+                       "models/layers.py:embed": {"forward": 1,
+                                                  "backward": 1}},
+               {site: reckon(cfg, rows),
+                "models/layers.py:embed": _embed_bytes(cfg, rows)})
+    assert not [k for k in sites if k.startswith((
+        f"{module}:", "models/layers.py:embed"))], sites
+
+
+def _dtensor_op_sites(cfg, mesh, monkeypatch) -> list:
+    """The innermost port frame (``module:function``) of every aten op that
+    receives a DTensor in one train step of ``cfg`` on ``mesh``, and the
+    op; the dry-run's meter sees them before DTensor does."""
+    from torch.distributed.tensor import DTensor
+
+    seen, plain = [], dr._Meter.__torch_dispatch__
+
+    def spy(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            f, site = sys._getframe(1), None
+            while f is not None and site is None:
+                path = f.f_code.co_filename
+                if "/repro_torch/" in path:
+                    site = (f"{path.rpartition('/repro_torch/')[2]}:"
+                            f"{f.f_code.co_name}")
+                f = f.f_back
+            seen.append((site, str(func)))
+        return plain(self, func, types, args, kwargs)
+
+    monkeypatch.setattr(dr._Meter, "__torch_dispatch__", spy)
+    dr.analyze_cell(cfg, CELL, mesh)
+    return seen
+
+
+@pytest.mark.parametrize("arch", list(BLOCK_SITES))
+def test_no_dtensor_op_in_the_explicit_blocks(fake8, monkeypatch, arch):
+    # On a multi-rank mesh no aten op under the embedding, the MoE or
+    # Mamba-2 reaches DTensor's dispatch (whose plans change between torch
+    # releases): they run on local tensors between the ``local_part`` /
+    # ``from_local_parts`` boundaries, whose redistributions are the only
+    # DTensor work. Other blocks' casts still reach it, which shows the
+    # spy sees such ops.
+    seen = _dtensor_op_sites(get_config(arch, smoke=True), fake8,
+                             monkeypatch)
+    watched = ("models/moe.py:", "models/mamba2.py:",
+               "models/layers.py:embed", "sharding.py:embed_sharded",
+               "sharding.py:cast_local")
+    assert not [x for x in seen if x[0] and x[0].startswith(watched)], seen
+    assert seen
 
 
 @pytest.mark.parametrize("seq", GRANITE_SEQ)
@@ -533,6 +714,40 @@ def test_pod_cells_within_the_reference(pod_cells, ref_pod):
     assert 0 < train["peak_bytes_est"] <= PARENT_POD_TRAIN_PEAK
     assert 0 < decode["collective_wire_bytes"] \
         <= min(SPLIT_T_POD_DECODE_BYTES, ref_pod["decode_32k"]["coll"])
+
+
+def test_kv_projection_duplication_costs_less_than_its_all_reduces(
+        pod_cells, ref_pod):
+    # granite_8b on the pod: each rank's 2 q heads read one of the 8 kv
+    # heads, so each kv head is projected on 2 of the 16 model ranks. Those
+    # FLOPs are what lifts the cell above the reference's (less them it is
+    # under), and at the data-sheet rates they cost less time than the
+    # partial k and v all-reduces they replace. At SMOKE on (4, 2) nothing
+    # is duplicated (a rank's 2 q heads read its own kv head).
+    pod = dr.kv_plan_costs(get_config("granite_8b"), SHAPES["train_4k"],
+                           (16, 16))
+    flops = pod_cells["train_4k"]["hlo_flops"]
+    assert flops - pod["duplicated"]["flops"] <= ref_pod["train_4k"][
+        "flops"] < flops
+    assert 0 < pod["duplicated"]["s"] < pod["all_reduced"]["s"], pod
+    smoke = dr.kv_plan_costs(get_config("granite_8b", smoke=True), CELL,
+                             (4, 2))
+    assert smoke["duplicated"]["flops"] == 0 < smoke["all_reduced"]["bytes"]
+
+
+def test_mamba2_w_in_gathered_where_that_moves_fewer_bytes():
+    # w_in's contiguous model cut does not follow the heads: gathering it
+    # whole (what ``_mamba2_sharded`` does, and what
+    # ``_mamba2_layer_bytes`` reckons) moves fewer bytes than moving the
+    # projected columns into the heads' layout, at SMOKE on (4, 2) and in
+    # zamba2's pod cells, where a rank holds 65,536 rows.
+    smoke = dr.mamba2_w_in_costs(get_config("zamba2_1p2b", smoke=True),
+                                 CELL, (4, 2))
+    assert smoke == {"gather": 33_152, "move": 55_168}
+    full = get_config("zamba2_1p2b")
+    for name in ("train_4k", "prefill_32k"):
+        pod = dr.mamba2_w_in_costs(full, SHAPES[name], (16, 16))
+        assert pod["gather"] < pod["move"] / 2, (name, pod)
 
 
 def test_pod_decode_cell_moves_no_cache(pod_cells):

@@ -71,7 +71,8 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.launch.mesh, repro_torch.core.lanes, "
         "repro_torch.core.collective_matmul, repro_torch.core.pipeline, "
         "repro_torch.checkpoint.reshard, repro_torch.elastic_restart, "
-        "repro_torch.launch.dryrun\n"
+        "repro_torch.launch.dryrun, repro_torch.train_lm, "
+        "repro_torch.serve_batch, repro_torch.stream_stages\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a, smoke) for a in ARCH_IDS for smoke in (0, 1)]\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
