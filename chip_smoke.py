@@ -97,7 +97,14 @@ Phases (any failure exits non-zero):
      for bit against the published files;
  11. the paper's nine workloads (``repro_torch.workloads``) serial and fused
      outside any substrate, paired and chunked on ``relic``, every result
-     through its oracle: µs per instance and paired over serial;
+     through its oracle: µs per instance and paired over serial; then the
+     paper's strategy comparison (``phase_strategies``): the seven kernels of
+     the paper's table under the eight strategies of
+     ``repro_torch.tasks.strategies`` (serial, Relic, the lock-and-spin,
+     condvar and pool substrates, a thread per task, both dispatches on one
+     stream, the fused call), every strategy's results through the oracle,
+     the fig1 rows and the fig4 geomeans, then ``python -m
+     repro_torch.relic_tasks`` on the card;
  12. the multi-device layer over a one-rank NCCL group (``phase_mesh``, after
      the train driver): a ``(1, 1)`` ``("data", "model")`` mesh; relic_tiny
      at full width trains 3 steps with its state distributed as DTensors
@@ -174,6 +181,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 import zlib
@@ -187,7 +195,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch import quickstart, serve_batch, train_lm  # noqa: E402
+from repro_torch import quickstart, relic_tasks, serve_batch, train_lm  # noqa: E402
 from repro_torch import sharding as shd  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager, elastic_restore  # noqa: E402
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
@@ -222,8 +230,11 @@ from repro_torch.optim import (AdafactorConfig, OptConfig,  # noqa: E402
 from repro_torch.runtime.chaos import FsCrash  # noqa: E402
 from repro_torch.serve import ServeScheduler  # noqa: E402
 from repro_torch.tasks.api import TaskScope  # noqa: E402
-from repro_torch.workloads import (available_workloads, make_workload,  # noqa: E402
-                                   split_instances)
+from repro_torch.tasks.strategies import (STRATEGIES, bench_strategies,  # noqa: E402
+                                          fig4_geomeans)
+from repro_torch.tasks.streams import lane_stream  # noqa: E402
+from repro_torch.workloads import (PAPER_WORKLOADS, available_workloads,  # noqa: E402
+                                   make_workload, split_instances)
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores and
 # HBM3 rate.
@@ -402,6 +413,12 @@ DRIVER_STEPS, DRIVER_CKPT_EVERY = 30, 10
 MESH_STEPS = 3                 # train steps with DTensor state, and plain
 PIPE_SHAPE = (12, 4, 2, 256)   # (layers, microbatches, mb, seq) at 768 wide
 WORKLOAD_PASSES, WORKLOAD_REPS = 3, 5   # passes over the workloads; runs a pass
+# The paper's strategy comparison: passes over the seven kernels, timed
+# iterations and warm-up a row (thread_per_task keeps the reference's floor
+# of 100), and the iterations of the relic_tasks example's run.
+STRATEGY_PASSES, STRATEGY_ITERS, STRATEGY_WARMUP = 3, 20, 5
+RELIC_TASKS_ITERS = 20
+LANE_THREADS = 64      # live threads that each take a lane stream
 
 
 def card_line() -> str:
@@ -2488,6 +2505,96 @@ def phase_workloads(device, card):
     return rows
 
 
+def _on_device(tree, device) -> bool:
+    if isinstance(tree, (list, tuple)):
+        return all(_on_device(t, device) for t in tree)
+    return isinstance(tree, torch.Tensor) and tree.device.type == device.type
+
+
+def _lane_streams(device):
+    """The distinct streams LANE_THREADS live threads take as their lane
+    stream (``tasks/streams.py::lane_stream``), as every
+    ``thread_per_task`` iteration's new thread does: at most torch's pool of
+    32 streams a priority if the lane draws from that pool, one a thread if
+    it creates a stream."""
+    handles, ready = [], threading.Barrier(LANE_THREADS)
+
+    def lane():
+        handles.append(lane_stream(device).cuda_stream)
+        ready.wait(timeout=60)
+
+    threads = [threading.Thread(target=lane) for _ in range(LANE_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    if any(t.is_alive() for t in threads) or len(handles) != LANE_THREADS:
+        raise AssertionError(f"[strategies] {len(handles)} of {LANE_THREADS} "
+                             "lane threads took a stream")
+    return len(set(handles))
+
+
+def phase_strategies(device, card):
+    """The paper's strategy comparison on the card (the reference's
+    ``benchmarks/run.py`` fig1 and fig4 sections, ported as
+    ``repro_torch.tasks.strategies``): the seven PAPER_WORKLOADS kernels,
+    two instances each, under all eight strategies, STRATEGY_PASSES passes
+    of ``bench_strategies`` (STRATEGY_ITERS timed iterations after
+    STRATEGY_WARMUP), every strategy's results on the card and through the
+    workload's oracle once a pass before it is timed. Prints the fig1 rows
+    (µs per iteration, the median pass, and speedup over serial), the fig4
+    geomeans (a kernel a strategy slows counts 1.0) and Relic's gain over
+    the best other framework; then runs ``python -m repro_torch.relic_tasks
+    --iters RELIC_TASKS_ITERS`` in this process on the card."""
+    loads = {name: make_workload(name, device=device)
+             for name in PAPER_WORKLOADS}
+    passes = {name: [] for name in loads}
+    for _ in range(STRATEGY_PASSES):
+        for name, w in loads.items():
+            def check(res, w=w, name=name):
+                if not _on_device(res, device):
+                    raise AssertionError(f"[strategies] {name}: a result "
+                                         f"off {device.type}")
+                w.check(res)
+            ta, tb = w.tasks
+            da, db = w.dispatches
+            passes[name].append(bench_strategies(
+                ta, tb, w.fused_task(), dispatch_a=da, dispatch_b=db,
+                iters=STRATEGY_ITERS, warmup=STRATEGY_WARMUP, device=device,
+                check=check))
+    results = {name: {s: float(np.median([r[s] for r in rs]))
+                      for s in STRATEGIES} for name, rs in passes.items()}
+    print(f"# fig1 on {card}: µs per iteration (two instances; the median "
+          f"of {STRATEGY_PASSES} passes of {STRATEGY_ITERS} iterations, "
+          "thread_per_task 100) and speedup over serial")
+    print("name,us_per_call,derived")
+    for kernel, res in results.items():
+        for s in STRATEGIES:
+            print(f"fig1/{kernel}/{s},{res[s]:.2f},"
+                  f"speedup={res['serial'] / res[s]:.3f}")
+    geo, gain = fig4_geomeans(results)
+    print("# fig4: geomean speedup, negative outliers replaced by serial")
+    print("name,us_per_call,derived")
+    for s in STRATEGIES:
+        mean_us = sum(r[s] for r in results.values()) / len(results)
+        print(f"fig4/{s},{mean_us:.2f},geomean_speedup={geo[s]:.3f}")
+    print(f"fig4/relic_vs_best_framework,0.00,relic_gain={gain * 100:.1f}%")
+    print("[strategies] every pass, µs per iteration: " + json.dumps(
+        {k: {s: [round(r[s], 1) for r in rs] for s in STRATEGIES}
+         for k, rs in passes.items()}))
+    print(f"[strategies] {LANE_THREADS} live threads took "
+          f"{_lane_streams(device)} distinct lane streams (torch's pool holds "
+          "32 a priority)")
+
+    t0 = time.perf_counter()
+    res = relic_tasks.main(["--iters", str(RELIC_TASKS_ITERS)])
+    if tuple(res) != PAPER_WORKLOADS or any(tuple(r) != STRATEGIES
+                                            for r in res.values()):
+        raise AssertionError(f"[strategies] relic_tasks timed {res}")
+    print(f"[strategies] relic_tasks --iters {RELIC_TASKS_ITERS} on "
+          f"{device.type}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_card_vs_cpu(device):
     """One train step of relic_tiny SMOKE in f32 compute on the card and on
     the CPU from the same weights and batch: loss, grad_norm and lr within
@@ -3257,6 +3364,12 @@ def main() -> int:
     _count_path("workloads", {}, entries)
     print(f"[main] train driver {t1 - t0:.1f} s, workloads "
           f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    _reset_launches()
+    t_strat = time.perf_counter()
+    phase_strategies(device, card)
+    _count_path("strategies", {}, entries)
+    print(f"[main] strategies phase {time.perf_counter() - t_strat:.1f} s")
     torch.cuda.empty_cache()
     _reset_launches()
     t_ex = time.perf_counter()

@@ -1,19 +1,20 @@
 """RWKV-6's f32 gradients against a float64 truth.
 
 At SMOKE size, batch 2 x 16, seed 0, the port's f32 gradient of an
-embedding row lies about 2.4e-4 from the reference's jitted ``jax.grad``,
-on a leaf whose largest gradient is 6.5. Whether that is summation order
-or a fault is decided against a truth computed in float64 on the same
-parameters and batch: copies of both packages in which every f32 island
-(``jnp.float32``, ``.float()``, ``torch.float32``) is widened to float64,
-the parameters still drawn in f32 and then widened, so that both runs see
-the same values.
+embedding row lies 8e-5 to 2.4e-4 (by host) from the reference's jitted
+``jax.grad``, on a leaf whose largest gradient is 6.5. Whether that is
+summation order or a fault is decided against a truth computed in float64
+on the same parameters and batch: copies of both packages in which every
+f32 island (``jnp.float32``, ``.float()``, ``torch.float32``) is widened
+to float64, the parameters still drawn in f32 and then widened, so that
+both runs see the same values.
 
 In float64 the two packages compute the same function: the port's
-gradients meet ``jax.grad``'s to the last bits. In f32 the port's
-gradients lie no further from the truth than the reference's own jitted
-and eager ones do (at the embedding table, about 16x closer), so the
-spread is the reference's f32 rounding, not a fault of the port.
+gradients meet ``jax.grad``'s to the last bits. In f32 every leaf of the
+port's gradient lies within 1e-5 of that leaf's largest truth from the
+truth: a bar the port's own arithmetic sets. The reference's jitted and
+eager f32 errors are printed beside it, not held: XLA's CPU reductions
+(thread pool, vector width) set them, and they differ from host to host.
 """
 
 import os
@@ -29,6 +30,8 @@ import pytest
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 TIMEOUT_S = 300
+# the port's f32 gradient error, relative to the leaf's largest truth
+F32_BAR = 1e-5
 
 GRADS = """
 import sys
@@ -171,13 +174,9 @@ def test_port_f32_gradients_no_further_from_the_truth(grads):
     truth, g = grads["float64"], grads["float32"]
     for leaf in _leaves(g):
         t = truth[f"{leaf}|jit"]
+        scale = np.abs(t).max()
         err = {n: np.abs(g[f"{leaf}|{n}"] - t).max()
-               for n in ("jit", "eager", "port")}
-        assert err["port"] <= max(err["jit"], err["eager"]), (leaf, err)
-    # the leaf that raised the question: an embedding row's gradient
-    emb = "['embed']['table']"
-    t = truth[f"{emb}|jit"]
-    port = np.abs(g[f"{emb}|port"] - t).max()
-    jit = np.abs(g[f"{emb}|jit"] - t).max()
-    assert np.abs(g[f"{emb}|port"] - g[f"{emb}|jit"]).max() > 1e-4
-    assert port < jit / 4, (port, jit)
+               for n in ("port", "jit", "eager")}
+        print(f"{leaf}: max |truth| {scale:.3g}; f32 error relative to it "
+              + ", ".join(f"{n} {e / scale:.3g}" for n, e in err.items()))
+        assert err["port"] <= F32_BAR * scale, (leaf, err, scale)

@@ -72,11 +72,13 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.core.collective_matmul, repro_torch.core.pipeline, "
         "repro_torch.checkpoint.reshard, repro_torch.elastic_restart, "
         "repro_torch.launch.dryrun, repro_torch.train_lm, "
-        "repro_torch.serve_batch, repro_torch.stream_stages\n"
+        "repro_torch.serve_batch, repro_torch.stream_stages, "
+        "repro_torch.tasks.strategies, repro_torch.relic_tasks\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a, smoke) for a in ARCH_IDS for smoke in (0, 1)]\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
-        "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
+        "'ml_dtypes', 'benchmarks') or m.startswith(('jax.', 'repro.', "
+        "'ml_dtypes.', 'benchmarks.')))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
