@@ -20,6 +20,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _const, _normal, apply_rope, dt, rms_norm_headwise
+from repro_torch.runtime.spans import span
 from repro_torch.sharding import (from_local_parts, local_part, mesh_reduce,
                                   on_local_shards, shard_act, shard_index,
                                   sharding_dims, split_layout, spread,
@@ -463,14 +464,18 @@ def self_attention(
     if _takes_local_plan(cfg, p, x):
         return _attention_sharded(cfg, p, x, causal=causal,
                                   positions=positions, prefix_len=prefix_len)
-    q, k, v = _project_qkv(cfg, p, x)
+    with span("attn.qkv"):
+        q, k, v = _project_qkv(cfg, p, x)
     if cfg.use_rope:
-        if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention_core(cfg, q, k, v, causal=causal, prefix_len=prefix_len)
-    return _output(cfg, p, o)
+        with span("attn.rope"):
+            if positions is None:
+                positions = torch.arange(x.shape[1], device=x.device)[None, :]
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    with span("attn.core"):
+        o = attention_core(cfg, q, k, v, causal=causal, prefix_len=prefix_len)
+    with span("attn.out"):
+        return _output(cfg, p, o)
 
 
 def cross_attention(cfg: ModelConfig, p, x: torch.Tensor,

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime.spans import span
 from repro_torch.sharding import (current_mesh, embed_sharded,
                                   from_local_parts, local_part, mesh_reduce,
                                   on_local_shards, shard_act, shard_index,
@@ -153,21 +154,22 @@ def _norm_sharded(xf: DTensor, scale: torch.Tensor,
 
 
 def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    # Keep the f32 widening sharded like the residual stream.
-    xf = shard_act(xf, "batch", None, "model", kind="resid")
-    if _split(xf, xf.ndim - 1) > 1:
-        y = _norm_sharded(xf, p["scale"],
-                          p["bias"] if cfg.norm == "layernorm" else None)
-    elif cfg.norm == "layernorm":
-        mu = _row_mean(xf)
-        var = _row_mean((xf - mu) ** 2)
-        y = (xf - mu) * torch.rsqrt(var + 1e-5)
-        y = y * p["scale"].float() + p["bias"].float()
-    else:  # rmsnorm
-        ms = (xf * xf).mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
-    return shard_act(y.to(x.dtype), "batch", None, "model", kind="resid")
+    with span("norm"):
+        xf = x.float()
+        # Keep the f32 widening sharded like the residual stream.
+        xf = shard_act(xf, "batch", None, "model", kind="resid")
+        if _split(xf, xf.ndim - 1) > 1:
+            y = _norm_sharded(xf, p["scale"],
+                              p["bias"] if cfg.norm == "layernorm" else None)
+        elif cfg.norm == "layernorm":
+            mu = _row_mean(xf)
+            var = _row_mean((xf - mu) ** 2)
+            y = (xf - mu) * torch.rsqrt(var + 1e-5)
+            y = y * p["scale"].float() + p["bias"].float()
+        else:  # rmsnorm
+            ms = (xf * xf).mean(-1, keepdim=True)
+            y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
+        return shard_act(y.to(x.dtype), "batch", None, "model", kind="resid")
 
 
 def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -264,23 +266,24 @@ def log_likelihood(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     bit the single-device arithmetic: the optimizer's first steps move a
     weight by about ``lr * g / (|g| + eps)``, which turns a last-bit change
     in a gradient near 0 into a visible one in the weight."""
-    x = logits.float()
-    d = x.ndim - 1
-    dims = sharding_dims(x, d)
-    if _split(x, d) == 1:
-        logp = torch.log_softmax(x, dim=-1)
-        return torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    mesh = x.device_mesh
-    shard = shard_index(mesh, x.placements, d)
-    reduce = mesh_reduce(mesh, dims)
+    with span("lm.log_likelihood"):
+        x = logits.float()
+        d = x.ndim - 1
+        dims = sharding_dims(x, d)
+        if _split(x, d) == 1:
+            logp = torch.log_softmax(x, dim=-1)
+            return torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        mesh = x.device_mesh
+        shard = shard_index(mesh, x.placements, d)
+        reduce = mesh_reduce(mesh, dims)
 
-    def local(xl, lab):
-        parts = vocab_partial(xl, lab.long(), shard * xl.shape[-1])
-        return combine_vocab_partials(*parts, reduce)
+        def local(xl, lab):
+            parts = vocab_partial(xl, lab.long(), shard * xl.shape[-1])
+            return combine_vocab_partials(*parts, reduce)
 
-    lead = tuple(range(d))
-    return on_local_shards(local, x, (0, d),
-                           [(x, lead + (d,)), (labels, lead)], [lead])
+        lead = tuple(range(d))
+        return on_local_shards(local, x, (0, d),
+                               [(x, lead + (d,)), (labels, lead)], [lead])
 
 
 def init_unembed(cfg: ModelConfig, gen, dim: int, vocab: int, device):
@@ -352,25 +355,26 @@ def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     all-gather of gate+up, reduce-scatter of down, each transfer overlapping
     the previous chunk's matmul; its backward runs the dual rings). ``bf16_reduce`` changes
     nothing here since torch's bf16 matmul already returns bf16."""
-    cd = dt(cfg.compute_dtype)
-    x = x.to(cd)
-    if cfg.mlp_tp_overlap and cfg.gated_mlp:
-        from repro_torch.core import collective_matmul as cm
+    with span("mlp"):
+        cd = dt(cfg.compute_dtype)
+        x = x.to(cd)
+        if cfg.mlp_tp_overlap and cfg.gated_mlp:
+            from repro_torch.core import collective_matmul as cm
 
-        mesh = current_mesh()
-        if isinstance(x, DTensor) and cm.ring_eligible(mesh, x.shape[1]):
-            return cm.mlp_ring(cfg.act, x, p["w_gate"].to(cd),
-                               p["w_up"].to(cd), p["w_down"].to(cd), mesh)
-    w_up, w_down = p["w_up"].to(cd), p["w_down"].to(cd)
-    w_gate = p["w_gate"].to(cd) if cfg.gated_mlp else None
-    if spread(x) and zero_gather_pays(x, w_up):
-        return _mlp_sharded(cfg, x, w_up, w_down, w_gate)
-    # One device or one rank; or a few rows a rank (a decode step), where
-    # moving the weights would cost more than moving the activations:
-    # DTensor's plan.
-    x = shard_act(x, "batch", None, None, kind="blockin")
-    y = _mlp_local(cfg, x, w_up, w_down, w_gate)
-    return shard_act(y, "batch", None, "model", kind="resid")
+            mesh = current_mesh()
+            if isinstance(x, DTensor) and cm.ring_eligible(mesh, x.shape[1]):
+                return cm.mlp_ring(cfg.act, x, p["w_gate"].to(cd),
+                                   p["w_up"].to(cd), p["w_down"].to(cd), mesh)
+        w_up, w_down = p["w_up"].to(cd), p["w_down"].to(cd)
+        w_gate = p["w_gate"].to(cd) if cfg.gated_mlp else None
+        if spread(x) and zero_gather_pays(x, w_up):
+            return _mlp_sharded(cfg, x, w_up, w_down, w_gate)
+        # One device or one rank; or a few rows a rank (a decode step), where
+        # moving the weights would cost more than moving the activations:
+        # DTensor's plan.
+        x = shard_act(x, "batch", None, None, kind="blockin")
+        y = _mlp_local(cfg, x, w_up, w_down, w_gate)
+        return shard_act(y, "batch", None, "model", kind="resid")
 
 
 def _mlp_local(cfg: ModelConfig, x, w_up, w_down, w_gate=None):

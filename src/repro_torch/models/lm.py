@@ -24,6 +24,7 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as r6
 from repro_torch.models.layers import remat as _remat
+from repro_torch.runtime.spans import span
 from repro_torch.sharding import shard_act
 
 
@@ -206,7 +207,8 @@ def _scan_blocks(cfg: ModelConfig, layers, x, *, prefix_len=None):
                                               prefix_len=prefix_len))
     aux = torch.zeros((), device=x.device)
     for lp in layers:
-        x, a = blk(lp, x)
+        with span("lm.block"):
+            x, a = blk(lp, x)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -225,10 +227,13 @@ def _hybrid_fwd(cfg: ModelConfig, params, x):
             shared_attn_fwd, cfg, params["shared_attn"]))
     for g in range(full):
         for lp in layers[g * k:(g + 1) * k]:
-            x, _ = blk(lp, x)
-        x = shared(x)
+            with span("lm.block"):
+                x, _ = blk(lp, x)
+        with span("lm.block"):
+            x = shared(x)
     for lp in layers[full * k:]:
-        x, _ = blk(lp, x)
+        with span("lm.block"):
+            x, _ = blk(lp, x)
     return x
 
 
@@ -254,17 +259,22 @@ def lm_forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     logits cover N + S positions; ``prefix_len`` makes attention
     bidirectional over the first positions, which keeps those calls off the
     flash kernel (it has no prefix mask), as in the reference."""
-    x = _embed(cfg, params, tokens)
-    if extra_embed is not None:
-        proj = extra_embed.to(x.dtype) @ params["img_proj"]["kernel"].to(x.dtype)
-        x = torch.cat([proj, x], dim=1)
-    x = shard_act(x, "batch", None, "model", kind="resid")
-    if cfg.family == "hybrid":
-        aux = torch.zeros((), device=x.device)
-        x = _hybrid_fwd(cfg, params, x)
-    else:
-        x, aux = _scan_blocks(cfg, params["layers"], x, prefix_len=prefix_len)
-    return _head(cfg, params, x), aux
+    with span("lm.forward"):
+        with span("lm.embed"):
+            x = _embed(cfg, params, tokens)
+            if extra_embed is not None:
+                proj = (extra_embed.to(x.dtype)
+                        @ params["img_proj"]["kernel"].to(x.dtype))
+                x = torch.cat([proj, x], dim=1)
+        x = shard_act(x, "batch", None, "model", kind="resid")
+        if cfg.family == "hybrid":
+            aux = torch.zeros((), device=x.device)
+            x = _hybrid_fwd(cfg, params, x)
+        else:
+            x, aux = _scan_blocks(cfg, params["layers"], x,
+                                  prefix_len=prefix_len)
+        with span("lm.head"):
+            return _head(cfg, params, x), aux
 
 
 def lm_loss(cfg: ModelConfig, params, batch: dict):
