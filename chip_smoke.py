@@ -42,8 +42,12 @@ Phases (any failure exits non-zero):
      192, 128], 8 kv heads) and at q [4, 32, 2048, 128], each timed beside
      the CUDA-core kernel, and at whisper_large_v3's three (the encoder's
      [8, 20, 1500, 64] and the cross-attention's Sq 192 against Sk 1500,
-     non-causal; the decoder's causal [8, 20, 192, 64]). Device times come
-     from the profiler beside the CUDA-event times;
+     non-causal; the decoder's causal [8, 20, 192, 64]). The RoPE kernel
+     (``kernels/rope.py``) bit for bit against ``apply_rope`` in f32 and
+     bf16 at phi3_mini_3p8b's [4, 2048] and [8, 192], paligemma_3b's
+     [8, 192] and a phi3 decode step at position 8191, timed beside the
+     plain chain. Device times come from the profiler beside the
+     CUDA-event times;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve`` (``load_model`` then ``run``, the two
      parts of its ``main``) plus three more requests through one
@@ -152,8 +156,9 @@ Phases (any failure exits non-zero):
  16. a long relic_tiny forward and loss at [4, 2048] with the kernel against
      the plain (chunked-attention) path.
 Phases 3-4, 5, 6, each family of 7, and 8 are the main paths: each starts
-with every kernel's launch count at 0 and its counts are read when it ends;
-every flash launch there and in phase 16 must go through the wgmma design
+with every kernel's launch count at 0 and its counts are read when it ends
+(one RoPE launch a layer of every RoPE family, also in paligemma's prefix
+loss); every flash launch there and in phase 16 must go through the wgmma design
 (none through the CUDA-core kernel) and every ssd and wkv6 launch through
 the tensor-core one, and the
 quickstart's one relic_matmul launch through the f32 design; phases 9 to
@@ -204,6 +209,7 @@ from repro_torch.devices import synchronize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import relic_matmul as rm  # noqa: E402
+from repro_torch.kernels import rope as rope_k  # noqa: E402
 from repro_torch.kernels import ssd as ssd_k  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv6_k  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
@@ -278,7 +284,8 @@ ZAMBA_ATTN_SHAPE = (SERVE_BATCH, PROMPT_LEN + 128, 32, 32, 64)
 # Each kernel's launch counter: name -> (module, attribute).
 COUNTERS = {"flash_attention": (fa, "launches"), "wkv6": (wkv6_k, "launches"),
             "ssd": (ssd_k, "launches"), "relic_matmul": (rm, "launches"),
-            "relic_matmul_gated": (rm, "gated_launches")}
+            "relic_matmul_gated": (rm, "gated_launches"),
+            "rope": (rope_k, "launches")}
 # The redesigned designs' counters: name -> (module, attribute), beside the
 # kernel's own count in COUNTERS.
 REDESIGNS = {"flash_attention": (fa, "wgmma_launches"),
@@ -295,7 +302,7 @@ FMA_HEAD_DIMS = (48, 96, 256, 320, 512)
 FMA_HEAD_SHAPE = (2, 200, 8, 2)
 FMA_HEAD_TIMED = (2, 1024, 8, 2)
 SOURCES = ["flash_attention", "flash_attention_wgmma", "relic_matmul",
-           "relic_matmul_wgmma", "ssd", "wkv6"]   # csrc/<name>.cu
+           "relic_matmul_wgmma", "ssd", "wkv6", "rope"]   # csrc/<name>.cu
 # The recurrent kernels: f32 1e-3, bf16 rtol 2e-2 / atol 2e-1
 # (tests/test_kernels.py:88-93,108-111).
 REC_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}
@@ -330,9 +337,10 @@ SSD_LONG = (4, 64, 2048, 64, 64, 128)
 # served tokens on 62%; zamba2_1p2b's plain forward agrees on 92%), so each
 # is held to its own rounding noise, and each layer's kernel call to the
 # model's plain chunked form on the same inputs (check_layers).
-MAIN_PATHS = [(ARCH, GEN, {"flash_attention": 12}, True),
+MAIN_PATHS = [(ARCH, GEN, {"flash_attention": 12, "rope": 12}, True),
               ("rwkv6_1p6b", 64, {"wkv6": 24}, False),
-              ("zamba2_1p2b", 128, {"ssd": 38, "flash_attention": 6}, False)]
+              ("zamba2_1p2b", 128, {"ssd": 38, "flash_attention": 6, "rope": 6},
+               False)]
 QUICKSTART_LAUNCHES = {"relic_matmul": 1}   # its ops.matmul (quickstart.py)
 # The other families at full width, served and forwarded as the paths above
 # (batch 8, prompt 128, 64 tokens; the teacher-forced forwards over 192
@@ -373,6 +381,15 @@ GRANITE_LAYERS = 18
 GRANITE_LAUNCHES, WHISPER_LAUNCHES = GRANITE_LAYERS, 96
 PHI3_LAUNCHES, PALIGEMMA_TEXT_LAUNCHES = 32, 18
 ARCTIC_DECODE = 16   # forced tokens of arctic's decode check
+# The RoPE kernel's shapes, (label, (b, s, h, kv, d, decode position)):
+# phi3_mini_3p8b's scoring cell [4, 2048] (the benchmark's), phi3's and
+# paligemma_3b's teacher-forced forwards [8, 192] at positions 0..191, and a
+# phi3 decode step at position 8191. The label's first word is the config
+# whose rope_theta is used.
+ROPE_SHAPES = [(PHI3, (4, 2048, 32, 32, 96, None)),
+               (PHI3, (SERVE_BATCH, TEXT_LEN, 32, 32, 96, None)),
+               (PALIGEMMA, (SERVE_BATCH, TEXT_LEN, 8, 1, 256, None)),
+               (f"{PHI3} decode", (SERVE_BATCH, 1, 32, 32, 96, 8191))]
 OPTIM_STEPS = 5      # train steps of relic_tiny with gradient compression
 # Rematerialisation (``cfg.remat``): whisper_large_v3 trained at full width
 # and depth on 1500 frames beside 448 decoder tokens (Whisper's text
@@ -965,6 +982,80 @@ def _ssd_inputs(gen, b, h, t, p, n, dtype, device):
     x = mk(b, h, t, p).to(device=device, dtype=dtype)
     a = (-mk(b, h, t).abs() * 0.5).to(device)
     return x, a, mk(b, t, n).to(device), mk(b, t, n).to(device)
+
+
+def _ulps(got, want) -> int:
+    """The largest gap between two tensors of one float dtype in units in
+    the last place: their bit patterns as integers in the order of the
+    values."""
+    it, mag = ((torch.int16, 0x7FFF) if got.dtype == torch.bfloat16
+               else (torch.int32, 0x7FFFFFFF))
+
+    def ordered(t):
+        i = t.contiguous().view(it).long()
+        return torch.where(i < 0, -(i & mag), i)
+    return int((ordered(got) - ordered(want)).abs().max().item())
+
+
+@torch.no_grad()
+def phase_rope(device):
+    """The RoPE kernel against apply_rope, its plain version, at each of
+    ROPE_SHAPES in f32 and bf16: one launch a call and the same bits (the
+    largest gap in units in the last place printed; it must be 0). In bf16
+    its device time beside the plain chain's and the bound: q and k read
+    once and written once. Returns the kernel's entry of the numbers line
+    (its numbers at phi3's scoring shape first)."""
+    gen = torch.Generator().manual_seed(5)
+    timed = []
+    for label, (b, s, h, kv, d, at) in ROPE_SHAPES:
+        theta = get_config(label.split()[0]).rope_theta
+        pos = (torch.arange(s, device=device)[None, :] if at is None
+               else torch.full((b, 1), at, device=device))
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, s, h, d), generator=gen).to(device, dtype)
+            k = torch.randn((b, s, kv, d), generator=gen).to(device, dtype)
+            before = rope_k.launches
+            got = rope_k.rope_cuda(q, k, pos, theta)
+            want = rope_k.rope_plain(q, k, pos, theta)
+            torch.cuda.synchronize()
+            gap = max(_ulps(g, w) for g, w in zip(got, want))
+            print(f"[kernel] rope {label} q{list(q.shape)} k{list(k.shape)} "
+                  f"{str(dtype)[6:]}: {rope_k.launches - before} launch, "
+                  f"largest gap from apply_rope {gap} ulps")
+            if rope_k.launches - before != 1 or gap:
+                raise AssertionError(f"rope {label} {dtype}: "
+                                     f"{rope_k.launches - before} launches, "
+                                     f"{gap} ulps from apply_rope")
+        ms = time_ms(lambda: rope_k.rope_cuda(q, k, pos, theta), 20)
+        device_ms = kernel_ms(lambda: rope_k.rope_cuda(q, k, pos, theta))
+        plain_ms = time_ms(lambda: rope_k.rope_plain(q, k, pos, theta), 5)
+        plain_device_ms = kernel_ms(lambda: rope_k.rope_plain(q, k, pos, theta), 5)
+        nbytes = 2 * (q.nbytes + k.nbytes)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+
+        def fmt(x):
+            return "not measured" if x is None else f"{x:.4f} ms"
+        shape = f"q{list(q.shape)} k{list(k.shape)} bf16"
+        rate = "" if device_ms is None else \
+            f", {nbytes / device_ms / 1e6:.0f} GB/s"
+        print(f"[kernel] rope {label} {shape}: kernel {ms:.4f} ms (device "
+              f"{fmt(device_ms)}{rate}), plain chain {plain_ms:.4f} ms "
+              f"(device {fmt(plain_device_ms)}); bound {bound_ms:.4f} ms by "
+              f"bytes ({nbytes / 1e6:.2f} MB)")
+        timed.append(dict(shape=shape, path=label, ms=ms, device_ms=device_ms,
+                          plain_ms=plain_ms, plain_device_ms=plain_device_ms,
+                          bound_ms=bound_ms, bound_by="bytes"))
+    return {"name": "rope", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rope.cu",
+            "replaces": None,
+            "design": ("q and k of a layer in one launch; a CTA per tile of "
+                       "tokens computes cos and sin once per token and "
+                       "frequency into shared memory, then rotates every head "
+                       "of q and k with 16-byte loads and stores, f32 in "
+                       "registers, each product and sum rounded on its own "
+                       "(apply_rope's bits)"),
+            "launches": None, "max_ulps": 0, **timed[0],
+            "other_shapes": timed[1:], "library_ms": None}
 
 
 def phase_recurrence(name, mod, replaces, make_inputs, bound, test_shapes,
@@ -2640,15 +2731,16 @@ def phase_card_vs_cpu(device):
 def _dense_path(arch, launches, device, entries, n_layers=None):
     """A dense family at full width (and depth, unless ``n_layers`` cuts
     it): served through ``serve.main``, then its teacher-forced forward
-    [8, 192] through ``launches`` launches of the wgmma flash design, held
-    at the dense family's bf16 bars against the plain forward and the
-    served tokens."""
+    [8, 192] through ``launches`` launches of the wgmma flash design and as
+    many of the RoPE kernel (one a layer), held at the dense family's bf16
+    bars against the plain forward and the served tokens."""
     _reset_launches()
     gen_toks, (cfg, model, params), served = serve_main(arch, GEN, device,
                                                         n_layers)
-    tokens, logits_k, logits_p = phase_forward(
-        cfg, params, gen_toks, {"flash_attention": launches}, True, device)
-    _count_path(arch, {"flash_attention": launches}, entries)
+    want = {"flash_attention": launches, "rope": launches}
+    tokens, logits_k, logits_p = phase_forward(cfg, params, gen_toks, want,
+                                               True, device)
+    _count_path(arch, want, entries)
     del logits_k, logits_p
     return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
                                                             device),
@@ -2870,7 +2962,8 @@ def phase_arctic(device, entries):
     torch.testing.assert_close(got, forced, rtol=MODEL_TOL, atol=MODEL_TOL)
     if not agree > 0.9:
         raise AssertionError(f"{cfg.name}: decode agreement {agree} <= 0.9")
-    _count_path(ARCTIC, {"flash_attention": cfg.n_layers}, entries)
+    _count_path(ARCTIC, {"flash_attention": cfg.n_layers, "rope": cfg.n_layers},
+                entries)
     return {"init_s": init_s, "decode_ms_per_step": step_ms,
             **time_forwards(cfg, params, tokens)}
 
@@ -2880,11 +2973,12 @@ def phase_paligemma(device, entries):
     """paligemma_3b at full width and depth: text served through
     ``serve.main``, then the loss forward over 256 image patches and 192
     text tokens with and without the kernels: the prefix-LM mask keeps
-    every attention off the flash kernel, so no launch and the same loss
-    both ways (1e-6 relative: the same operations), finite. Then the text
-    forward over the 192 tokens without patches (no prefix), through 18
-    launches of the wgmma flash design at head_dim 256 (8 heads over one kv
-    head), held at the dense family's bf16 bars against the plain forward
+    every attention off the flash kernel, so no flash launch, one RoPE
+    launch a layer (bit for bit apply_rope's) and the same loss both ways
+    (1e-6 relative: the same operations), finite. Then the text forward
+    over the 192 tokens without patches (no prefix), through 18 launches of
+    the wgmma flash design at head_dim 256 (8 heads over one kv head) and
+    18 of the RoPE kernel, held at the dense family's bf16 bars against the plain forward
     and the served tokens."""
     _reset_launches()
     gen_toks, (cfg, model, params), served = serve_main(PALIGEMMA, GEN, device)
@@ -2897,8 +2991,13 @@ def phase_paligemma(device, entries):
     batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1),
              "mask": torch.ones(tokens.shape, device=device), "patches": patches}
     batch["mask"][:, -1] = 0
+    rope_before = rope_k.launches
     loss_k, m_k = _launched("launches", 0, lambda: lm_loss(
         cfg.replace(use_kernels=True), params, batch), f"{cfg.name} prefix loss")
+    if rope_k.launches - rope_before != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} prefix loss: "
+                             f"{rope_k.launches - rope_before} RoPE launches, "
+                             f"want {cfg.n_layers}")
     loss_p, _ = lm_loss(cfg, params, batch)
     print(f"[forward] {cfg.name}: loss forward over {n_img} patches + "
           f"{TEXT_LEN} text tokens, batch {SERVE_BATCH}: with kernels "
@@ -2907,10 +3006,11 @@ def phase_paligemma(device, entries):
     if not (torch.isfinite(loss_k)
             and abs(loss_k.item() - loss_p.item()) <= 1e-6 * abs(loss_p.item())):
         raise AssertionError(f"{cfg.name}: loss {loss_k.item()} / {loss_p.item()}")
-    text = {"flash_attention": PALIGEMMA_TEXT_LAUNCHES}
+    text = {"flash_attention": PALIGEMMA_TEXT_LAUNCHES,
+            "rope": PALIGEMMA_TEXT_LAUNCHES}
     _, logits_k, logits_p = phase_forward(cfg, params, gen_toks, text, True,
                                           device)
-    _count_path(PALIGEMMA, text, entries)
+    _count_path(PALIGEMMA, {**text, "rope": 2 * cfg.n_layers}, entries)
     del logits_k, logits_p
     prefix = time_forwards(cfg, params, tokens, patches)
     text_ms = time_forwards(cfg, params, tokens)
@@ -3251,6 +3351,7 @@ def main() -> int:
         "relic_matmul_gated": gated_entry,
     }
     phase_wkv6_layout(device)
+    entries["rope"] = phase_rope(device)
     print(f"[main] build and kernel phases {time.perf_counter() - t_start:.1f} s")
     entries["wkv6"]["design"] = (
         "K = 64 (every rwkv6 call): tensor cores, 3xTF32 mma.sync; decays "

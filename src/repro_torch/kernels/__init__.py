@@ -11,6 +11,9 @@ a plain-torch version beside it and an independent oracle in ``ref``:
   wkv6               — RWKV-6 chunked WKV recurrence (CUDA C++, sm_90a)
   ssd                — Mamba-2 chunked SSD recurrence (CUDA C++, sm_90a:
                        3xTF32 mma.sync for f32 with P = N = 64, CUDA cores else)
+  rope               — RoPE of q and k in one pass (CUDA C++, sm_90a; no
+                       Pallas counterpart, XLA fuses the reference's; its
+                       plain version is models/layers.py::apply_rope)
 
 Every Pallas kernel of the JAX package has its counterpart here.
 """

@@ -16,6 +16,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.relic_matmul import relic_matmul, relic_matmul_gated
+from repro_torch.kernels.rope import rope as _rope
 from repro_torch.kernels.ssd import ssd_bhtp
 from repro_torch.kernels.wkv6 import wkv6_bhtk
 
@@ -46,6 +47,13 @@ def flash_attention(q, k, v, *, causal=True):
     o = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal)
     return o.transpose(1, 2)
+
+
+def rope(q, k, positions, theta):
+    """q [B,S,H,D] and k [B,S,Kv,D] rotated (split-half RoPE) at
+    ``positions`` [1,S] or [B,S], one launch for both: (q_rot, k_rot)."""
+    _refuse_dtensor("rope", q, k, positions)
+    return _rope(q, k, positions, theta)
 
 
 def wkv6(r, k, v, logw, u, *, chunk=64):

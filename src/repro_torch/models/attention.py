@@ -451,6 +451,19 @@ def _attention_sharded(cfg: ModelConfig, p, x: DTensor, src=None, *,
     return shard_act(y, "batch", None, "model", kind="resid")
 
 
+def _rope(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+          positions: torch.Tensor):
+    """q's and k's RoPE: under ``use_kernels`` one kernel launch for both
+    (``ops.rope``, bit for bit ``apply_rope``'s), else ``apply_rope`` on
+    each."""
+    if cfg.use_kernels:
+        from repro_torch.kernels import ops  # deferred: kernels are optional
+
+        return ops.rope(q, k, positions, cfg.rope_theta)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
 def self_attention(
     cfg: ModelConfig,
     p,
@@ -470,8 +483,7 @@ def self_attention(
         with span("attn.rope"):
             if positions is None:
                 positions = torch.arange(x.shape[1], device=x.device)[None, :]
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+            q, k = _rope(cfg, q, k, positions)
     with span("attn.core"):
         o = attention_core(cfg, q, k, v, causal=causal, prefix_len=prefix_len)
     with span("attn.out"):
@@ -526,8 +538,7 @@ def decode_self_attention(
     q, k_new, v_new = _project_qkv(cfg, p, x)
     if cfg.use_rope:
         posb = torch.full((x.shape[0], 1), pos, device=x.device)
-        q = apply_rope(q, posb, cfg.rope_theta)
-        k_new = apply_rope(k_new, posb, cfg.rope_theta)
+        q, k_new = _rope(cfg, q, k_new, posb)
     k, v = cache["k"], cache["v"]
     _write_position(k, pos, k_new[:, 0])
     _write_position(v, pos, v_new[:, 0])

@@ -62,3 +62,8 @@ except ImportError:  # pragma: no cover - exercised only without the dep
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips where there is none")

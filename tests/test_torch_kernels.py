@@ -2,7 +2,9 @@
 package's kernel (interpret-mode Pallas, as tests/test_kernels.py runs it)
 and its jnp oracle, on the same numpy inputs. On the CPU the port's wrapper
 takes the kernel's plain version; the CUDA kernel itself is held against
-that plain version on the card by ``chip_smoke.py``."""
+that plain version on the card by ``chip_smoke.py``. Then ``ops.rope``'s
+plain version and the checks of its card entry (the kernel on the card:
+``tests/test_torch_rope_card.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rope as rope_k
+from repro_torch.models.layers import apply_rope
+
+import test_torch_rope_card as rope_card
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py:70-71
 SHAPES = [  # (b, s, h, kv, d, bq, bk): tests/test_kernels.py:55-60
@@ -140,3 +146,65 @@ def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") == first
     (tmp_path / "csrc" / "extra.h").write_text("#pragma once\n")
     assert _build.library_path("k") != first          # a new header counts too
+
+
+# ---------------------------------------------------------------------------
+# RoPE of q and k (``ops.rope``; the kernel itself is held on the card by
+# tests/test_torch_rope_card.py on the same cases)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads,pos", rope_card.CASES)
+def test_rope_plain_is_apply_rope(d, heads, pos, dtype):
+    q, k, p = rope_card.case_inputs(d, heads, pos, dtype)
+    got_q, got_k = ops.rope(q, k, p, rope_card.THETA)
+    assert torch.equal(got_q, apply_rope(q, p, rope_card.THETA))
+    assert torch.equal(got_k, apply_rope(k, p, rope_card.THETA))
+
+
+def _refusing_entry(*a, **k):
+    raise AssertionError("the kernel was built or launched")
+
+
+@pytest.mark.parametrize("bad", ["cpu", "odd_d", "float16", "not_contiguous"])
+def test_rope_card_entry_refuses_before_any_launch(bad, monkeypatch):
+    # On the CPU every refusal of the card entry is the device, first; the
+    # checks that follow it refuse odd D, f16 and a non-contiguous q.
+    monkeypatch.setattr(rope_k._build, "entry", _refusing_entry)
+    q, k, p = rope_card.case_inputs(64, "gqa", "shared", torch.bfloat16)
+    if bad == "odd_d":
+        q, k = q[..., :63].contiguous(), k[..., :63].contiguous()
+    elif bad == "float16":
+        q, k = q.half(), k.half()
+    elif bad == "not_contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    before = rope_k.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rope_k.rope_cuda(q, k, p, rope_card.THETA)
+    if bad != "cpu":
+        with pytest.raises(ValueError, match="rope takes"):
+            rope_k._check_card(q, k, p)
+    assert rope_k.launches == before
+
+
+def test_rope_refuses_a_dtensor():
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.dryrun import fake_group
+
+    q, k, p = rope_card.case_inputs(64, "gqa", "shared", torch.float32)
+    with fake_group(1):
+        mesh = init_device_mesh("cpu", (1,))
+        dq = DTensor.from_local(q, mesh, [Replicate()], run_check=False)
+        with pytest.raises(RuntimeError, match="takes no DTensor"):
+            ops.rope(dq, k, p, rope_card.THETA)
+
+
+def test_rope_refuses_a_gradient():
+    q, k, p = rope_card.case_inputs(64, "gqa", "shared", torch.float32)
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
+        ops.rope(q.requires_grad_(True), k, p, rope_card.THETA)
+    with torch.no_grad():   # the same call outside autograd runs
+        got_q, _ = ops.rope(q, k, p, rope_card.THETA)
+    assert got_q.grad_fn is None

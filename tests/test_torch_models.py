@@ -175,6 +175,39 @@ def test_decode_self_attention(rng):
     _close(c_t["v"], c_j["v"], F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layer", ["self_attention", "decode_self_attention"])
+def test_rope_under_use_kernels_is_plain_bit_for_bit(rng, monkeypatch, layer,
+                                                     dtype):
+    """With ``use_kernels`` q's and k's RoPE is one ``ops.rope`` call, whose
+    plain version is ``apply_rope``'s: the layer equals the plain one bit
+    for bit (prefill under a prefix, which keeps attention off the flash
+    kernel both ways, and a decode step)."""
+    from repro_torch.kernels import ops
+
+    calls, rope = [], ops.rope
+    monkeypatch.setattr(ops, "rope", lambda *a: calls.append(a) or rope(*a))
+    td = getattr(torch, dtype)
+    p = {"wq": rng.normal(size=(64, 4, 16)), "wk": rng.normal(size=(64, 2, 16)),
+         "wv": rng.normal(size=(64, 2, 16)), "wo": rng.normal(size=(4, 16, 64))}
+    p = {k: (_t(v) * 0.1).to(td) for k, v in p.items()}
+    x = _t(rng.normal(size=(2, 12, 64))).to(td)
+    cache = {n: _t(rng.normal(size=(2, 12, 2, 16))).to(td) for n in "kv"}
+    out = {}
+    for use_kernels in (False, True):
+        cfg = get_config("relic_tiny", smoke=True).replace(
+            param_dtype=dtype, compute_dtype=dtype, use_kernels=use_kernels)
+        with torch.no_grad():
+            if layer == "self_attention":
+                out[use_kernels] = (attn.self_attention(cfg, p, x, prefix_len=6),)
+            else:
+                y, c = attn.decode_self_attention(
+                    cfg, p, x[:, :1], {n: t.clone() for n, t in cache.items()}, 7)
+                out[use_kernels] = (y, c["k"], c["v"])
+    assert len(calls) == 1
+    assert all(torch.equal(a, b) for a, b in zip(out[False], out[True]))
+
+
 # ---------------------------------------------------------------------------
 # whole model
 # ---------------------------------------------------------------------------
