@@ -68,7 +68,8 @@ def score_seed(cell, seed: int, control: bool, device: str = "cuda") -> dict:
     tr.release()
     free()
     t0 = time.perf_counter()
-    _, w = program.reference_weights(tr.m, tr.reference, seed, device)
+    _, w = program.reference_weights(tr.m, tr.reference, seed, device,
+                                     cell.init_rules)
     refs = {i: tr.reference_ll(i, w) for i in sample}
     out = {"seed": seed, "program": tr.gaps(tr.kept, refs),
            "reference_s": time.perf_counter() - t0}

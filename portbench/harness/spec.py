@@ -5,7 +5,15 @@ a configuration and a traffic mix. Everything that belongs to one of them
 is a file of its own, found by that name, so that a later change adds a
 cell, a configuration, a mix or a metric by adding files:
 
-- ``configs/<config>.json``: the configuration as it is run;
+- ``configs/<config>.json``: the configuration as it is run. Three keys
+  let it describe an architecture the port's pinned ``ModelConfig`` cannot:
+  ``model.type``, ``"<module>:<qualname>"`` of a subclass of
+  ``ModelConfig`` (not from the JAX package) that the harness builds the
+  program's configuration from (``program.model_config``); a top-level
+  ``init_rules``, rules for the kinds of parameter ``init_rules.json``
+  lacks, never for one it has (``weights.rules_for``); and a top-level
+  ``smoke``, the CPU tests' overlay on the ``model`` section
+  (``tests/smoke.py``);
 - ``traffic/<traffic>.json``: the mix's parameters and its ``kind``;
 - ``kinds/<kind>.py``: the one general driver of that kind of traffic;
 - ``workloads/<cell>.json``: the cell's check limits, with the readings
@@ -91,6 +99,11 @@ class Cell:
     def work(self) -> ModuleType:
         """The configuration's closed-form model operations."""
         return importlib.import_module(f"portbench.work.{self.config['flops']}")
+
+    @property
+    def init_rules(self) -> dict:
+        """The configuration's own init rules (``weights.rules_for``)."""
+        return self.config.get("init_rules", {})
 
     def model(self, layout: str) -> dict:
         """The ``model`` section with the layout's settings laid over it

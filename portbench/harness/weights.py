@@ -3,17 +3,22 @@
 a few large normal draws and one uniform draw from a ``torch.Generator``
 on the device, each parameter a view into it scaled or set by its rule.
 The same seed gives the same tensors, so the reference draws its own copy
-after the program's state is freed."""
+after the program's state is freed.
+
+A configuration brings rules for the kinds of parameter the frozen table
+lacks in its file's top-level ``init_rules`` object, in the same forms; it
+may not name a kind the table already has, so no configuration redraws
+an existing kind of parameter."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from portbench.harness.spec import PKG, load_json
+from portbench.harness.spec import PKG, SpecError, load_json
 
 CHUNK = 1 << 30   # elements a draw: large calls, each within 32-bit indexing
 
@@ -31,11 +36,23 @@ def generator(device, seed: int) -> torch.Generator:
     return g
 
 
+def rules_for(own: Optional[dict]) -> dict:
+    """``init_rules.json``'s rules with a configuration's ``own`` beside
+    them; a kind of parameter that both name is refused."""
+    rules, own = load_json(PKG / "init_rules.json")["rules"], own or {}
+    clash = sorted(set(own) & set(rules))
+    if clash:
+        raise SpecError(f"init_rules: {clash} already in init_rules.json")
+    return {**rules, **own}
+
+
 def draw(shapes: List[Tuple[str, tuple]], model: dict, dtype: torch.dtype,
-         seed: int, device) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+         seed: int, device, own_rules: Optional[dict] = None
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(flat buffer, {name: view}) for the parameters ``shapes`` (in that
-    order), drawn from ``seed`` by ``init_rules.json``."""
-    rules = load_json(PKG / "init_rules.json")["rules"]
+    order), drawn from ``seed`` by ``init_rules.json`` and the
+    configuration's ``own_rules``."""
+    rules = rules_for(own_rules)
     total = sum(math.prod(s) for _, s in shapes)
     g = generator(device, derive(seed, 1))
     flat = torch.empty(total, dtype=dtype, device=device)

@@ -45,7 +45,7 @@ class Traffic:
         self.log_likelihood = layers.log_likelihood
         self.model, self.params, self.flat, _ = program.build(
             self.m, self.reference, self.run.seed, self.run.device,
-            requires_grad=False)
+            requires_grad=False, own_rules=self.run.cell.init_rules)
         for _ in range(self.run.cell.traffic["warmup_batches"]):
             self._one()
 
@@ -127,8 +127,9 @@ class Traffic:
         return {"ll_gap_max": ll_gap, "doc_mean_gap_max": doc_gap}
 
     def check(self, check):
-        _, w = program.reference_weights(self.m, self.reference, self.run.seed,
-                                         self.run.device)
+        run = self.run
+        _, w = program.reference_weights(self.m, self.reference, run.seed,
+                                         run.device, run.cell.init_rules)
         refs = {i: self.reference_ll(i, w) for i in self.sample()}
         for name, value in self.gaps(self.kept, refs).items():
             check.add(name, value)

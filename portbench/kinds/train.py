@@ -88,7 +88,7 @@ class Traffic:
         ``self.flat``, ``self.shapes``)."""
         self.model, params, self.flat, self.shapes = program.build(
             self.m, self.reference, self.run.seed, self.run.device,
-            requires_grad=True)
+            requires_grad=True, own_rules=self.run.cell.init_rules)
         return params
 
     def make_step(self):
@@ -141,7 +141,8 @@ class Traffic:
         run, mix, ref = self.run, self.mix, self.reference
         from portbench.reference import adamw
 
-        flat, w0 = program.reference_weights(self.m, ref, run.seed, run.device)
+        flat, w0 = program.reference_weights(self.m, ref, run.seed, run.device,
+                                             run.cell.init_rules)
         w = {n: v.clone().requires_grad_(True) for n, v in w0.items()}
         mu = {n: torch.zeros_like(v) for n, v in w.items()}
         nu = {n: torch.zeros_like(v) for n, v in w.items()}

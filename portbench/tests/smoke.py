@@ -1,7 +1,9 @@
 """A copy of the benchmark at the port's SMOKE sizes, for the CPU tests:
-the same files and cells, each configuration's ``model`` section replaced
-by the port's SMOKE config of the same architecture and each mix cut to a
-few short documents.
+the same files and cells, each mix cut to a few short documents, and each
+configuration's ``model`` section given the size of the file's own
+``smoke`` overlay where it has one (its keys replace the section's, a
+nested group such as ``ssm`` whole), else replaced by the port's SMOKE
+config of the same architecture.
 
 Beside the benchmark's own cells the copy holds the fixture cells below:
 the port's Zamba2 hybrid scored through the SSD and trained through the
@@ -98,20 +100,31 @@ def add_fixture_cells(root: Path) -> Path:
     return root
 
 
-def smoke_root(tmp: Path) -> Path:
+def smoke_model(doc: dict) -> dict:
+    """The ``model`` section of configuration ``doc`` at its CPU size."""
     from repro_torch.configs import get_config
 
+    if "smoke" in doc:
+        return {**doc["model"], **doc["smoke"]}
+    return dataclasses.asdict(get_config(doc["arch"], smoke=True))
+
+
+def smoke_root(tmp: Path) -> Path:
     shutil.copytree(PKG, tmp / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     shutil.copy(ROOT / "BENCHMARK.json", tmp / "BENCHMARK.json")
-    add_fixture_cells(tmp)
-    for p in (tmp / "portbench" / "configs").glob("*.json"):
-        _edit(p, lambda d: d.update(model=dataclasses.asdict(
-            get_config(d["arch"], smoke=True))))
+    return shrink(add_fixture_cells(tmp))
+
+
+def shrink(root: Path) -> Path:
+    """Cut every configuration and mix of the copy at ``root`` to its CPU
+    size; files already cut stay byte for byte as they are."""
+    for p in (root / "portbench" / "configs").glob("*.json"):
+        _edit(p, lambda d: d.update(model=smoke_model(d)))
     for name, upd in MIXES.items():
-        _edit(tmp / "portbench" / "traffic" / f"{name}.json",
+        _edit(root / "portbench" / "traffic" / f"{name}.json",
               lambda d: d.update(upd))
-    return tmp
+    return root
 
 
 def run_cell(root: Path, cell: str, seed: int = 2**31 + 11,

@@ -1,16 +1,23 @@
 """Later changes add cells, configurations and metrics by adding files: in
 a copy of the benchmark, a configuration, a cell and a per-layer metric
 dropped in as new files (and entries of ``BENCHMARK.json``) are found by
-name and read, with no edit to a file the harness already has."""
+name and read, with no edit to a file the harness already has; so is a
+configuration of an architecture the port's pinned registry does not
+know, with a config type, init rules and a CPU size of its own."""
 
+import dataclasses
 import json
 import shutil
 
 import pytest
 
+from portbench.harness import program, weights
 from portbench.harness.runner import Run, Window, read_metrics
 from portbench.harness.spec import PKG, ROOT, SpecError, find_cell
-from portbench.tests.smoke import add_fixture_cells
+from portbench.reference import lm
+from portbench.tests.smoke import (add_fixture_cells, run_cell, shrink,
+                                   smoke_root)
+from repro_torch.configs import ARCH_IDS, ModelConfig, get_config
 
 NEW_METRIC = '''"""items_per_s: the window's items over its time."""
 
@@ -95,3 +102,78 @@ def test_every_cell_has_its_files_and_metrics():
     for c in bench["configs"]:
         doc = json.loads((ROOT / c["file"]).read_text())
         assert doc["source"] == c["source"] and doc["reduced"] == c["reduced"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TaggedHybrid(ModelConfig):
+    """A configuration type the pinned ``ModelConfig`` lacks: one field
+    more, which the port's hybrid ignores and the reference may read."""
+
+    shared_blocks: int = 1
+
+
+def _files(pkg):
+    return {p.relative_to(pkg): p.read_bytes() for p in pkg.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_dropped_in_config_of_an_unlisted_type_runs(tmp_path, monkeypatch):
+    root = smoke_root(tmp_path)
+    pkg = root / "portbench"
+    before = _files(pkg)
+    arch, cell = "zamba2_tagged", "zamba2_tagged.score_4k"
+    assert arch not in ARCH_IDS
+    full = dataclasses.asdict(get_config("zamba2_1p2b"))
+    small = dataclasses.asdict(get_config("zamba2_1p2b", smoke=True))
+    rules = {"conv_bias": {"normal": 0.1}}
+    (pkg / "configs" / f"{arch}.json").write_text(json.dumps({
+        "arch": arch, "source": "x", "reduced": [], "why": "x",
+        "reference": "lm", "flops": "lm_flops",
+        "model": {**full, "type": f"{__name__}:TaggedHybrid",
+                  "shared_blocks": 2},
+        "smoke": {k: v for k, v in small.items() if full[k] != v},
+        "init_rules": rules,
+        "serve": {"param_dtype": "bfloat16", "use_kernels": True}}))
+    (pkg / "workloads" / f"{cell}.json").write_text(json.dumps(
+        {"limits": {"ll_gap_max": 1.05, "doc_mean_gap_max": 0.007}}))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": arch, "source": "x",
+                             "file": f"portbench/configs/{arch}.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": cell, "config": arch,
+                               "traffic": "score_4k", "chips": 1, "why": "x"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "zamba2_1p2b.score_4k" in m.get("workloads", ()):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    shrink(root)
+
+    built, seen, drawn = [], [], []
+    real_config, real_shapes, real_draw = (
+        program.model_config, lm.param_shapes, weights.draw)
+
+    def model_config(m):
+        built.append(real_config(m))
+        return built[-1]
+
+    def param_shapes(m):
+        seen.append(m)
+        return real_shapes(m)
+
+    def draw(shapes, m, dtype, seed, device, own_rules=None):
+        drawn.append(own_rules)
+        return real_draw(shapes, m, dtype, seed, device, own_rules)
+
+    monkeypatch.setattr(program, "model_config", model_config)
+    monkeypatch.setattr(lm, "param_shapes", param_shapes)
+    monkeypatch.setattr(weights, "draw", draw)
+    r = run_cell(root, cell)
+    assert r["correct"], r["checks"]
+    assert r["attempted"] >= 1 and r["failed"] == 0
+    assert built and all(type(c) is TaggedHybrid for c in built)
+    assert {c.shared_blocks for c in built} == {2}
+    assert built[0].d_model == small["d_model"] != full["d_model"]
+    assert seen and all(m["shared_blocks"] == 2 for m in seen)
+    assert len(drawn) == 2 and drawn == [rules, rules]  # program, reference
+    after = _files(pkg)
+    assert {k: v for k, v in after.items() if k in before} == before

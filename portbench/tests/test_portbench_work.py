@@ -11,7 +11,7 @@ import pytest
 from portbench.harness.trace import Trace, reduce_events
 from portbench.work.flash import attention_work, pairs
 from portbench.work.lm_flops import forward_flops, train_step_flops
-from portbench.work.ssd import ssd_work
+from portbench.work.ssd import chunks, ssd_work
 
 
 @pytest.mark.parametrize("args,flops,nbytes", [
@@ -50,6 +50,25 @@ def test_ssd_work_ragged_chunks():
     assert ssd_work(2, 3, 3, 2, 4, 2) == (prods, rest, exps, nbytes)
 
 
+def test_ssd_work_at_the_zamba2_fixtures_shape():
+    # b=4, h=64, t=4096, p=64, n=64, chunk 128: one group
+    want = (25972178944, 405798912, 69738496, 549453824)
+    assert ssd_work(4, 64, 4096, 64, 64, 128) == want
+    assert ssd_work(4, 64, 4096, 64, 64, 128, groups=1) == want
+
+
+@pytest.mark.parametrize("args", [(4, 64, 4096, 64, 64, 128),
+                                  (2, 3, 3, 2, 4, 2), (1, 1, 2, 1, 1, 2)])
+def test_ssd_work_a_second_group(args):
+    # one more C B^T a batch row and one more b and c read; per head nothing
+    b, _, t, _, n, chunk = args
+    one, two = ssd_work(*args), ssd_work(*args, groups=2)
+    kept = sum(c * (c + 1) // 2 for c in chunks(t, chunk))
+    assert two[0] - one[0] == b * 2 * kept * n
+    assert two[1:3] == one[1:3]
+    assert two[3] - one[3] == 2 * b * t * n * 4
+
+
 DENSE = {"family": "dense", "n_layers": 2, "d_model": 8, "n_heads": 2,
          "n_kv_heads": 1, "head_dim": 0, "d_ff": 16, "vocab_size": 10}
 
@@ -75,6 +94,40 @@ def test_hybrid_forward_flops():
     mamba = 2 * tokens * (8 * 40 + 16 * 8) + prods + rest + exps
     shared = 2 * tokens * 576 + 4 * 1 * 2 * 4 * 3
     assert forward_flops(m, 1, 2) == 3 * mamba + shared + 2 * tokens * 80
+
+
+def test_hybrid_forward_flops_by_group():
+    # a second group of b and c: w_in 2 * state_dim wider, one more C B^T
+    m = {**DENSE, "family": "hybrid", "n_layers": 3, "attn_every": 2,
+         "ssm": {"expand": 2, "head_dim": 4, "state_dim": 2, "chunk": 2}}
+    grouped = {**m, "ssm": {**m["ssm"], "n_groups": 2}}
+    tokens = 2
+    extra_cbt = ssd_work(1, 4, 2, 4, 2, 2, groups=2)[0] - ssd_work(
+        1, 4, 2, 4, 2, 2)[0]
+    per_layer = 2 * tokens * 8 * 2 * 2 + extra_cbt
+    assert forward_flops(grouped, 1, 2) - forward_flops(m, 1, 2) == 3 * per_layer
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ssd_roofline_reads_the_groups(groups):
+    from portbench.harness.spec import Metric, PKG, load_json
+
+    ssm = {"expand": 2, "head_dim": 64, "state_dim": 64, "chunk": 128}
+    if groups > 1:
+        ssm["n_groups"] = groups
+    mix = {"layout": "serve", "batch": 4, "length": 4096}
+    traced = types.SimpleNamespace(kernel_time=lambda _: (3, 0.5),
+                                   launches=lambda _: {"ssd_tc_kernel": 3})
+    cell = types.SimpleNamespace(traffic=mix, model=lambda _: {
+        "d_model": 2048, "ssm": ssm})
+    run = types.SimpleNamespace(traced=traced, cell=cell)
+    prods, rest, exps, nbytes = ssd_work(4, 64, 4096, 64, 64, 128,
+                                         groups=groups)
+    peaks = load_json(PKG / "peaks.json")
+    bound = max((prods + rest + exps) / peaks["flops_per_s"],
+                nbytes / peaks["bytes_per_s"])
+    got = Metric("ssd_roofline", "%").reader().read(run)
+    assert got == pytest.approx(100.0 * 3 * bound / 0.5)
 
 
 def _ev(name, cat, ts, dur):

@@ -32,9 +32,10 @@ def forward_flops(m: dict, batch: int, length: int) -> int:
     s = m["ssm"]
     d_inner = s["expand"] * d
     heads = d_inner // s["head_dim"]
-    in_dim = 2 * d_inner + 2 * s["state_dim"] + heads
+    groups = s.get("n_groups", 1)
+    in_dim = 2 * d_inner + 2 * groups * s["state_dim"] + heads
     prods, rest, exps, _ = ssd_work(batch, heads, length, s["head_dim"],
-                                    s["state_dim"], s["chunk"])
+                                    s["state_dim"], s["chunk"], groups=groups)
     mamba = 2 * tokens * (d * in_dim + d_inner * d) + prods + rest + exps
     shared = m["n_layers"] // m["attn_every"] if m["attn_every"] else 0
     return (m["n_layers"] * mamba
