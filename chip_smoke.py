@@ -42,7 +42,13 @@ Phases (any failure exits non-zero):
      192, 128], 8 kv heads) and at q [4, 32, 2048, 128], each timed beside
      the CUDA-core kernel, and at whisper_large_v3's three (the encoder's
      [8, 20, 1500, 64] and the cross-attention's Sq 192 against Sk 1500,
-     non-causal; the decoder's causal [8, 20, 192, 64]). The RoPE kernel
+     non-causal; the decoder's causal [8, 20, 192, 64]), and at head_dim
+     224 at zamba2_7b's scoring shape (q [4, 32, 4096, 224], MHA) at its
+     softmax scale 112 ** -0.5 (the plain version and SDPA at the same
+     scale). The grouped ssd at zamba2_7b's Mamba layer (x [4, 112, 4096,
+     64], B and C in 2 groups, f32) through the tensor-core design, held
+     against ``ssd_ref`` and bit for bit against a call per group, timed
+     beside its bounds (``phase_ssd_grouped``). The RoPE kernel
      (``kernels/rope.py``) bit for bit against ``apply_rope`` in f32 and
      bf16 at phi3_mini_3p8b's [4, 2048] and [8, 192], paligemma_3b's
      [8, 192] and a phi3 decode step at position 8191, timed beside the
@@ -76,7 +82,11 @@ Phases (any failure exits non-zero):
      forcing drop-free); paligemma_3b served (text), its loss forward
      over 256 patches and 192 tokens with no launch (the prefix path),
      then its text forward over the 192 tokens through 18 wgmma launches
-     (head_dim 256) at the dense bf16 bars;
+     (head_dim 256) at the dense bf16 bars; zamba2_7b (Zamba2-7B-Instruct
+     at full width and depth, 7.357 B parameters drawn as the benchmark
+     draws them) one forward over [2, 1024] tokens through exactly 81 ssd
+     (tensor-core design), 13 flash (wgmma, head_dim 224) and 13 RoPE
+     launches, finite, then timed;
   8. the quickstart path, ``repro_torch.quickstart.main`` at full width: the
      tasking façade, one train step, eight decode steps and one
      ``ops.matmul`` through the relic_matmul kernel;
@@ -361,6 +371,18 @@ GRANITE_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 8, 128)   # (b, s, h, kv, d)
 ARCTIC_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 56, 8, 128)    # GQA 7:1
 PHI3_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 32, 96)      # MHA at head_dim 96
 PALIGEMMA_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 8, 1, 256)  # MQA at head_dim 256
+# Zamba2-7B-Instruct (portbench/configs/zamba2_7b.json) at its published
+# width and depth: its shared blocks' attention at the zamba2_7b.score_4k
+# cell's [4, 4096] (32 heads of 224, the wgmma design's fifth instance) at
+# its softmax scale (224 / 2) ** -0.5; its Mamba layers' grouped ssd there
+# (b, h, t, p, n, groups, chunk); one forward's launches (81 Mamba layers, 13
+# uses of the shared blocks, each with RoPE) over [2, 1024] tokens.
+ZAMBA2_7B = "zamba2_7b"
+ZAMBA2_7B_ATTN_SHAPE = (4, 4096, 32, 32, 224)
+ZAMBA2_7B_SCALE = 112 ** -0.5
+SSD_GROUPED = (4, 112, 4096, 64, 64, 2, 256)
+ZAMBA2_7B_LAUNCHES = {"ssd": 81, "flash_attention": 13, "rope": 13}
+ZAMBA2_7B_TOKENS = (2, 1024)
 # The other head_dim-128 configs' attention at the same [8, 192]: held and
 # timed in the kernel phase; their families are on no path of this script.
 HEAD_DIM_128_SHAPES = [("qwen3_14b", (SERVE_BATCH, TEXT_LEN, 40, 8, 128)),
@@ -539,17 +561,18 @@ def wkv6_tc_bound_ms(r, logw, u, chunk: int, sub: int = 16):
 
 def _ssd_work(x, a, bmat, chunk: int):
     """The chunked ssd's arithmetic on these inputs, per chunk of c steps:
-    C B^T once per batch row (the heads share it), and per head W @ x,
+    C B^T once per batch row and group (the group's heads share it), and per head W @ x,
     C @ state^T and the state update (the four products), the decay of the
     c(c+1)/2 kept pairs (one exponential each) and the rescalings.
     Returns (product flops, other flops, exponentials, bytes): x, a, b, c
     read once and y written once."""
     bb, h, t, p = x.shape
     n = bmat.shape[-1]
+    g = bmat.shape[2] if bmat.dim() == 4 else 1   # b [B, T, G, N]: C B^T a group
     prods = rest = exps = 0
     for c in _chunks(t, chunk):
         pairs = c * (c + 1) // 2
-        prods += bb * 2 * pairs * n + bb * h * (2 * pairs * p + 4 * c * n * p)
+        prods += bb * g * 2 * pairs * n + bb * h * (2 * pairs * p + 4 * c * n * p)
         rest += bb * h * (2 * pairs + 3 * c * p + 2 * c + 2 * p * n)
         exps += bb * h * (pairs + 2 * c + 1)
     nbytes = 2 * x.nbytes + a.nbytes + 2 * bmat.nbytes
@@ -665,19 +688,21 @@ def _qkv(gen, b, s, h, kv, d, dtype, device, sk=None):
     return mk(h, s), mk(kv, sk or s), mk(kv, sk or s)
 
 
-def check_kernel(fn, gen, shape, dtype, causal, device, sk=None):
+def check_kernel(fn, gen, shape, dtype, causal, device, sk=None, scale=None):
     """One flash design (``fn``: ``flash_attention_wgmma`` or
     ``flash_attention_fma``) against the plain version on one seeded input
-    of ``shape`` (b, s, h, kv, d), kv length ``sk`` (default s): finite,
-    elementwise at the test tolerance and in relative norm. Returns the
-    inputs and the largest absolute difference."""
+    of ``shape`` (b, s, h, kv, d), kv length ``sk`` (default s), at softmax
+    scale ``scale`` (default d ** -0.5): finite, elementwise at the test
+    tolerance and in relative norm. Returns the inputs and the largest
+    absolute difference."""
     b, s, h, kv, d = shape
     q, k, v = _qkv(gen, b, s, h, kv, d, dtype, device, sk)
-    got = fn(q, k, v, causal=causal)
-    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    got = fn(q, k, v, causal=causal, scale=scale)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
     err = _hold(f"{fn.__name__} b{b} s{s}{f' sk{sk}' if sk else ''} h{h} "
-                f"kv{kv} d{d} causal={causal}", got, want, TOL[dtype],
-                TOL[dtype])
+                f"kv{kv} d{d} causal={causal}"
+                f"{'' if scale is None else f' scale={scale:.6g}'}", got, want,
+                TOL[dtype], TOL[dtype])
     return (q, k, v), err
 
 
@@ -713,26 +738,31 @@ def _calls(*targets):
             setattr(mod, name, fn)
 
 
-def time_flash(label, q, k, v, iters, causal=True):
+def time_flash(label, q, k, v, iters, causal=True, scale=None):
     """The wgmma design at one bf16 shape beside the CUDA-core kernel, the
     plain version, SDPA (the library yardstick, kv heads repeated outside
-    the timed call; the port never calls it) and the bound: CUDA-event
-    times of back-to-back calls (at small shapes the host's issue rate) and
-    the profiler's device times. Returns the numbers as one dict."""
+    the timed call; the port never calls it) and the bound, all at softmax
+    scale ``scale`` (default D ** -0.5): CUDA-event times of back-to-back
+    calls (at small shapes the host's issue rate) and the profiler's device
+    times. Returns the numbers as one dict."""
     h, kv = q.shape[1], k.shape[1]
     k_rep = torch.repeat_interleave(k, h // kv, dim=1)
     v_rep = torch.repeat_interleave(v, h // kv, dim=1)
-    ms = time_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=causal), iters)
-    fma_ms = time_ms(lambda: fa.flash_attention_fma(q, k, v, causal=causal),
+    ms = time_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=causal,
+                                                  scale=scale), iters)
+    fma_ms = time_ms(lambda: fa.flash_attention_fma(q, k, v, causal=causal,
+                                                    scale=scale),
                      max(iters // 4, 3))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal,
+                                                        scale=scale),
                        max(iters // 4, 3))
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k_rep, v_rep, is_causal=causal), iters)
-    device_ms = kernel_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=causal))
+        q, k_rep, v_rep, is_causal=causal, scale=scale), iters)
+    device_ms = kernel_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=causal,
+                                                           scale=scale))
     library_device_ms = kernel_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k_rep, v_rep, is_causal=causal))
+            q, k_rep, v_rep, is_causal=causal, scale=scale))
     bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, causal)
     shape = (f"q{list(q.shape)} kv{list(k.shape)} bf16 "
              f"{'causal' if causal else 'non-causal'}")
@@ -821,9 +851,11 @@ def phase_kernel(device):
     # The dispatch: bf16 at every head_dim of the wgmma design goes there;
     # f32 and bf16 at other head sizes (32, 80) do not.
     for dt, d, n in ((torch.bfloat16, 64, 1), (torch.bfloat16, 96, 1),
-                     (torch.bfloat16, 128, 1), (torch.bfloat16, 256, 1),
+                     (torch.bfloat16, 128, 1), (torch.bfloat16, 224, 1),
+                     (torch.bfloat16, 256, 1),
                      (torch.float32, 64, 0), (torch.float32, 96, 0),
-                     (torch.float32, 128, 0), (torch.float32, 256, 0),
+                     (torch.float32, 128, 0), (torch.float32, 224, 0),
+                     (torch.float32, 256, 0),
                      (torch.bfloat16, 32, 0), (torch.bfloat16, 80, 0)):
         q, k, v = _qkv(gen, 1, 96, 4, 2, d, dt, device)
         got = _launched("wgmma_launches", n, lambda: _launched(
@@ -910,6 +942,19 @@ def phase_kernel(device):
                                       dtype, True, device)
         wide.append({**time_flash(f"{path} attention", q, k, v, 20),
                      "max_abs_err": err, "path": path})
+    # Zamba2-7B's shared attention at head_dim 224 (the fifth instance) at
+    # its scoring cell's shape and softmax scale, held and timed before its
+    # path relies on it.
+    del q, k, v
+    (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen,
+                                  ZAMBA2_7B_ATTN_SHAPE, dtype, True, device,
+                                  scale=ZAMBA2_7B_SCALE)
+    wide.append({**time_flash(f"{ZAMBA2_7B} attention", q, k, v, 20,
+                              scale=ZAMBA2_7B_SCALE),
+                 "max_abs_err": err, "path": ZAMBA2_7B,
+                 "scale": ZAMBA2_7B_SCALE})
+    del q, k, v
+    torch.cuda.empty_cache()
     whisper = []
     for label, shape, causal, sk in WHISPER_ATTN:
         (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
@@ -938,8 +983,10 @@ def phase_kernel(device):
                        "caller's strides, one box per 64-column swizzle "
                        "atom; bf16, one template with instances at D=64, "
                        "96 (two atoms, the second half zero-filled by TMA), "
-                       "128 and 256 (64-row kv tiles, O out through the q "
-                       "tile). f32, every other D "
+                       "128, 224 and 256 (64-row kv tiles, O out through "
+                       "the q tile; at 224 the fourth atom half filled by "
+                       "TMA's zeros); a softmax scale of the caller's. f32, "
+                       "every other D "
                        "(instances 16/32/64/96/128/256, the next one up for "
                        "any other up to 256, slabs of 128 columns above) and "
                        "non-TMA layouts: "
@@ -976,12 +1023,15 @@ def _wkv6_inputs(gen, b, h, t, k, dtype, device):
     return r, kk, v, logw, mk(h, k).to(device)
 
 
-def _ssd_inputs(gen, b, h, t, p, n, dtype, device):
+def _ssd_inputs(gen, b, h, t, p, n, dtype, device, groups=1):
+    """Seeded x [b, h, t, p], a [b, h, t] and b, c [b, t, n], or [b, t,
+    groups, n] where ``groups`` > 1."""
     def mk(*shape):
         return torch.randn(shape, generator=gen)
     x = mk(b, h, t, p).to(device=device, dtype=dtype)
     a = (-mk(b, h, t).abs() * 0.5).to(device)
-    return x, a, mk(b, t, n).to(device), mk(b, t, n).to(device)
+    bc = (b, t, n) if groups == 1 else (b, t, groups, n)
+    return x, a, mk(*bc).to(device), mk(*bc).to(device)
 
 
 def _ulps(got, want) -> int:
@@ -1121,6 +1171,51 @@ def phase_recurrence(name, mod, replaces, make_inputs, bound, test_shapes,
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": None, **timed["served"],
             "library_ms": None, "long": timed["long"]}
+
+
+@torch.no_grad()
+def phase_ssd_grouped(device):
+    """The ssd with B and C in groups at Zamba2-7B's Mamba layer
+    (``SSD_GROUPED``: x [4, 112, 4096, 64], 2 groups of 56 heads, f32): one
+    launch through the tensor-core design, held against ``ssd_ref`` and bit
+    for bit against a call per group on its heads; timed beside the plain
+    version and both bounds. Returns its numbers."""
+    b, h, t, p, n, g, chunk = SSD_GROUPED
+    gen = torch.Generator().manual_seed(3)
+    ins = _ssd_inputs(gen, b, h, t, p, n, torch.float32, device, groups=g)
+    x, a, bm, cm = ins
+    before = (ssd_k.launches, ssd_k.tc_launches)
+    got = ssd_k.ssd_cuda(*ins, chunk=chunk)
+    rose = (ssd_k.launches - before[0], ssd_k.tc_launches - before[1])
+    if rose != (1, 1):
+        raise AssertionError(f"grouped ssd: (launches, tc_launches) rose by "
+                             f"{rose}, want (1, 1)")
+    shape = f"x{list(x.shape)} b/c{list(bm.shape)} f32 chunk {chunk}"
+    err = _hold(f"ssd grouped {shape}", got, ssd_k.ssd_plain(*ins),
+                *REC_TOL[torch.float32])
+    hg = h // g
+    for i in range(g):
+        hs = slice(i * hg, (i + 1) * hg)
+        one = ssd_k.ssd_cuda(x[:, hs], a[:, hs], bm[:, :, i], cm[:, :, i],
+                             chunk=chunk)
+        if not torch.equal(one, got[:, hs]):
+            raise AssertionError(f"grouped ssd: group {i} differs from a call "
+                                 f"on its heads alone")
+    ms = time_ms(lambda: ssd_k.ssd_cuda(*ins, chunk=chunk), 10)
+    device_ms = kernel_ms(lambda: ssd_k.ssd_cuda(*ins, chunk=chunk), 10)
+    plain_ms = time_ms(lambda: ssd_k.ssd_plain(*ins), 1, warmup=1)
+    bound_ms, bound_by, flops, exps, nbytes = ssd_bound_ms(x, a, bm, chunk)
+    tc_ms, tc_by = ssd_tc_bound_ms(x, a, bm, chunk)
+    dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+    print(f"[kernel] ssd grouped {shape} ({ZAMBA2_7B}): kernel {ms:.4f} ms "
+          f"(device {dev}), plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"by {bound_by}, with the products on the tensor cores in 3xTF32 "
+          f"{tc_ms:.4f} ms by {tc_by} ({flops / 1e9:.3f} GFLOP, "
+          f"{exps / 1e9:.4f} G exponentials, {nbytes / 1e6:.2f} MB); each "
+          f"group bit for bit a call on its heads")
+    return dict(shape=shape, max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tc_bound_ms=tc_ms, tc_bound_by=tc_by, path=ZAMBA2_7B)
 
 
 def phase_wkv6_layout(device):
@@ -2761,6 +2856,47 @@ def phase_phi3(device, entries):
     return _dense_path(PHI3, PHI3_LAUNCHES, device, entries)
 
 
+@torch.no_grad()
+def phase_zamba2_7b(device, entries):
+    """Zamba2-7B-Instruct at its published width and depth (81 Mamba-2
+    layers, 2 shared blocks used at 13 of them; 7.357 B parameters drawn as
+    the benchmark draws them, ``portbench/configs/zamba2_7b.json``, served
+    in bf16 with the kernels): one forward over ``ZAMBA2_7B_TOKENS`` from
+    launch counts of 0, exactly 81 ssd launches through the tensor-core
+    design, 13 flash launches through the wgmma design (head_dim 224) and
+    13 RoPE launches, with finite logits; then the forward timed."""
+    from portbench.harness import program
+    from portbench.reference import zamba2 as z2_ref
+
+    doc = json.loads((Path(ROOT) / "portbench" / "configs"
+                      / f"{ZAMBA2_7B}.json").read_text())
+    m = {**doc["model"], **doc["serve"]}
+    t0 = time.perf_counter()
+    model, params, flat, _ = program.build(m, z2_ref, 2**31 + 7, device, False,
+                                           doc["init_rules"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, s = ZAMBA2_7B_TOKENS
+    tokens = torch.randint(0, m["vocab_size"], (b, s), device=device,
+                           generator=torch.Generator(device=device).manual_seed(2))
+    _reset_launches()
+    logits, _ = model.forward(params, tokens)
+    torch.cuda.synchronize()
+    _count_path(ZAMBA2_7B, ZAMBA2_7B_LAUNCHES, entries)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{ZAMBA2_7B}: non-finite logits")
+    del logits
+    t0 = time.perf_counter()
+    model.forward(params, tokens)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    n_params = flat.numel()
+    print(f"[forward] {ZAMBA2_7B} tokens {[b, s]} bf16: {n_params} "
+          f"parameters drawn in {init_s:.1f} s, forward {forward_ms:.1f} ms")
+    del model, params, flat
+    return {"params": n_params, "forward_ms": forward_ms}
+
+
 def _ce(logits, tokens):
     """Teacher-forced next-token cross-entropy: position i predicts i + 1."""
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
@@ -3350,6 +3486,7 @@ def main() -> int:
         "relic_matmul": mm_entry,
         "relic_matmul_gated": gated_entry,
     }
+    entries["ssd"]["grouped"] = phase_ssd_grouped(device)
     phase_wkv6_layout(device)
     entries["rope"] = phase_rope(device)
     print(f"[main] build and kernel phases {time.perf_counter() - t_start:.1f} s")
@@ -3404,7 +3541,8 @@ def main() -> int:
 
     for arch, phase in ((GRANITE, phase_granite), (PHI3, phase_phi3),
                         (WHISPER, phase_whisper), (ARCTIC, phase_arctic),
-                        (PALIGEMMA, phase_paligemma)):
+                        (PALIGEMMA, phase_paligemma),
+                        (ZAMBA2_7B, phase_zamba2_7b)):
         t0 = time.perf_counter()
         summary = phase(device, entries)
         torch.cuda.empty_cache()

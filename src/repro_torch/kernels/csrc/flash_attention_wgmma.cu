@@ -1,11 +1,13 @@
 // Flash attention forward (GQA, optional causal) for Hopper, sm_90a: the bf16
-// design on TMA and wgmma, at head_dim 64, 96, 128 and 256 (one template,
-// four instances).
+// design on TMA and wgmma, at head_dim 64, 96, 128, 224 and 256 (one
+// template, five instances).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_fa_kernel / flash_attention_bhsd). Computes
-//   o = softmax(q k^T * D^-0.5  [causal mask qpos >= kpos, else -1e30]) v
-// with query head h reading kv head h / (H / Hkv), output in bf16.
+//   o = softmax(q k^T * scale  [causal mask qpos >= kpos, else -1e30]) v
+// with query head h reading kv head h / (H / Hkv), output in bf16; the
+// caller gives the scale (D^-0.5 by default, (D/2)^-0.5 in Zamba2's shared
+// blocks), which the kernel applies in f32 to the f32 scores.
 //
 // What bounds it on the H100: operations. Causal attention at the models'
 // widths does about 4 * S^2/2 * D flops per head against 8 * S * D bytes, far
@@ -58,13 +60,21 @@
 //    load's latency. Splitting O's columns over two consumer warpgroups
 //    that share a q row block was the other route: it halves the
 //    accumulator but computes S = Q K^T twice, once in each warpgroup.
+//  - D = 224 (Zamba2-7B's shared blocks) is the D = 256 layout with its
+//    fourth atom half filled, as D = 96 fills its second: the maps' D
+//    extent is 224, so the boxes at column 192 read columns 224..255 as
+//    TMA's out-of-bounds zeros and the store of O drops them. Q K^T runs 14
+//    k16 steps (the last two in the fourth atom's first half); P V runs at
+//    n224 (wgmma m64n224k16), whose MN-major V spans three atoms and half a
+//    fourth. O is 112 f32 registers a consumer thread; ptxas gives the
+//    instance 168 registers a thread at launch and no spills, as the others.
 //  - The tensor maps are 4-D (D, H, S, B) over the caller's own byte
 //    strides, so [B, S, H, D] (the models' layout) and [B, H, S, D] load with
 //    no copy; a box never crosses a head, the hardware zero-fills rows past
 //    S, and the kernel masks them to -1e30. The output goes out through its
 //    own shared tile by TMA stores in the caller's layout, which drop rows
 //    past Sq.
-//  - S = Q K^T: wgmma m64n128k16 (m64n64k16 at D = 256) from shared memory
+//  - S = Q K^T: wgmma m64n128k16 (m64n64k16 at D = 224 and 256) from shared memory
 //    (K stored [kv][D] is the K-major B operand); the k16 steps advance 32
 //    bytes inside an atom and move to the next atom's base after four. The
 //    online softmax (m, l) stays in registers; the row max is taken on the
@@ -77,9 +87,9 @@
 //    D = 64 it spans several atoms, a tile's bytes apart (the descriptor's
 //    LBO).
 //    The TPU kernel keeps P in f32 for this product (flash_attention.py:58).
-//    At D = 64, 96 and 256 P is rounded to bf16 (2^-9), which every path
-//    at those sizes (dense, hybrid, encoder-decoder, the VLM's text) holds
-//    its bars with. At D = 128 P goes in as two bf16 terms, hi = bf16(p)
+//    At D = 64, 96, 224 and 256 P is rounded to bf16 (2^-9), which every
+//    path at those sizes (dense, hybrid, encoder-decoder, the VLM's text,
+//    Zamba2-7B's shared blocks) holds its bars with. At D = 128 P goes in as two bf16 terms, hi = bf16(p)
 //    and lo = bf16(p - hi), in two wgmmas a k16 step: p to about 2^-17, for
 //    1.5x the tensor work. The D = 128 paths include the MoE families, whose
 //    routers are not continuous: on an H100 with bf16 P, arctic_480b's
@@ -89,8 +99,8 @@
 //  - Causal: kv tiles wholly above the diagonal are never loaded, and only
 //    tiles that cross it (or the ragged end of S) are masked.
 //  - Shared memory: q and o tiles (BQ x 64 x atoms each; one tile for both
-//    at D = 256) and STAGES x (K, V) (BK x 64 x atoms each): 97 KB at
-//    D = 64, 193 KB at D = 96, 128 and 256. Registers, not shared memory,
+//    at D = 224 and 256) and STAGES x (K, V) (BK x 64 x atoms each): 97 KB
+//    at D = 64, 193 KB at D = 96, 128, 224 and 256. Registers, not shared memory,
 //    hold a CTA to one per SM: 168 a thread at launch, 240 for a consumer
 //    (O is D / 2 floats a thread, S BK / 2, P BK / 4 words, twice that at
 //    D = 128).
@@ -131,15 +141,15 @@ static_assert(BQ <= 256 && CONSUMER_REGS <= 256, "one TMA box, setmaxnreg range"
 // The tiles of the instance at head_dim D, ceil(D / 64) atoms each.
 template <int D>
 struct Tiles {
-  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
-                "an instance at head_dim 64, 96, 128 or 256");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 224 || D == 256,
+                "an instance at head_dim 64, 96, 128, 224 or 256");
   static constexpr int ATOMS = (D + ATOM - 1) / ATOM;
-  static constexpr int BK = D == 256 ? 64 : 128;     // kv rows per tile
+  static constexpr int BK = ATOMS == 4 ? 64 : 128;   // kv rows per tile
   static constexpr int KV_ATOM = BK * ATOM_ROW;      // one atom of a K or V tile
   static constexpr int Q_BYTES = ATOMS * Q_ATOM;     // the q tile; the o tile alike
   static constexpr int KV_BYTES = ATOMS * KV_ATOM;   // one K or V tile
   static constexpr bool P_HI_LO = D == 128;          // P as two bf16 terms
-  static constexpr bool O_IN_Q = D == 256;           // O goes out through the q tile
+  static constexpr bool O_IN_Q = ATOMS == 4;         // O goes out through the q tile
   static constexpr size_t SMEM_BYTES = 1024 /* alignment slack */ +
                                        (O_IN_Q ? 1 : 2) * Q_BYTES /* q, o */ +
                                        (size_t)KV_BYTES * 2 * STAGES + 8 * N_BARS;
@@ -184,6 +194,8 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], uint32_t a0, uint32_
     wgmma_m64n96k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
   else if constexpr (D == 128)
     wgmma_m64n128k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
+  else if constexpr (D == 224)
+    wgmma_m64n224k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
   else
     wgmma_m64n256k16_rs_tb(o, a0, a1, a2, a3, desc_v, 1);
 }
@@ -522,7 +534,7 @@ int launch(EncodeTiledFn fn, const void* const (&ptrs)[4], const int64_t* geom, 
 
 }  // namespace
 
-// q [B, H, Sq, d], k/v [B, Hkv, Sk, d], o like q, d = 64, 96, 128 or 256, all bf16 in
+// q [B, H, Sq, d], k/v [B, Hkv, Sk, d], o like q, d = 64, 96, 128, 224 or 256, all bf16 in
 // any layout whose last dim is contiguous and other strides are multiples of
 // 16 bytes; geom holds 7 int64 per tensor (q, k, v, o). Returns 0 or
 // cudaGetLastError() after the launch; -1 for a d it has no instance for, -2
@@ -531,7 +543,7 @@ int launch(EncodeTiledFn fn, const void* const (&ptrs)[4], const int64_t* geom, 
 extern "C" int fa_wgmma_forward(const void* q, const void* k, const void* v, void* o,
                                 const int64_t* geom, int B, int H, int Hkv, int Sq,
                                 int Sk, int d, float scale, int causal, void* stream) {
-  if (d != 64 && d != 96 && d != 128 && d != 256) return -1;
+  if (d != 64 && d != 96 && d != 128 && d != 224 && d != 256) return -1;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return -2;
   const void* const ptrs[4] = {q, k, v, o};
@@ -540,6 +552,7 @@ extern "C" int fa_wgmma_forward(const void* q, const void* k, const void* v, voi
     case 64: return launch<64>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
     case 96: return launch<96>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
     case 128: return launch<128>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
+    case 224: return launch<224>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
     default: return launch<256>(fn, ptrs, geom, B, H, Hkv, Sq, Sk, scale, causal, s);
   }
 }

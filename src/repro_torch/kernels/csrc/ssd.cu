@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd.py (_ssd_kernel /
 // ssd_bhtp). Over x [B, H, T, P], a [B, H, T] (log decay, <= 0) and b, c
-// [B, T, N] shared across heads, per (b, h) and chunk of C steps, with la
-// the inclusive cumulative sum of a:
+// [B, T, N] shared across heads (or, in the tensor-core design, [B, T, G, N]
+// in G groups, head h reading group h / (H / G)), per (b, h) and chunk of C
+// steps, with la the inclusive cumulative sum of a:
 //   y     = ((C B^T) o exp(la_t - la_s) o [t >= s]) @ x + exp(la) * (C @ state^T)
 //   state = state * exp(la_end) + (x * exp(la_end - la))^T @ B
 // The decay exp(la_t - la_s) is computed only for s <= t (its exponent is
@@ -22,7 +23,9 @@
 //  - A CTA is one batch row and a group of HG = 2 heads, four warps per
 //    head. C B^T is computed once per chunk for the group (the heads share
 //    B and C) into shared memory, and each head applies its own decay mask
-//    to it as it reads it.
+//    to it as it reads it. With G groups of B and C (the published Zamba2's
+//    mamba_ngroups) the pair lies in one group (H / G even; ssd_tc_forward
+//    refuses an odd one) and the CTA reads that group's rows.
 //  - The chunk axis is a loop inside the CTA, over chunks of L = 32 steps of
 //    its own (the function does not depend on the chunk length, so the
 //    `chunk` argument selects nothing here; the inter-chunk products cost
@@ -40,7 +43,7 @@
 //    product; the path is held at 1e-3, and single-pass TF32 is never
 //    used); the split and the product are in hopper.cuh.
 //  - 79,616 bytes of shared memory and at most 128 registers a thread, so
-//    two CTAs fit an SM.
+//    two CTAs fit an SM (ptxas: 128 registers, 28 bytes of spill stores).
 //
 // The first design (one CTA per (b, h), 256 threads, any P and N that are
 // multiples of 4, f32 or bf16 x): the chunk axis a loop inside the CTA with
@@ -332,7 +335,7 @@ struct Strides {
 __global__ void __launch_bounds__(THREADS, 2)
 ssd_tc_kernel(const float* __restrict__ x, const float* __restrict__ a,
               const float* __restrict__ bm, const float* __restrict__ cm,
-              float* __restrict__ y, Strides s, int H, int T) {
+              float* __restrict__ y, Strides s, int H, int T, int NG) {
   extern __shared__ __align__(16) float sm[];
   float* G = sm + 2 * BUF;
   float* LA = G + L * GS;        // [HG][L] inclusive cumulative sum of a
@@ -342,6 +345,7 @@ ssd_tc_kernel(const float* __restrict__ x, const float* __restrict__ a,
   const int n_groups = (H + HG - 1) / HG;
   const int bi = blockIdx.x / n_groups, h0 = blockIdx.x % n_groups * HG;
   const int heads = min(HG, H - h0);
+  const int grp = h0 / (H / NG);       // the group of B and C both heads read
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int j = warp / 4;              // this warp's head in the group
@@ -359,7 +363,7 @@ ssd_tc_kernel(const float* __restrict__ x, const float* __restrict__ a,
       const float* src = which ? bm : cm;
       const bool in = t0 + r < T;
       cp16(buf + which * L * RS + r * RS + 4 * c4,
-           in ? src + ((long long)bi * T + t0 + r) * N + 4 * c4 : src, in);
+           in ? src + (((long long)bi * T + t0 + r) * NG + grp) * N + 4 * c4 : src, in);
     }
     for (int q = tid; q < HG * L * 16; q += THREADS) {
       const int jj = q / (L * 16), r = q / 16 % L, c4 = q % 16;
@@ -536,7 +540,7 @@ ssd_tc_kernel(const float* __restrict__ x, const float* __restrict__ a,
 }
 
 int launch(const float* x, const float* a, const float* b, const float* c, float* y,
-           const long long* strides, int B, int H, int T, cudaStream_t stream) {
+           const long long* strides, int B, int H, int T, int G, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -547,7 +551,7 @@ int launch(const float* x, const float* a, const float* b, const float* c, float
   const Strides s{strides[0], strides[1], strides[2], strides[3], strides[4],
                   strides[5], strides[6], strides[7], strides[8]};
   ssd_tc_kernel<<<B * ((H + HG - 1) / HG), THREADS, SMEM_BYTES, stream>>>(x, a, b, c, y,
-                                                                         s, H, T);
+                                                                         s, H, T, G);
   return (int)cudaGetLastError();
 }
 
@@ -571,17 +575,20 @@ extern "C" int ssd_forward(const void* x, const void* a, const void* b,
 }
 
 // The tensor-core design: x and y f32 with P = 64, a, b, c f32 with N = 64;
-// b and c contiguous [B, T, N]; strides (in elements) of x (b, h, t), y
+// b and c contiguous [B, T, G, N] (G = 1: [B, T, N]), G dividing H and, for
+// G > 1, H / G even; strides (in elements) of x (b, h, t), y
 // (b, h, t) and a (b, h, t); P contiguous in x and y, their other strides
 // multiples of 4 and their bases 16-byte aligned (kernels/ssd.py checks
 // this). Returns cudaGetLastError() after the launch, -2 for a shape it
 // does not take.
 extern "C" int ssd_tc_forward(const void* x, const void* a, const void* b, const void* c,
                               void* y, const long long* strides, int B, int H, int T,
-                              int P, int N, void* stream) {
-  if (P != tc::P || N != tc::N || B <= 0 || H <= 0 || T <= 0) return -2;
+                              int P, int N, int G, void* stream) {
+  if (P != tc::P || N != tc::N || B <= 0 || H <= 0 || T <= 0 || G <= 0 || H % G != 0 ||
+      (G > 1 && (H / G) % tc::HG != 0))
+    return -2;
   return tc::launch(static_cast<const float*>(x), static_cast<const float*>(a),
                     static_cast<const float*>(b), static_cast<const float*>(c),
-                    static_cast<float*>(y), strides, B, H, T,
+                    static_cast<float*>(y), strides, B, H, T, G,
                     static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,7 @@ input and output, far above the card's 295 FLOP/byte ridge in bf16. Two
 designs share the work, chosen by a predicate on the inputs
 (``wgmma_eligible``), never by a fallback on failure:
 
-- ``csrc/flash_attention_wgmma.cu`` (bf16, head_dim 64, 96, 128 or 256,
+- ``csrc/flash_attention_wgmma.cu`` (bf16, head_dim 64, 96, 128, 224 or 256,
   every tensor describable by a TMA map; every call of the models on the
   card): both products on the tensor cores through wgmma, K and V fed by
   TMA into an mbarrier ring by a producer warp, tensor maps over the
@@ -44,7 +44,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref as flash_attention_plain
 
-WGMMA_HEAD_DIMS = (64, 96, 128, 256)   # the wgmma design's instances
+WGMMA_HEAD_DIMS = (64, 96, 128, 224, 256)   # the wgmma design's instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STRIDE_BYTES = 1 << 40   # a TMA map's byte strides stay below 2^40
 
@@ -106,7 +106,12 @@ def tma_geometry(t: torch.Tensor) -> list[int]:
                           for n, st in ((h, sh), (s, ss), (b, sb)))]
 
 
-def _launch_wgmma(q, k, v, causal):
+def _scale(q, scale):
+    """The softmax scale: ``scale``, or ``D ** -0.5`` where none is given."""
+    return q.shape[-1] ** -0.5 if scale is None else float(scale)
+
+
+def _launch_wgmma(q, k, v, causal, scale=None):
     global launches, wgmma_launches
     out = torch.empty_like(q)
     b, h, sq, d = q.shape
@@ -119,7 +124,7 @@ def _launch_wgmma(q, k, v, causal):
     with _build.on_device(q):
         stream = _build.stream(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 ctypes.addressof(geom), b, h, hkv, sq, sk, d, d ** -0.5,
+                 ctypes.addressof(geom), b, h, hkv, sq, sk, d, _scale(q, scale),
                  int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash attention (wgmma) launch failed (error {err})")
@@ -128,7 +133,7 @@ def _launch_wgmma(q, k, v, causal):
     return out
 
 
-def flash_attention_wgmma(q, k, v, *, causal: bool = True):
+def flash_attention_wgmma(q, k, v, *, causal: bool = True, scale=None):
     """Launch the wgmma design; q [B,H,Sq,D], k/v [B,Hkv,Sk,D] with D in
     ``WGMMA_HEAD_DIMS``, bf16 on the card in any TMA-describable layout. The
     output has q's strides (the caller's layout) when q is dense."""
@@ -137,10 +142,10 @@ def flash_attention_wgmma(q, k, v, *, causal: bool = True):
     if not wgmma_eligible(q, k, v):
         raise ValueError(f"flash_attention_wgmma takes bf16, head_dim in "
                          f"{WGMMA_HEAD_DIMS}, in layouts a TMA map can describe")
-    return _launch_wgmma(q, k, v, causal)
+    return _launch_wgmma(q, k, v, causal, scale)
 
 
-def _launch_fma(q, k, v, causal):
+def _launch_fma(q, k, v, causal, scale=None):
     global launches
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, h, sq, d = q.shape
@@ -152,7 +157,7 @@ def _launch_fma(q, k, v, causal):
     with _build.on_device(q):
         stream = _build.stream(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], b, h, hkv, sq, sk, d, d ** -0.5,
+                 _DTYPES[q.dtype], b, h, hkv, sq, sk, d, _scale(q, scale),
                  int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed (error {err})")
@@ -160,28 +165,29 @@ def _launch_fma(q, k, v, causal):
     return out
 
 
-def flash_attention_fma(q, k, v, *, causal: bool = True):
+def flash_attention_fma(q, k, v, *, causal: bool = True, scale=None):
     """Launch the CUDA-core kernel (f32 math on the CUDA cores; f32 or
     bf16, any head_dim) on contiguous copies of the inputs."""
     _require_cuda("flash_attention_fma", q, k, v)
     _check(q, k, v)
-    return _launch_fma(q, k, v, causal)
+    return _launch_fma(q, k, v, causal, scale)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None):
     """q [B,H,Sq,D], k/v [B,Hkv,Sk,D] on the card: the wgmma design where
     ``wgmma_eligible`` holds, else the CUDA-core kernel."""
     _require_cuda("flash_attention_cuda", q, k, v)
     _check(q, k, v)
     if wgmma_eligible(q, k, v):
-        return _launch_wgmma(q, k, v, causal)
-    return _launch_fma(q, k, v, causal)
+        return _launch_wgmma(q, k, v, causal, scale)
+    return _launch_fma(q, k, v, causal, scale)
 
 
-def flash_attention_bhsd(q, k, v, *, causal: bool = True):
-    """[B,H,Sq,D] x [B,Hkv,Sk,D] -> [B,H,Sq,D]: a kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+def flash_attention_bhsd(q, k, v, *, causal: bool = True, scale=None):
+    """[B,H,Sq,D] x [B,Hkv,Sk,D] -> [B,H,Sq,D] at softmax scale ``scale``
+    (``D ** -0.5`` unless given): a kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal)
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
     _check(q, k, v)
-    return flash_attention_plain(q, k, v, causal=causal)
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale)

@@ -39,13 +39,14 @@ def matmul_gated(x, w_gate, w_up, *, act="silu", bm=256, bn=256, bk=512):
     return relic_matmul_gated(x, w_gate, w_up, act=act, bm=bm, bn=bn, bk=bk)
 
 
-def flash_attention(q, k, v, *, causal=True):
-    """Model layout [B,S,H,D] in/out; GQA via kv-head grouping. The
-    transposes are views: the wgmma design reads and writes the model's
-    layout through its tensor maps, with no copy."""
+def flash_attention(q, k, v, *, causal=True, scale=None):
+    """Model layout [B,S,H,D] in/out; GQA via kv-head grouping; softmax
+    scale ``D ** -0.5`` unless given. The transposes are views: the wgmma
+    design reads and writes the model's layout through its tensor maps,
+    with no copy."""
     _refuse_dtensor("flash_attention", q, k, v)
     o = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal)
+                             v.transpose(1, 2), causal=causal, scale=scale)
     return o.transpose(1, 2)
 
 
@@ -65,7 +66,8 @@ def wkv6(r, k, v, logw, u, *, chunk=64):
 
 
 def ssd(x, a, b, c, *, chunk=128):
-    """x [B,T,H,P]; a [B,T,H]; b/c [B,T,N] in model layout."""
+    """x [B,T,H,P]; a [B,T,H]; b/c [B,T,N], or [B,T,G,N] in G groups, in
+    model layout."""
     _refuse_dtensor("ssd", x, a, b, c)
     o = ssd_bhtp(x.transpose(1, 2), a.transpose(1, 2), b, c, chunk=chunk)
     return o.transpose(1, 2)

@@ -1,5 +1,7 @@
 """Plain-torch oracles for the port's kernels (independent implementations —
-no code shared with the kernels or the model fast paths)."""
+no code shared with the kernels or the model fast paths, but for
+``group_heads``, the split of a grouped SSD's heads by group that the
+oracle, the model's chunked SSD and the kernel's first design each use)."""
 
 from __future__ import annotations
 
@@ -26,16 +28,18 @@ def matmul_gated_ref(x, w_gate, w_up, act: str = "silu", out_dtype=None):
     return (g * (xf @ w_up.float())).to(out_dtype or x.dtype)
 
 
-def attention_ref(q, k, v, *, causal=True):
+def attention_ref(q, k, v, *, causal=True, scale=None):
     """q: [B,H,Sq,D]; k/v: [B,Hkv,Sk,D] (GQA by head repeat). q is scaled in
-    f32 before the dot, as the flash-attention kernel does; scores masked at
-    -1e30, f32 softmax and accumulation, out in q's dtype."""
+    f32 before the dot (by ``scale``, ``D ** -0.5`` unless given), as the
+    flash-attention kernel does; scores masked at -1e30, f32 softmax and
+    accumulation, out in q's dtype."""
     b, h, sq, d = q.shape
     hkv = k.shape[1]
     g = h // hkv
     k = torch.repeat_interleave(k, g, dim=1)
     v = torch.repeat_interleave(v, g, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * (d ** -0.5), k.float())
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
     if causal:
         sk = k.shape[2]
         mask = (torch.arange(sq, device=q.device)[:, None]
@@ -63,9 +67,25 @@ def wkv6_ref(r, k, v, logw, u):
     return torch.stack(outs, dim=2).to(r.dtype)
 
 
+def group_heads(b, c, *per_head):
+    """For each group of b and c [B, T, G, N] (head h of H reads group
+    h // (H / G)): (b_g, c_g, *the group's heads of each (tensor, heads dim)
+    in ``per_head``), as views."""
+    g = b.shape[2]
+    for i in range(g):
+        yield (b[:, :, i], c[:, :, i],
+               *(t.narrow(d, i * (t.shape[d] // g), t.shape[d] // g)
+                 for t, d in per_head))
+
+
 def ssd_ref(x, a, b, c):
     """Naive per-step Mamba-2 SSD in f32. x [B,H,T,P]; a [B,H,T]; b/c
-    [B,T,N] shared across heads; out in x's dtype."""
+    [B,T,N] shared across heads, or [B,T,G,N] in G groups (head h reads
+    group h // (H / G), each group's heads a call of their own); out in x's
+    dtype."""
+    if b.dim() == 4:
+        return torch.cat([ssd_ref(xg, ag, bg, cg) for bg, cg, xg, ag
+                          in group_heads(b, c, (x, 1), (a, 1))], dim=1)
     xf, af, bf, cf = (t.float() for t in (x, a, b, c))
     bb, h, t, p = xf.shape
     n = bf.shape[-1]

@@ -65,11 +65,13 @@ def attention_full(
     q_offset: int = 0,
     kv_len: Optional[int] = None,
     prefix_len: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Unchunked reference / decode path (scores materialized)."""
+    """Unchunked reference / decode path (scores materialized); softmax
+    scale ``Dh ** -0.5`` unless given."""
     n_kv = k.shape[2]
     qg = _grouped(q, n_kv)  # [B,Sq,Kv,G,Dh]
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     s = torch.einsum("bqkgd,btkd->bkgqt", qg.float() * scale, k.float())
     sq, sk = q.shape[1], k.shape[1]
     kpos = torch.arange(sk, device=q.device)
@@ -143,12 +145,14 @@ def attention_chunked(
     q_offset: int = 0,
     prefix_len: Optional[int] = None,
     causal_skip: bool = False,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-style two-level streaming attention in plain torch.
 
     Outer loop over Q blocks; inner loop over KV blocks carrying the running
     (m, l, acc). causal_skip: q block qi only visits the KV blocks covering
-    positions [0, (qi+1)*Cq), which removes the masked-block waste.
+    positions [0, (qi+1)*Cq), which removes the masked-block waste. Softmax
+    scale ``Dh ** -0.5`` unless given.
     """
     b, sq, h, dh = q.shape
     sk = k.shape[1]
@@ -158,7 +162,7 @@ def attention_chunked(
     chunk_k = min(chunk_k, sk)
     nq, nk = sq // chunk_q, sk // chunk_k
     assert sq % chunk_q == 0 and sk % chunk_k == 0, (sq, chunk_q, sk, chunk_k)
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     qg = _grouped(q, n_kv)
     skip = causal_skip and causal and prefix_len is None and q_offset == 0
 
@@ -281,17 +285,20 @@ def attention_core(
     q_offset: int = 0,
     kv_len: Optional[int] = None,
     prefix_len: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Dispatch: kernels > chunked (long S) > full. DTensors (a sharded
-    forward) take the plain paths on each rank's local q heads and batch
-    rows (``_per_head_shard``), or, against a cache whose time axis is
-    sharded, split-T on each rank's slice (``_split_t``): the kernels
-    refuse them."""
+    """Dispatch: kernels > chunked (long S) > full, at softmax scale
+    ``scale`` (``Dh ** -0.5`` unless given). DTensors (a sharded forward)
+    take the plain paths on each rank's local q heads and batch rows
+    (``_per_head_shard``), or, against a cache whose time axis is sharded,
+    split-T on each rank's slice (``_split_t``): the kernels refuse them."""
     sq, sk = q.shape[1], k.shape[1]
     if cfg.use_kernels and sq > 1 and prefix_len is None:
         from repro_torch.kernels import ops  # deferred: kernels are optional
 
-        return ops.flash_attention(q, k, v, causal=causal)
+        return ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    if scale is not None and isinstance(q, DTensor):
+        raise NotImplementedError("a softmax scale of its own on a DTensor")
     if isinstance(q, DTensor) and not causal and prefix_len is None:
         dims = _split_t_dims(k, v)
         if dims:
@@ -307,10 +314,10 @@ def attention_core(
             chunk_q=_pick_chunk(sq, cfg.attn_chunk_q),
             chunk_k=_pick_chunk(sk, cfg.attn_chunk),
             q_offset=q_offset, prefix_len=prefix_len,
-            causal_skip=cfg.causal_skip,
+            causal_skip=cfg.causal_skip, scale=scale,
         )
     return attention_full(q, k, v, causal=causal, q_offset=q_offset,
-                          kv_len=kv_len, prefix_len=prefix_len)
+                          kv_len=kv_len, prefix_len=prefix_len, scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -472,9 +479,13 @@ def self_attention(
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,
     prefix_len: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Training / prefill self-attention over [B,S,D]."""
+    """Training / prefill self-attention over [B,S,D]; softmax scale
+    ``Dh ** -0.5`` unless given."""
     if _takes_local_plan(cfg, p, x):
+        if scale is not None:
+            raise NotImplementedError("a softmax scale of its own on a mesh")
         return _attention_sharded(cfg, p, x, causal=causal,
                                   positions=positions, prefix_len=prefix_len)
     with span("attn.qkv"):
@@ -485,7 +496,8 @@ def self_attention(
                 positions = torch.arange(x.shape[1], device=x.device)[None, :]
             q, k = _rope(cfg, q, k, positions)
     with span("attn.core"):
-        o = attention_core(cfg, q, k, v, causal=causal, prefix_len=prefix_len)
+        o = attention_core(cfg, q, k, v, causal=causal, prefix_len=prefix_len,
+                           scale=scale)
     with span("attn.out"):
         return _output(cfg, p, o)
 
@@ -529,8 +541,10 @@ def decode_self_attention(
     x: torch.Tensor,        # [B,1,D]
     cache: dict,            # {"k": [B,T,Kv,Dh], "v": [B,T,Kv,Dh]}
     pos: int,               # current position
+    scale: Optional[float] = None,
 ):
-    """One-token decode against a fixed-length KV cache; returns (y, cache).
+    """One-token decode against a fixed-length KV cache; returns (y, cache);
+    softmax scale ``Dh ** -0.5`` unless given.
 
     The cache is written in place at ``pos`` (the JAX package uses
     ``dynamic_update_slice`` on a donated buffer; here the returned dict
@@ -542,7 +556,8 @@ def decode_self_attention(
     k, v = cache["k"], cache["v"]
     _write_position(k, pos, k_new[:, 0])
     _write_position(v, pos, v_new[:, 0])
-    o = attention_core(cfg, q, k, v, causal=False, kv_len=pos + 1)
+    o = attention_core(cfg, q, k, v, causal=False, kv_len=pos + 1,
+                       scale=scale)
     return _output(cfg, p, o), {"k": k, "v": v}
 
 

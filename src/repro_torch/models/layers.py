@@ -153,6 +153,12 @@ def _norm_sharded(xf: DTensor, scale: torch.Tensor,
     return from_local_parts(y, mesh, xf.placements, xf.shape)
 
 
+def norm_eps(cfg: ModelConfig) -> float:
+    """The RMSNorms' eps: the config's ``norm_eps`` where it has one (the
+    published Zamba2's), else 1e-6."""
+    return getattr(cfg, "norm_eps", 1e-6)
+
+
 def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     with span("norm"):
         xf = x.float()
@@ -168,7 +174,7 @@ def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
             y = y * p["scale"].float() + p["bias"].float()
         else:  # rmsnorm
             ms = (xf * xf).mean(-1, keepdim=True)
-            y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
+            y = xf * torch.rsqrt(ms + norm_eps(cfg)) * p["scale"].float()
         return shard_act(y.to(x.dtype), "batch", None, "model", kind="resid")
 
 

@@ -1,5 +1,15 @@
 """Mamba-2 (SSD) block: chunked state-space recurrence with scalar-per-head
-decay, used by the zamba2 hybrid.
+decay, used by the port's zamba2 hybrid and by the published Zamba2
+(``models/zamba2.py``).
+
+The published model's options come from its config
+(``zamba2.Zamba2Config``): B and C in ``ssm_groups`` groups (head h reads
+group h // (H / G); ``_groups``), a bias on the depthwise conv (a
+``conv_bias`` parameter where ``cfg.conv_bias``), and the gated RMSNorm
+taken per group of d_inner / G channels at ``norm_eps``
+(``layers.norm_eps``). A block call reads them once. Any other config takes
+the port's hybrid's: one group, no bias, eps 1e-6, with the arithmetic it
+always had.
 
 The chunked algorithm is the SSD decomposition: intra-chunk terms are a
 masked "attention-like" product against C·B^T with cumulative scalar
@@ -24,18 +34,25 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _const, _normal, dt
+from repro_torch.kernels.ref import group_heads
+from repro_torch.models.layers import _const, _normal, dt, norm_eps
+from repro_torch.runtime.spans import span
 from repro_torch.sharding import (cast_local, dividing_dims, from_local_parts,
                                   local_part, mesh_reduce, on_local_shards,
                                   shard_act, shard_index, sharding_dims,
                                   split_layout, spread, zero_gather_pays)
 
 
+def _groups(cfg: ModelConfig) -> int:
+    """B and C groups: the published Zamba2's ``ssm_groups``, else one."""
+    return getattr(cfg, "ssm_groups", 1)
+
+
 def _dims(cfg: ModelConfig):
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
     n_heads = d_inner // s.head_dim
-    conv_dim = d_inner + 2 * s.state_dim  # x, B, C share the conv
+    conv_dim = d_inner + 2 * _groups(cfg) * s.state_dim  # x, B, C share the conv
     return d_inner, n_heads, conv_dim
 
 
@@ -44,13 +61,13 @@ def init_mamba2(cfg: ModelConfig, gen, device) -> nn.ParameterDict:
     s = cfg.ssm
     d = cfg.d_model
     d_inner, n_heads, conv_dim = _dims(cfg)
-    in_dim = 2 * d_inner + 2 * s.state_dim + n_heads  # z, x, B, C, dt
+    in_dim = d_inner + conv_dim + n_heads  # z, x, B, C, dt
     # The JAX package draws dt from numpy's RandomState(0), so both packages
     # hold the same dt_bias.
     dt_init = torch.tensor(np.exp(np.random.RandomState(0).uniform(
         np.log(s.dt_min), np.log(s.dt_max), size=(n_heads,))), dtype=torch.float32)
     dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))
-    return nn.ParameterDict({
+    p = nn.ParameterDict({
         "w_in": _normal(gen, (d, in_dim), d ** -0.5, pd, device),
         "w_out": _normal(gen, (d_inner, d), d_inner ** -0.5, pd, device),
         "conv": _normal(gen, (s.conv_kernel, conv_dim), 0.1, pd, device),
@@ -59,17 +76,35 @@ def init_mamba2(cfg: ModelConfig, gen, device) -> nn.ParameterDict:
         "dt_bias": nn.Parameter(dt_bias.to(device=device, dtype=pd)),
         "norm_scale": _const(1.0, (d_inner,), pd, device),
     })
+    if getattr(cfg, "conv_bias", False):
+        p["conv_bias"] = _normal(gen, (conv_dim,), 0.1, pd, device)
+    return p
 
 
 def _split_in(cfg: ModelConfig, h: torch.Tensor):
-    s = cfg.ssm
-    d_inner, n_heads, _ = _dims(cfg)
-    return torch.split(h, [d_inner, d_inner, s.state_dim, s.state_dim, n_heads],
-                       dim=-1)
+    """z, xBC, dt: the in-projection's columns in the published order."""
+    d_inner, n_heads, conv_dim = _dims(cfg)
+    return torch.split(h, [d_inner, conv_dim, n_heads], dim=-1)
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state=None):
-    """Depthwise causal conv. x: [B,S,C]; w: [K,C]."""
+def _conv(cfg: ModelConfig, p, xbc: torch.Tensor, groups: int, cd,
+          conv_state=None):
+    """The conv (its bias where the block has one) and SiLU over xBC, split
+    into x, B and C: B and C [..., G, N] in ``groups`` groups, [..., N] in
+    one. Returns (x, B, C, the conv's new state)."""
+    d_inner, n = _dims(cfg)[0], cfg.ssm.state_dim
+    bias = p["conv_bias"].to(cd) if "conv_bias" in p else None
+    out, new_state = _causal_conv(xbc, p["conv"].to(cd), conv_state, bias)
+    xi, bi, ci = torch.split(out, [d_inner, groups * n, groups * n], dim=-1)
+    if groups > 1:
+        bi, ci = bi.unflatten(-1, (groups, n)), ci.unflatten(-1, (groups, n))
+    return xi, bi, ci, new_state
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state=None,
+                 bias=None):
+    """Depthwise causal conv, then its bias (where given) and SiLU. x:
+    [B,S,C]; w: [K,C]; bias [C]."""
     k = w.shape[0]
     if conv_state is None:
         pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
@@ -77,6 +112,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state=None):
         pad = conv_state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)  # [B, S+K-1, C]
     out = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    if bias is not None:
+        out = out + bias
     new_state = xp[:, -(k - 1):, :] if k > 1 else None
     return F.silu(out), new_state
 
@@ -84,12 +121,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state=None):
 def ssd_chunked(
     x: torch.Tensor,       # [B,T,H,P]   (dt-scaled inputs)
     a: torch.Tensor,       # [B,T,H]     log decay (<= 0)
-    b: torch.Tensor,       # [B,T,N]
-    c: torch.Tensor,       # [B,T,N]
+    b: torch.Tensor,       # [B,T,N], or [B,T,G,N] in G groups
+    c: torch.Tensor,       # like b
     state0: torch.Tensor,  # [B,H,P,N]
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked scalar-decay SSD. Returns (y [B,T,H,P] f32, state [B,H,P,N])."""
+    """Chunked scalar-decay SSD. Returns (y [B,T,H,P] f32, state [B,H,P,N]).
+    With groups, head h reads group h // (H / G): each group's heads are a
+    call of their own."""
+    if b.dim() == 4:
+        parts = [ssd_chunked(xg, ag, bg, cg, sg, chunk) for bg, cg, xg, ag, sg
+                 in group_heads(b, c, (x, 2), (a, 2), (state0, 1))]
+        return (torch.cat([y for y, _ in parts], dim=2),
+                torch.cat([st for _, st in parts], dim=1))
     bb, t, h, p = x.shape
     n = b.shape[-1]
     chunk = min(chunk, t)
@@ -131,7 +175,15 @@ def ssd_chunked(
 
 
 def ssd_step(x, a, b, c, state):
-    """Single-token SSD. x: [B,H,P]; a: [B,H]; b/c: [B,N]; state [B,H,P,N]."""
+    """Single-token SSD. x: [B,H,P]; a: [B,H]; b/c: [B,N], or [B,G,N] in G
+    groups; state [B,H,P,N]."""
+    if b.dim() == 3:   # each head its group's b and c
+        hg = x.shape[1] // b.shape[1]
+        bf, cf = (t.float().repeat_interleave(hg, dim=1) for t in (b, c))
+        state = state * torch.exp(a.float())[..., None, None] + torch.einsum(
+            "bhp,bhn->bhpn", x.float(), bf)
+        y = torch.einsum("bhpn,bhn->bhp", state, cf)
+        return y.to(x.dtype), state
     xf, bf, cf = x.float(), b.float(), c.float()
     state = state * torch.exp(a.float())[..., None, None] + torch.einsum(
         "bhp,bn->bhpn", xf, bf)
@@ -139,53 +191,70 @@ def ssd_step(x, a, b, c, state):
     return y.to(x.dtype), state
 
 
-def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _rms(x: torch.Tensor, scale: torch.Tensor, groups: int = 1,
+         eps: float = 1e-6) -> torch.Tensor:
+    """The gated norm's RMSNorm, taken over each of ``groups`` equal groups
+    of the last dim."""
     xf = x.float()
+    if groups > 1:
+        xf = xf.unflatten(-1, (groups, -1))
     ms = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + 1e-6) * scale.float()).to(x.dtype)
+    y = xf * torch.rsqrt(ms + eps)
+    if groups > 1:
+        y = y.flatten(-2)
+    return (y * scale.float()).to(x.dtype)
 
 
 def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """Train/prefill path. x: [B,S,D] -> [B,S,D]. A DTensor ``x`` over more
     than one rank takes the plain recurrence on each rank's own heads
     (``_mamba2_sharded``; the kernel refuses DTensors), where gathering the
-    weights' ZeRO shards pays (not a few rows a rank)."""
+    weights' ZeRO shards pays (not a few rows a rank). Spans: ``mamba.in``
+    the in-projection, ``mamba.conv`` the conv, its bias and SiLU,
+    ``mamba.ssd`` dt, the decay, the recurrence and the D skip,
+    ``mamba.gate_norm`` the gated RMSNorm, ``mamba.out`` the
+    out-projection."""
     if (spread(x) and not cfg.use_kernels
             and zero_gather_pays(x, p["w_in"])):
         return _mamba2_sharded(cfg, p, x)
     cd = dt(cfg.compute_dtype)
     s = cfg.ssm
     d_inner, n_heads, _ = _dims(cfg)
-    h = x.to(cd) @ p["w_in"].to(cd)
-    h = shard_act(h, "batch", None, "model")
-    z, xi, bi, ci, dt_raw = _split_in(cfg, h)
-    conv_in = torch.cat([xi, bi, ci], dim=-1)
-    conv_out, _ = _causal_conv(conv_in, p["conv"].to(cd))
-    xi, bi, ci = torch.split(conv_out, [d_inner, s.state_dim, s.state_dim], dim=-1)
+    groups, eps = _groups(cfg), norm_eps(cfg)
+    with span("mamba.in"):
+        h = x.to(cd) @ p["w_in"].to(cd)
+        h = shard_act(h, "batch", None, "model")
+        z, xbc, dt_raw = _split_in(cfg, h)
+    with span("mamba.conv"):
+        xi, bi, ci, _ = _conv(cfg, p, xbc, groups, cd)
 
-    dt_v = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    a = -torch.exp(p["A_log"].float()) * dt_v            # [B,S,H] log decay
-    xh = xi.reshape(*xi.shape[:-1], n_heads, s.head_dim)
-    x_dt = xh.float() * dt_v[..., None]
+    with span("mamba.ssd"):
+        dt_v = F.softplus(dt_raw.float() + p["dt_bias"].float())
+        a = -torch.exp(p["A_log"].float()) * dt_v            # [B,S,H] log decay
+        xh = xi.reshape(*xi.shape[:-1], n_heads, s.head_dim)
+        x_dt = xh.float() * dt_v[..., None]
 
-    if cfg.use_kernels:
-        from repro_torch.kernels import ops  # deferred: kernels are optional
+        if cfg.use_kernels:
+            from repro_torch.kernels import ops  # deferred: kernels are optional
 
-        y = ops.ssd(x_dt, a, bi.float(), ci.float(), chunk=s.chunk)
-    else:
-        state0 = torch.zeros((x.shape[0], n_heads, s.head_dim, s.state_dim),
-                             device=x.device)
-        y, _ = on_local_shards(   # independent per (batch row, head)
-            lambda *args: ssd_chunked(*args, s.chunk), x_dt, (0, 2),
-            [(x_dt, (0, None, 2, None)), (a, (0, None, 2)),
-             (bi, (0, None, None)), (ci, (0, None, None)),
-             (state0, (0, 2, None, None))],
-            [(0, None, 2, None), (0, 2, None, None)])
-    y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(*x.shape[:-1], d_inner).to(cd)
-    y = _rms(y * F.silu(z), p["norm_scale"])
-    out = y.to(cd) @ p["w_out"].to(cd)
-    return shard_act(out, "batch", None, "model", kind="resid")
+            y = ops.ssd(x_dt, a, bi.float(), ci.float(), chunk=s.chunk)
+        else:
+            state0 = torch.zeros((x.shape[0], n_heads, s.head_dim, s.state_dim),
+                                 device=x.device)
+            bc_dims = (0, None) + (None,) * (bi.dim() - 2)
+            y, _ = on_local_shards(   # independent per (batch row, head)
+                lambda *args: ssd_chunked(*args, s.chunk), x_dt, (0, 2),
+                [(x_dt, (0, None, 2, None)), (a, (0, None, 2)),
+                 (bi, bc_dims), (ci, bc_dims),
+                 (state0, (0, 2, None, None))],
+                [(0, None, 2, None), (0, 2, None, None)])
+        y = y + p["D"].float()[None, None, :, None] * xh.float()
+        y = y.reshape(*x.shape[:-1], d_inner).to(cd)
+    with span("mamba.gate_norm"):
+        y = _rms(y * F.silu(z), p["norm_scale"], groups, eps)
+    with span("mamba.out"):
+        out = y.to(cd) @ p["w_out"].to(cd)
+        return shard_act(out, "batch", None, "model", kind="resid")
 
 
 def _mamba2_sharded(cfg: ModelConfig, p, x: DTensor) -> DTensor:
@@ -204,7 +273,9 @@ def _mamba2_sharded(cfg: ModelConfig, p, x: DTensor) -> DTensor:
     RMSNorm's [rows, 1] f32 sum of squares is all-reduced over the heads'
     mesh dims (its gradient too), and w_out is row-parallel: its rows of the
     rank's heads, the output a partial sum reduce-scattered into the
-    residual layout."""
+    residual layout. The published Zamba2's options have no such plan."""
+    if (_groups(cfg), "conv_bias" in p, norm_eps(cfg)) != (1, False, 1e-6):
+        raise NotImplementedError("groups, a conv bias or another eps on a mesh")
     cd = dt(cfg.compute_dtype)
     s = cfg.ssm
     d_inner, n_heads, _ = _dims(cfg)
@@ -261,12 +332,10 @@ def mamba2_block_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: dict):
     cd = dt(cfg.compute_dtype)
     s = cfg.ssm
     d_inner, n_heads, _ = _dims(cfg)
+    groups, eps = _groups(cfg), norm_eps(cfg)
     h = x.to(cd) @ p["w_in"].to(cd)
-    z, xi, bi, ci, dt_raw = _split_in(cfg, h)
-    conv_in = torch.cat([xi, bi, ci], dim=-1)   # [B,1,C]
-    conv_out, new_conv = _causal_conv(conv_in, p["conv"].to(cd),
-                                      conv_state=cache["conv_state"])
-    xi, bi, ci = torch.split(conv_out, [d_inner, s.state_dim, s.state_dim], dim=-1)
+    z, xbc, dt_raw = _split_in(cfg, h)   # xbc [B,1,C]
+    xi, bi, ci, new_conv = _conv(cfg, p, xbc, groups, cd, cache["conv_state"])
 
     dt_v = F.softplus(dt_raw.float() + p["dt_bias"].float())
     a = (-torch.exp(p["A_log"].float()) * dt_v)[:, 0]    # [B,H]
@@ -277,6 +346,6 @@ def mamba2_block_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: dict):
                         cache["ssm_state"].float())
     y = y + p["D"].float()[None, :, None] * xh.float()
     y = y.reshape(x.shape[0], 1, d_inner).to(cd)
-    y = _rms(y * F.silu(z), p["norm_scale"])
+    y = _rms(y * F.silu(z), p["norm_scale"], groups, eps)
     out = y.to(cd) @ p["w_out"].to(cd)
     return out, {"conv_state": new_conv, "ssm_state": state}

@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm
+from repro_torch.models import zamba2 as z2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +101,18 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
                 cfg, p, c, t, pos),
             forward=lambda p, t, frames: ed.encdec_forward(cfg, p, t, frames),
             input_specs=lambda shape: _encdec_input_specs(cfg, shape),
+        )
+    if cfg.family == "zamba2":   # the published Zamba2 (z2.Zamba2Config)
+        return Model(
+            cfg=cfg,
+            init=lambda gen: z2.init_zamba2(cfg, gen, device),
+            loss=lambda p, b: z2.zamba2_loss(cfg, p, b),
+            init_cache=lambda batch, cache_len: z2.init_zamba2_cache(
+                cfg, batch, cache_len, device),
+            decode_step=lambda p, c, t, pos: z2.zamba2_decode_step(
+                cfg, p, c, t, pos),
+            forward=lambda p, t: z2.zamba2_forward(cfg, p, t),
+            input_specs=lambda shape: _lm_input_specs(cfg, shape),
         )
     return Model(
         cfg=cfg,

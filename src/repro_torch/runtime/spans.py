@@ -29,6 +29,15 @@ patches); ``lm.block`` each block (its own time: the residual adds);
 ``attn.rope`` q's and k's RoPE; ``attn.core`` ``attention_core``;
 ``attn.out`` ``_output``; ``mlp`` ``layers.mlp``; ``lm.head`` the final
 norm and the unembedding; ``lm.log_likelihood`` ``layers.log_likelihood``.
+In ``models/mamba2.py::mamba2_block``: ``mamba.in`` the in-projection,
+``mamba.conv`` the conv, its bias and SiLU, ``mamba.ssd`` dt, the decay,
+the recurrence and the D skip, ``mamba.gate_norm`` the gated RMSNorm,
+``mamba.out`` the out-projection. In the published Zamba2's shared blocks
+(``models/zamba2.py``), beside ``norm``, ``attn.*`` and ``mlp``:
+``shared.concat`` the block's input ``concat(h, embedding)``,
+``shared.adapter`` the use's low-rank adapter on the gate and up
+products, ``shared.link`` the use's link projection and its add into the
+Mamba layer's input.
 """
 
 from __future__ import annotations
@@ -43,7 +52,9 @@ import torch
 
 NAMES = ("lm.forward", "lm.embed", "lm.block", "norm", "attn.qkv",
          "attn.rope", "attn.core", "attn.out", "mlp", "lm.head",
-         "lm.log_likelihood")
+         "lm.log_likelihood", "mamba.in", "mamba.conv", "mamba.ssd",
+         "mamba.gate_norm", "mamba.out", "shared.concat", "shared.adapter",
+         "shared.link")
 NO_SPAN = "(no span)"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")

@@ -55,7 +55,7 @@ def test_predicate_takes_bf16_head_dims_64_and_128_in_both_layouts(layout, h, kv
 
 
 def test_wgmma_head_dims_are_the_kernels_instances():
-    assert fa.WGMMA_HEAD_DIMS == (64, 96, 128, 256)
+    assert fa.WGMMA_HEAD_DIMS == (64, 96, 128, 224, 256)
 
 
 def _strided_last_dim():
@@ -187,11 +187,15 @@ def test_wgmma_source_uses_tma_ring_and_wgmma_for_both_products():
     for d in fa.WGMMA_HEAD_DIMS:
         assert f"launch<{d}>(" in src, d
     # The tiles: ceil(D / 64) atoms (D = 96: two, the second half filled
-    # and zeroed by TMA); 64-row kv tiles at D = 256, whose O goes out
-    # through the q tile.
+    # and zeroed by TMA; D = 224: four, the fourth half filled); 64-row kv
+    # tiles at four atoms (D = 224 and 256), whose O goes out through the q
+    # tile.
     assert "static constexpr int ATOMS = (D + ATOM - 1) / ATOM;" in src
-    assert "static constexpr int BK = D == 256 ? 64 : 128;" in src
-    assert "static constexpr bool O_IN_Q = D == 256;" in src
+    assert "static constexpr int BK = ATOMS == 4 ? 64 : 128;" in src
+    assert "static constexpr bool O_IN_Q = ATOMS == 4;" in src
+    rs224 = hdr.split("void wgmma_m64n224k16_rs_tb(")[1].split("\n}\n")[0]
+    assert "m64n224k16.f32.bf16.bf16" in rs224
+    assert "{%112, %113, %114, %115}, %116, p, 1, 1, 1;" in rs224
     assert "SMEM_BYTES <= 232448" in src
     # At D = 128 P goes into P V as two bf16 terms (hi and the rest).
     assert "static constexpr bool P_HI_LO = D == 128;" in src

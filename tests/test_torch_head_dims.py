@@ -112,9 +112,10 @@ def test_kernel_forward_hands_every_layer_to_the_wgmma_design(
     calls = []
     bhsd = ops.flash_attention_bhsd
 
-    def record(q, k, v, *, causal=True):
+    def record(q, k, v, *, causal=True, scale=None):
         calls.append((q.shape, k.shape, causal, fa.wgmma_eligible(q, k, v)))
-        return bhsd(q, k, v, causal=causal)
+        assert scale is None   # these models keep the default D ** -0.5
+        return bhsd(q, k, v, causal=causal, scale=scale)
 
     monkeypatch.setattr(ops, "flash_attention_bhsd", record)
     with torch.no_grad():

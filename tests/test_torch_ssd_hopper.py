@@ -35,6 +35,10 @@ def _bc(n=64, b=2, t=40):
     ("P = 32", _x(p=32), _bc(), False),
     ("N = 16", _x(), _bc(n=16), False),
     ("P = 16, N = 8", _x(p=16), _bc(n=8), False),
+    # B and C in groups: each head pair inside one group
+    ("2 groups of 56 heads", _x(h=112), torch.zeros((2, 40, 2, 64)), True),
+    ("3 groups of 2 heads", _x(h=6), torch.zeros((2, 40, 3, 64)), True),
+    ("2 groups of 3 heads", _x(h=6), torch.zeros((2, 40, 2, 64)), False),
 ])
 def test_predicate_takes_f32_with_p_and_n_64(case, x, bmat, want):
     assert ssd_mod.tc_eligible(x, bmat) is want
