@@ -217,6 +217,7 @@ from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.devices import synchronize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import conv as conv_k  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import relic_matmul as rm  # noqa: E402
 from repro_torch.kernels import rope as rope_k  # noqa: E402
@@ -295,7 +296,7 @@ ZAMBA_ATTN_SHAPE = (SERVE_BATCH, PROMPT_LEN + 128, 32, 32, 64)
 COUNTERS = {"flash_attention": (fa, "launches"), "wkv6": (wkv6_k, "launches"),
             "ssd": (ssd_k, "launches"), "relic_matmul": (rm, "launches"),
             "relic_matmul_gated": (rm, "gated_launches"),
-            "rope": (rope_k, "launches")}
+            "rope": (rope_k, "launches"), "conv": (conv_k, "launches")}
 # The redesigned designs' counters: name -> (module, attribute), beside the
 # kernel's own count in COUNTERS.
 REDESIGNS = {"flash_attention": (fa, "wgmma_launches"),
@@ -312,7 +313,7 @@ FMA_HEAD_DIMS = (48, 96, 256, 320, 512)
 FMA_HEAD_SHAPE = (2, 200, 8, 2)
 FMA_HEAD_TIMED = (2, 1024, 8, 2)
 SOURCES = ["flash_attention", "flash_attention_wgmma", "relic_matmul",
-           "relic_matmul_wgmma", "ssd", "wkv6", "rope"]   # csrc/<name>.cu
+           "relic_matmul_wgmma", "ssd", "wkv6", "rope", "conv"]   # csrc/<name>.cu
 # The recurrent kernels: f32 1e-3, bf16 rtol 2e-2 / atol 2e-1
 # (tests/test_kernels.py:88-93,108-111).
 REC_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}
@@ -349,8 +350,8 @@ SSD_LONG = (4, 64, 2048, 64, 64, 128)
 # model's plain chunked form on the same inputs (check_layers).
 MAIN_PATHS = [(ARCH, GEN, {"flash_attention": 12, "rope": 12}, True),
               ("rwkv6_1p6b", 64, {"wkv6": 24}, False),
-              ("zamba2_1p2b", 128, {"ssd": 38, "flash_attention": 6, "rope": 6},
-               False)]
+              ("zamba2_1p2b", 128, {"ssd": 38, "conv": 38, "flash_attention": 6,
+                                    "rope": 6}, False)]
 QUICKSTART_LAUNCHES = {"relic_matmul": 1}   # its ops.matmul (quickstart.py)
 # The other families at full width, served and forwarded as the paths above
 # (batch 8, prompt 128, 64 tokens; the teacher-forced forwards over 192
@@ -376,12 +377,13 @@ PALIGEMMA_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 8, 1, 256)  # MQA at head_dim 256
 # cell's [4, 4096] (32 heads of 224, the wgmma design's fifth instance) at
 # its softmax scale (224 / 2) ** -0.5; its Mamba layers' grouped ssd there
 # (b, h, t, p, n, groups, chunk); one forward's launches (81 Mamba layers, 13
-# uses of the shared blocks, each with RoPE) over [2, 1024] tokens.
+# uses of the shared blocks, each with RoPE; a conv launch a Mamba layer)
+# over [2, 1024] tokens.
 ZAMBA2_7B = "zamba2_7b"
 ZAMBA2_7B_ATTN_SHAPE = (4, 4096, 32, 32, 224)
 ZAMBA2_7B_SCALE = 112 ** -0.5
 SSD_GROUPED = (4, 112, 4096, 64, 64, 2, 256)
-ZAMBA2_7B_LAUNCHES = {"ssd": 81, "flash_attention": 13, "rope": 13}
+ZAMBA2_7B_LAUNCHES = {"ssd": 81, "conv": 81, "flash_attention": 13, "rope": 13}
 ZAMBA2_7B_TOKENS = (2, 1024)
 # The other head_dim-128 configs' attention at the same [8, 192]: held and
 # timed in the kernel phase; their families are on no path of this script.
@@ -412,6 +414,13 @@ ROPE_SHAPES = [(PHI3, (4, 2048, 32, 32, 96, None)),
                (PHI3, (SERVE_BATCH, TEXT_LEN, 32, 32, 96, None)),
                (PALIGEMMA, (SERVE_BATCH, TEXT_LEN, 8, 1, 256, None)),
                (f"{PHI3} decode", (SERVE_BATCH, 1, 32, 32, 96, 8191))]
+# The conv kernel's shapes, (label, (b, s, C, in-projection width, xBC's
+# first column, taps, bias)): zamba2_7b's scoring cell [4, 4096] (the
+# benchmark's) and zamba2_1p2b's teacher-forced forward [8, 256], each x the
+# strided view of xBC in the in-projection's output, as the model reads it.
+CONV_SHAPES = [(ZAMBA2_7B, (4, 4096, 7424, 14704, 7168, 4, True)),
+               ("zamba2_1p2b", (SERVE_BATCH, PROMPT_LEN + 128, 4224, 8384, 4096,
+                                4, False))]
 OPTIM_STEPS = 5      # train steps of relic_tiny with gradient compression
 # Rematerialisation (``cfg.remat``): whisper_large_v3 trained at full width
 # and depth on 1500 frames beside 448 decoder tokens (Whisper's text
@@ -1104,6 +1113,82 @@ def phase_rope(device):
                        "of q and k with 16-byte loads and stores, f32 in "
                        "registers, each product and sum rounded on its own "
                        "(apply_rope's bits)"),
+            "launches": None, "max_ulps": 0, **timed[0],
+            "other_shapes": timed[1:], "library_ms": None}
+
+
+def phase_conv(device):
+    """The conv kernel against _causal_conv, its plain version, at each of
+    CONV_SHAPES in f32 and bf16, x read from the strided view: one launch a
+    call and the same bits (the largest gap in units in the last place
+    printed; it must be 0). In bf16 its device time beside the eager
+    chain's and the bound: x read once and the output written once, the
+    taps and the bias once. Returns the kernel's entry of the numbers line
+    (its numbers at zamba2_7b's cell shape first)."""
+    gen = torch.Generator(device=device).manual_seed(6)
+
+    def rnd(*shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=device)).to(dtype)
+
+    timed = []
+    for label, (b, s, c, width, col, k, has_bias) in CONV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rnd(b, s, width, dtype=dtype)[:, :, col:col + c]
+            w = rnd(k, c, dtype=dtype, scale=0.5)
+            bias = rnd(c, dtype=dtype, scale=0.1) if has_bias else None
+            before = conv_k.launches
+            got = conv_k.causal_conv_silu_cuda(x, w, bias)
+            want = conv_k.causal_conv_silu_plain(x, w, bias)
+            torch.cuda.synchronize()
+            gap = _ulps(got, want)
+            shape = (f"x{list(x.shape)} of [{b}, {s}, {width}] at column {col}, "
+                     f"{k} taps{', bias' if has_bias else ''}")
+            print(f"[kernel] conv {label} {shape} {str(dtype)[6:]}: "
+                  f"{conv_k.launches - before} launch, largest gap from "
+                  f"_causal_conv {gap} ulps")
+            if conv_k.launches - before != 1 or gap:
+                raise AssertionError(f"conv {label} {dtype}: "
+                                     f"{conv_k.launches - before} launches, "
+                                     f"{gap} ulps from _causal_conv")
+            del got, want
+
+        def call():
+            return conv_k.causal_conv_silu_cuda(x, w, bias)
+
+        def plain():
+            return conv_k.causal_conv_silu_plain(x, w, bias)
+        ms = time_ms(call, 20)
+        device_ms = kernel_ms(call)
+        plain_ms = time_ms(plain, 5)
+        plain_device_ms = kernel_ms(plain, 5)
+        nbytes = (2 * x.numel() + w.numel() + c * has_bias) * x.element_size()
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+
+        def fmt(v):
+            return "not measured" if v is None else f"{v:.4f} ms"
+        rate = "" if device_ms is None else \
+            f", {nbytes / device_ms / 1e6:.0f} GB/s"
+        print(f"[kernel] conv {label} {shape} bf16: kernel {ms:.4f} ms (device "
+              f"{fmt(device_ms)}{rate}), eager chain {plain_ms:.4f} ms (device "
+              f"{fmt(plain_device_ms)}); bound {bound_ms:.4f} ms by bytes "
+              f"({nbytes / 1e6:.2f} MB)")
+        timed.append(dict(shape=f"{shape} bf16", path=label, ms=ms,
+                          device_ms=device_ms, plain_ms=plain_ms,
+                          plain_device_ms=plain_device_ms, bound_ms=bound_ms,
+                          bound_by="bytes"))
+        del x, w, bias
+    return {"name": "conv", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/conv.cu",
+            "replaces": None,
+            "design": ("the Mamba-2 layers' depthwise causal conv, its bias and "
+                       "SiLU in one launch, x read where it lies in the "
+                       "in-projection's output; a thread owns 8 bytes of "
+                       "channels over a run of 16 tokens, the last K - 1 "
+                       "inputs, the taps and the bias in registers, the next "
+                       "4 tokens' loads issued before these 4 compute; each "
+                       "product and sum rounded on its own (bf16x2 "
+                       "instructions in bf16), SiLU in f32 (_causal_conv's "
+                       "bits)"),
             "launches": None, "max_ulps": 0, **timed[0],
             "other_shapes": timed[1:], "library_ms": None}
 
@@ -2863,8 +2948,9 @@ def phase_zamba2_7b(device, entries):
     the benchmark draws them, ``portbench/configs/zamba2_7b.json``, served
     in bf16 with the kernels): one forward over ``ZAMBA2_7B_TOKENS`` from
     launch counts of 0, exactly 81 ssd launches through the tensor-core
-    design, 13 flash launches through the wgmma design (head_dim 224) and
-    13 RoPE launches, with finite logits; then the forward timed."""
+    design, 81 conv launches, 13 flash launches through the wgmma design
+    (head_dim 224) and 13 RoPE launches, with finite logits; then the
+    forward timed."""
     from portbench.harness import program
     from portbench.reference import zamba2 as z2_ref
 
@@ -3489,6 +3575,7 @@ def main() -> int:
     entries["ssd"]["grouped"] = phase_ssd_grouped(device)
     phase_wkv6_layout(device)
     entries["rope"] = phase_rope(device)
+    entries["conv"] = phase_conv(device)
     print(f"[main] build and kernel phases {time.perf_counter() - t_start:.1f} s")
     entries["wkv6"]["design"] = (
         "K = 64 (every rwkv6 call): tensor cores, 3xTF32 mma.sync; decays "

@@ -14,6 +14,10 @@ a plain-torch version beside it and an independent oracle in ``ref``:
   rope               — RoPE of q and k in one pass (CUDA C++, sm_90a; no
                        Pallas counterpart, XLA fuses the reference's; its
                        plain version is models/layers.py::apply_rope)
+  conv               — the Mamba-2 layers' causal conv, bias and SiLU in one
+                       pass (CUDA C++, sm_90a; no Pallas counterpart, XLA
+                       fuses the reference's; its plain version is
+                       models/mamba2.py::_causal_conv)
 
 Every Pallas kernel of the JAX package has its counterpart here.
 """

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels.conv import causal_conv_silu as _causal_conv_silu
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.relic_matmul import relic_matmul, relic_matmul_gated
 from repro_torch.kernels.rope import rope as _rope
@@ -55,6 +56,14 @@ def rope(q, k, positions, theta):
     ``positions`` [1,S] or [B,S], one launch for both: (q_rot, k_rot)."""
     _refuse_dtensor("rope", q, k, positions)
     return _rope(q, k, positions, theta)
+
+
+def causal_conv_silu(x, w, bias=None):
+    """SiLU of the depthwise causal conv (and its bias) of x [B,S,C] with w
+    [K,C], one launch: a contiguous [B,S,C] in x's dtype. x may be a view
+    whose rows are strided, as the in-projection's xBC columns are."""
+    _refuse_dtensor("causal_conv_silu", x, w, bias)
+    return _causal_conv_silu(x, w, bias)
 
 
 def wkv6(r, k, v, logw, u, *, chunk=64):

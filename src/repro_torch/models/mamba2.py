@@ -91,10 +91,18 @@ def _conv(cfg: ModelConfig, p, xbc: torch.Tensor, groups: int, cd,
           conv_state=None):
     """The conv (its bias where the block has one) and SiLU over xBC, split
     into x, B and C: B and C [..., G, N] in ``groups`` groups, [..., N] in
-    one. Returns (x, B, C, the conv's new state)."""
+    one. Returns (x, B, C, the conv's new state). Under ``use_kernels`` a
+    call without a state goes to ``ops.causal_conv_silu``, bit for bit
+    ``_causal_conv``, and returns no state."""
+    from repro_torch.kernels import ops  # deferred: kernels are optional
+
     d_inner, n = _dims(cfg)[0], cfg.ssm.state_dim
+    w = p["conv"].to(cd)
     bias = p["conv_bias"].to(cd) if "conv_bias" in p else None
-    out, new_state = _causal_conv(xbc, p["conv"].to(cd), conv_state, bias)
+    if cfg.use_kernels and conv_state is None:
+        out, new_state = ops.causal_conv_silu(xbc, w, bias), None
+    else:
+        out, new_state = _causal_conv(xbc, w, conv_state, bias)
     xi, bi, ci = torch.split(out, [d_inner, groups * n, groups * n], dim=-1)
     if groups > 1:
         bi, ci = bi.unflatten(-1, (groups, n)), ci.unflatten(-1, (groups, n))
