@@ -8,52 +8,13 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
      one compiler per source, all started together;
-  2. hold each kernel against its plain-torch version on the card (test
-     shapes, a ragged length, the main paths' shapes and a long one) and
-     time the kernel, the plain version and, where one exists, one PyTorch
-     library call; check that ``ops.flash_attention`` and ``ops.matmul``
-     launch their kernels at shapes no multiple of the TPU tiles. Flash
-     attention has two designs, chosen by ``fa.wgmma_eligible``: the wgmma
-     one (bf16, head_dim 64, 96, 128 or 256, TMA-describable layouts) is
-     held on MHA, GQA and MQA at ragged lengths, Sq != Sk and the model
-     layout at every head size, and one ``ops.flash_attention`` call at
-     [4, 2048] must run exactly one device kernel and no copy; the
-     CUDA-core kernel is held on f32 and every head size it takes. relic_matmul has three designs (``rm.wgmma_eligible``,
-     ``rm.f32_tile``): the wgmma one (bf16 that TMA can describe) is held
-     on the test shapes and ragged ones, and one call at 4096^3 must run
-     one device kernel; ragged K goes to the mma.sync kernel; f32 to the
-     FMA kernel with a tile by shape. The gated form takes the same
-     predicate: bf16 on the wgmma ring with two accumulators (silu, gelu
-     and an unknown name at relic_tiny's MLP shape, one device kernel a
-     call), the rest on relic_matmul.cu's kernels. ssd has two
-     (``ssd_k.tc_eligible``): the tensor-core one (f32, P = N = 64) at
-     ragged T and odd H, the first one at the small test shapes, in bf16
-     and at P = N = 6 (padded to 8). wkv6 has two (``wkv6_k.tc_eligible``):
-     the tensor-core one (K = 64) at ragged T, in the model's layout (one
-     device kernel, no copy), and the first one at K = 16, 32 and 6. The
-     CUDA-core flash kernel is held at head_dim 48, 96, 256, 320 and 512
-     (GQA, f32 and bf16; above 256 in slabs of 128 columns; called
-     directly, as bf16 at 96 and 256 goes to the wgmma design) and timed
-     there; the wgmma design at head_dim 96 and 256 at phi3_mini_3p8b's
-     ([8, 32, 192, 96], 32 kv heads) and paligemma_3b's ([8, 8, 192, 256],
-     one kv head) attention and at [2, 8, 1024, 96 | 256] (2 kv heads),
-     at head_dim 128 at granite_8b's, arctic_480b's,
-     qwen3_14b's and llama3_405b's attention (q [8, 32 | 56 | 40 | 128,
-     192, 128], 8 kv heads) and at q [4, 32, 2048, 128], each timed beside
-     the CUDA-core kernel, and at whisper_large_v3's three (the encoder's
-     [8, 20, 1500, 64] and the cross-attention's Sq 192 against Sk 1500,
-     non-causal; the decoder's causal [8, 20, 192, 64]), and at head_dim
-     224 at zamba2_7b's scoring shape (q [4, 32, 4096, 224], MHA) at its
-     softmax scale 112 ** -0.5 (the plain version and SDPA at the same
-     scale). The grouped ssd at zamba2_7b's Mamba layer (x [4, 112, 4096,
-     64], B and C in 2 groups, f32) through the tensor-core design, held
-     against ``ssd_ref`` and bit for bit against a call per group, timed
-     beside its bounds (``phase_ssd_grouped``). The RoPE kernel
-     (``kernels/rope.py``) bit for bit against ``apply_rope`` in f32 and
-     bf16 at phi3_mini_3p8b's [4, 2048] and [8, 192], paligemma_3b's
-     [8, 192] and a phi3 decode step at position 8191, timed beside the
-     plain chain. Device times come from the profiler beside the
-     CUDA-event times;
+  2. time each kernel at the shapes of ``PERF.md``'s kernel table: device
+     and CUDA-event ms beside its plain version, a PyTorch library call
+     where one exists and its bound (``portbench/work``'s counts where it
+     has them), each shape held first against the plain version (the
+     kernel's test tolerance; RoPE and conv bit for bit). ``JAX_PLATFORMS=cpu
+     PYTHONPATH=src python -m pytest -m card tests portbench`` holds the
+     kernels at many more shapes and checks which design runs;
   3. serve relic_tiny at full width (12 layers, d_model 768) through
      ``repro_torch.launch.serve`` (``load_model`` then ``run``, the two
      parts of its ``main``) plus three more requests through one
@@ -75,18 +36,18 @@ Phases (any failure exits non-zero):
      96); whisper_large_v3 (32 + 32 layers)
      served (frames -> encode -> cross K/V -> prefill -> decode), its
      forward over the served frames through 96 wgmma launches (encoder,
-     decoder and cross-attention; held first at its own shapes in phase
-     2), then its loss forward; arctic_480b at full width with its depth cut
-     to one layer (the init's shapes and scales, the forward through one
-     launch with its routing tables checked, decode against teacher
+     decoder and cross-attention), then its loss forward; arctic_480b at
+     full width with its depth cut to one layer (the init's shapes and
+     scales, the forward through one launch with its routing tables
+     checked, decode against teacher
      forcing drop-free); paligemma_3b served (text), its loss forward
      over 256 patches and 192 tokens with no launch (the prefix path),
      then its text forward over the 192 tokens through 18 wgmma launches
      (head_dim 256) at the dense bf16 bars; zamba2_7b (Zamba2-7B-Instruct
      at full width and depth, 7.357 B parameters drawn as the benchmark
      draws them) one forward over [2, 1024] tokens through exactly 81 ssd
-     (tensor-core design), 13 flash (wgmma, head_dim 224) and 13 RoPE
-     launches, finite, then timed;
+     (tensor-core design), 81 conv, 13 flash (wgmma, head_dim 224) and 13
+     RoPE launches, finite;
   8. the quickstart path, ``repro_torch.quickstart.main`` at full width: the
      tasking façade, one train step, eight decode steps and one
      ``ops.matmul`` through the relic_matmul kernel;
@@ -252,6 +213,9 @@ from repro_torch.tasks.strategies import (STRATEGIES, bench_strategies,  # noqa:
 from repro_torch.tasks.streams import lane_stream  # noqa: E402
 from repro_torch.workloads import (PAPER_WORKLOADS, available_workloads,  # noqa: E402
                                    make_workload, split_instances)
+from portbench.work.conv import conv_work  # noqa: E402
+from portbench.work.flash import attention_work  # noqa: E402
+from portbench.work.ssd import chunks, ssd_work  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores and
 # HBM3 rate.
@@ -263,35 +227,7 @@ REL_TOL = 1e-2   # ||kernel - plain|| / ||plain||: a dropped kv tile fails it
 MODEL_TOL = 0.15                                     # tests/test_models.py:117-119
 ARCH = "relic_tiny"
 SERVE_BATCH, PROMPT_LEN, GEN = 8, 128, 64
-KERNEL_SHAPES = [  # (b, s, h, kv, d): tests/test_kernels.py:55-60
-    (2, 128, 4, 4, 32),     # MHA
-    (1, 256, 8, 2, 64),     # GQA 4:1
-    (2, 128, 8, 1, 32),     # MQA
-    (1, 96, 4, 2, 16),      # ragged S
-]
-# The wgmma design (bf16, D=64): (h, kv) for MHA, GQA 3:1, GQA 4:1 and MQA,
-# at lengths that are no multiple of its 128-row tiles, batch 2.
-WGMMA_HEADS = [(4, 4), (12, 4), (8, 2), (8, 1)]
-WGMMA_LENGTHS = (96, 300, 1000)
-WGMMA_CROSS = (2, 128, 12, 4, 64, 320)   # (b, sq, h, kv, d, sk), non-causal
-# Its head_dim-128 instance: (b, s, h, kv) at MHA, GQA 4:1 and 7:1 (the
-# dense configs' and arctic's ratios) at ragged S, causal and not, and
-# Sq 128 against Sk 320.
-WGMMA_128_SHAPES = [(2, 200, 4, 4), (2, 200, 8, 2), (2, 200, 7, 1),
-                    (1, 1000, 8, 2)]
-WGMMA_128_CROSS = (2, 128, 8, 2, 128, 320)
-# Its head_dim-96 and -256 instances: (b, s, h, kv) at MHA (phi3_mini's
-# ratio), GQA 4:1 and MQA (paligemma's) at ragged S, causal and not, and
-# Sq 128 against Sk 320 (b, sq, h, kv, sk).
-WGMMA_WIDE_SHAPES = {96: [(2, 200, 4, 4), (2, 200, 8, 2), (1, 1000, 8, 2)],
-                     256: [(2, 200, 8, 1), (2, 200, 8, 2), (1, 1000, 8, 1)]}
-WGMMA_WIDE_CROSS = (2, 128, 8, 2, 320)
 MAIN_SHAPE = (4, 2048, 12, 4, 64)  # relic_tiny's attention in the long forward
-LONG_128_SHAPE = (4, 2048, 32, 8, 128)   # granite's heads at [4, 2048]: D=128 bound by operations
-# relic_tiny's attention in the teacher-forced forward of the counted main path
-TEACHER_SHAPE = (SERVE_BATCH, PROMPT_LEN + GEN, 12, 4, 64)
-# zamba2_1p2b's shared attention in its teacher-forced forward (no GQA)
-ZAMBA_ATTN_SHAPE = (SERVE_BATCH, PROMPT_LEN + 128, 32, 32, 64)
 # Each kernel's launch counter: name -> (module, attribute).
 COUNTERS = {"flash_attention": (fa, "launches"), "wkv6": (wkv6_k, "launches"),
             "ssd": (ssd_k, "launches"), "relic_matmul": (rm, "launches"),
@@ -307,37 +243,26 @@ REDESIGNS = {"flash_attention": (fa, "wgmma_launches"),
 # Head sizes the CUDA-core flash kernel takes beyond the models' 64: the
 # next instance up (48), instances of their own (96 and 256, which bf16
 # calls of the models take to the wgmma design) and the slabs of 128
-# columns above 256 (320, 512); (b, s, h, kv) GQA 4:1 at a ragged length,
-# and the timed shape (the wgmma design is timed there too at 96 and 256).
+# columns above 256 (320, 512), timed at (b, s, h, kv) GQA 4:1 (the wgmma
+# design is timed there too at 96 and 256).
 FMA_HEAD_DIMS = (48, 96, 256, 320, 512)
-FMA_HEAD_SHAPE = (2, 200, 8, 2)
 FMA_HEAD_TIMED = (2, 1024, 8, 2)
 SOURCES = ["flash_attention", "flash_attention_wgmma", "relic_matmul",
            "relic_matmul_wgmma", "ssd", "wkv6", "rope", "conv"]   # csrc/<name>.cu
 # The recurrent kernels: f32 1e-3, bf16 rtol 2e-2 / atol 2e-1
 # (tests/test_kernels.py:88-93,108-111).
 REC_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}
-# wkv6 shapes (b, h, t, k, chunk): tests/test_kernels.py:75-79, a ragged
-# length, the served rwkv6_1p6b forward [8, 192] and a long one.
-WKV6_TEST_SHAPES = [(2, 2, 64, 16, 16), (1, 4, 128, 32, 32), (2, 2, 96, 16, 32),
-                    (2, 4, 96, 64, 64),
-                    # K = 64 (the tensor-core design) at T no multiple of
-                    # its chunk of 32 or of a sub-chunk, and K = 6 (the
-                    # first design, padded to 8)
-                    (1, 3, 45, 64, 64), (2, 2, 300, 64, 64), (2, 3, 7, 64, 64),
-                    (1, 2, 37, 6, 16)]
-WKV6_LAYOUT = (2, 3, 70, 64)   # (b, h, t, k) in the model's layout
+# relic_matmul: f32 rtol 2e-4 / atol 1e-2 (tests/test_kernels.py:35-37); bf16
+# rtol 2e-2 / atol 2e-1, tighter than the tests' 2e-1 / 10. The gated form:
+# rtol 2e-2, atol 2e-2 in f32 and 2.0 in bf16 (tests/test_kernels.py:48-50).
+MM_TOL = {torch.float32: (2e-4, 1e-2), torch.bfloat16: (2e-2, 2e-1)}
+GATED_TOL = {torch.float32: (2e-2, 2e-2), torch.bfloat16: (2e-2, 2.0)}
+# wkv6 shapes (b, h, t, k, chunk): the served rwkv6_1p6b forward [8, 192]
+# and a long one.
 WKV6_SERVED = (SERVE_BATCH, 32, PROMPT_LEN + 64, 64, 64)
 WKV6_LONG = (4, 32, 2048, 64, 64)
-# ssd shapes (b, h, t, p, n, chunk): tests/test_kernels.py:97-100, a ragged
-# length, the served zamba2_1p2b forward [8, 256] and a long one.
-SSD_TEST_SHAPES = [(2, 2, 64, 16, 8, 16), (1, 4, 128, 32, 16, 32),
-                   (2, 4, 200, 64, 64, 128),
-                   # P = N = 64 (the tensor-core design) with H no multiple
-                   # of its head group of 2 and T no multiple of a chunk
-                   (1, 3, 45, 64, 64, 32), (2, 5, 77, 64, 64, 128),
-                   # P = N = 6: the first design on copies padded to 8
-                   (1, 2, 45, 6, 6, 32)]
+# ssd shapes (b, h, t, p, n, chunk): the served zamba2_1p2b forward [8,
+# 256] and a long one.
 SSD_SERVED = (SERVE_BATCH, 64, PROMPT_LEN + 128, 64, 64, 128)
 SSD_LONG = (4, 64, 2048, 64, 64, 128)
 # The main paths: (arch, generated tokens, kernel launches of the path,
@@ -368,34 +293,39 @@ GRANITE, WHISPER, ARCTIC, PALIGEMMA = ("granite_8b", "whisper_large_v3",
 PHI3 = "phi3_mini_3p8b"   # full width and depth: 32 layers, 32 heads of 96
 ARCTIC_LAYERS = 1
 TEXT_LEN = PROMPT_LEN + GEN
-GRANITE_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 8, 128)   # (b, s, h, kv, d)
-ARCTIC_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 56, 8, 128)    # GQA 7:1
-PHI3_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 32, 32, 96)      # MHA at head_dim 96
-PALIGEMMA_ATTN_SHAPE = (SERVE_BATCH, TEXT_LEN, 8, 1, 256)  # MQA at head_dim 256
-# Zamba2-7B-Instruct (portbench/configs/zamba2_7b.json) at its published
-# width and depth: its shared blocks' attention at the zamba2_7b.score_4k
-# cell's [4, 4096] (32 heads of 224, the wgmma design's fifth instance) at
-# its softmax scale (224 / 2) ** -0.5; its Mamba layers' grouped ssd there
-# (b, h, t, p, n, groups, chunk); one forward's launches (81 Mamba layers, 13
-# uses of the shared blocks, each with RoPE; a conv launch a Mamba layer)
-# over [2, 1024] tokens.
+# Zamba2-7B-Instruct (portbench/configs/zamba2_7b.json): its Mamba layers'
+# grouped ssd at the zamba2_7b.score_4k cell's [4, 4096] (b, h, t, p, n,
+# groups, chunk).
 ZAMBA2_7B = "zamba2_7b"
-ZAMBA2_7B_ATTN_SHAPE = (4, 4096, 32, 32, 224)
-ZAMBA2_7B_SCALE = 112 ** -0.5
 SSD_GROUPED = (4, 112, 4096, 64, 64, 2, 256)
+# One Zamba2-7B forward's launches over ZAMBA2_7B_TOKENS: 81 Mamba layers,
+# each with a conv; 13 uses of the shared blocks, each with RoPE.
 ZAMBA2_7B_LAUNCHES = {"ssd": 81, "conv": 81, "flash_attention": 13, "rope": 13}
 ZAMBA2_7B_TOKENS = (2, 1024)
-# The other head_dim-128 configs' attention at the same [8, 192]: held and
-# timed in the kernel phase; their families are on no path of this script.
-HEAD_DIM_128_SHAPES = [("qwen3_14b", (SERVE_BATCH, TEXT_LEN, 40, 8, 128)),
-                       ("llama3_405b", (SERVE_BATCH, TEXT_LEN, 128, 8, 128))]
-# whisper_large_v3's attentions: (label, (b, s, h, kv, d), causal, sk)
-WHISPER_ATTN = [("encoder self-attention", (SERVE_BATCH, 1500, 20, 20, 64),
-                 False, None),
-                ("decoder cross-attention", (SERVE_BATCH, TEXT_LEN, 20, 20, 64),
-                 False, 1500),
-                ("decoder self-attention", (SERVE_BATCH, TEXT_LEN, 20, 20, 64),
-                 True, None)]
+# Flash attention's wgmma design timed at each path's attention shape:
+# (label, (b, s, h, kv, d), causal, sk, softmax scale (None: D ** -0.5),
+# path, iterations); qwen3_14b and llama3_405b are on no path here, and
+# Zamba2-7B's is its zamba2_7b.score_4k cell's [4, 4096] at (224 / 2) **
+# -0.5. The last, relic_tiny's [4, 2048], gives the entry's own numbers.
+FLASH_TIMED = [
+    ("teacher-forced shape", (SERVE_BATCH, TEXT_LEN, 12, 4, 64), True, None,
+     None, None, 50),
+    ("zamba2 shared-attention shape", (SERVE_BATCH, PROMPT_LEN + 128, 32, 32, 64),
+     True, None, None, None, 50),
+    ("long head_dim-128 shape", (4, 2048, 32, 8, 128), True, None, None, None, 20),
+    *((f"{p} attention", (SERVE_BATCH, TEXT_LEN, h, kv, d), True, None, None,
+       p, 20) for p, h, kv, d in ((GRANITE, 32, 8, 128), (ARCTIC, 56, 8, 128),
+                                  ("qwen3_14b", 40, 8, 128),
+                                  ("llama3_405b", 128, 8, 128),
+                                  (PHI3, 32, 32, 96), (PALIGEMMA, 8, 1, 256))),
+    (f"{ZAMBA2_7B} attention", (4, 4096, 32, 32, 224), True, None, 112 ** -0.5,
+     ZAMBA2_7B, 20),
+    *((f"{WHISPER} {label}", (SERVE_BATCH, s, 20, 20, 64), causal, sk, None,
+       WHISPER, 20) for label, s, causal, sk in (
+           ("encoder self-attention", 1500, False, None),
+           ("decoder cross-attention", TEXT_LEN, False, 1500),
+           ("decoder self-attention", TEXT_LEN, True, None))),
+    ("main shape", MAIN_SHAPE, True, None, None, None, 20)]
 # Flash launches of each new path's counted forward: one a layer and
 # attention (whisper: 32 encoder, 32 decoder self, 32 cross; paligemma's
 # text forward, which has no image prefix), all through the wgmma design.
@@ -430,17 +360,6 @@ REMAT_POLICIES = ("none", "dots", "full")
 REMAT_TEXT = 448
 REMAT_BATCH, REMAT_STEPS = 8, 10
 REMAT_CMP_BATCH = 2
-# relic_matmul: f32 rtol 2e-4 / atol 1e-2 (tests/test_kernels.py:35-37); bf16
-# rtol 2e-2 / atol 2e-1, tighter than the tests' 2e-1 / 10. The gated form:
-# rtol 2e-2, atol 2e-2 in f32 and 2.0 in bf16 (tests/test_kernels.py:48-50).
-MM_TOL = {torch.float32: (2e-4, 1e-2), torch.bfloat16: (2e-2, 2e-1)}
-GATED_TOL = {torch.float32: (2e-2, 2e-2), torch.bfloat16: (2e-2, 2.0)}
-# (m, n, k) of x [m, k] @ w [k, n]: tests/test_kernels.py:24-29, the last ragged.
-MM_TEST_SHAPES = [(128, 128, 128), (256, 384, 512), (512, 256, 1024), (100, 60, 36)]
-# Ragged bf16 shapes the wgmma design takes (M, N or K no multiple of its
-# 128 x 128/256 x 64 tiles, K and N multiples of 8), and relic_tiny's down
-# product.
-MM_WGMMA_RAGGED = [(300, 264, 200), (2048, 768, 2048), (130, 136, 72)]
 # Timed: (label, m, n, k, dtype, iterations). The quickstart's product (its
 # main path, examples/quickstart.py:64-66), relic_tiny's MLP products at the
 # train phase's 2048 tokens, and a square one.
@@ -449,7 +368,6 @@ MM_TIMED = [("quickstart", 128, 128, 256, torch.float32, 50),
             ("relic_tiny mlp down", 2048, 768, 2048, torch.bfloat16, 50),
             ("square", 4096, 4096, 4096, torch.bfloat16, 20),
             ("square", 4096, 4096, 4096, torch.float32, 5)]
-GATED_TEST = (256, 128, 256)    # tests/test_kernels.py:42-46
 GATED_MLP = (2048, 2048, 768)   # relic_tiny's act(x@Wg)*(x@Wu) at 2048 tokens
 # Training (launch/train.py:35-36,54-55): batch 8 x 256 tokens, 20 steps.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 20
@@ -491,120 +409,82 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(q, k, v, causal: bool):
+def _least_ms(t_ops: float, t_bytes: float):
+    """(ms, bound_by): the larger of two least times in seconds."""
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_bound_ms(q, k, causal: bool):
     """Least time for the attention function on these inputs: the larger of
-    bytes (q, k, v read once, o written once) over the memory rate and the
-    two products' operations (only the (i, j) pairs the mask keeps) over the
-    peak rate for the input type."""
+    its bytes over the memory rate and its operations over the peak rate
+    for the input type, both counted by the benchmark's ``attention_work``
+    (only the (i, j) pairs the mask keeps; q, k, v read once, o written
+    once). Returns (ms, bound_by, flops, bytes)."""
     b, h, sq, d = q.shape
-    sk = k.shape[2]
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    flops = 4 * b * h * d * pairs
-    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
-    t_ops = flops / PEAK_FLOPS[q.dtype]
-    t_bytes = nbytes / PEAK_BYTES_S
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes) * 1e3, bound_by, flops, nbytes
+    flops, nbytes = attention_work(b, h, k.shape[1], sq, k.shape[2], d, causal,
+                                   q.element_size())
+    return (*_least_ms(flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_S),
+            flops, nbytes)
 
 
-def _chunks(t: int, chunk: int):
-    """Lengths of the chunks the chunked algorithm cuts T into."""
-    return [min(chunk, t - t0) for t0 in range(0, t, chunk)]
+# Both recurrences compute in f32, exponentials counted as operations; their
+# tensor-core designs run the products in 3xTF32 (495 TFLOP/s / 3).
+F32_RATE, TC_RATE = PEAK_FLOPS[torch.float32], PEAK_TF32 / 3
 
 
-def _bound(flops: float, exps: float, nbytes: float):
-    """max(operations / f32 peak, bytes / memory rate). Both recurrences
-    compute in f32 (the TPU kernels cast every block to f32), so their
-    operations, exponentials included, count against the f32 rate."""
-    t_ops = (flops + exps) / PEAK_FLOPS[torch.float32]
-    t_bytes = nbytes / PEAK_BYTES_S
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes) * 1e3, bound_by
-
-
-def wkv6_bound_ms(r, logw, u, chunk: int):
-    """Least time for wkv6 on these inputs, counting the chunked algorithm's
-    work per (b, h) and chunk of c steps over K channels: the strictly causal
-    pairwise term (c(c-1)/2 * K exponentials, 4 operations each pair and
-    channel), the diagonal bonus, scores @ v, r_dec @ state, the state
-    update and the rescalings; bytes are r, k, v, logw, u read once and out
-    written once. Returns (ms, bound_by, flops, exps, bytes)."""
+def wkv6_bounds(r, logw, u, chunk: int, sub: int = 16):
+    """Least times for wkv6 on these inputs, per (b, h) and chunk of c steps
+    over K channels: the strictly causal pairwise term (c(c-1)/2 * K
+    exponentials, 4 operations each), the diagonal bonus, scores @ v, r_dec
+    @ state, the state update and the rescalings at the f32 rate; then the
+    tensor-core design's form (the pairwise decay only inside sub-chunks of
+    ``sub``, the other pairs a product of factored operands). Bytes: r, k,
+    v, logw, u read and out written once. Returns (ms, bound_by, tensor-core
+    ms, bound_by, flops, exps, bytes)."""
     b, h, t, kk = r.shape
-    flops = exps = 0
-    for c in _chunks(t, chunk):
+    flops = exps = prods = rest = tc_exps = 0
+    for c in chunks(t, chunk):
         pairs = c * (c - 1) // 2
+        diag = sum(n * (n - 1) // 2 for n in chunks(c, sub))
         exps += pairs * kk + 2 * c * kk + kk
         flops += (4 * pairs * kk + 3 * c * kk + c * (c + 1) * kk
                   + 4 * c * kk * kk + 4 * c * kk + 2 * kk * kk)
-    flops, exps = flops * b * h, exps * b * h
-    nbytes = 4 * r.nbytes + logw.nbytes + u.nbytes
-    ms, bound_by = _bound(flops, exps, nbytes)
-    return ms, bound_by, flops, exps, nbytes
-
-
-def wkv6_tc_bound_ms(r, logw, u, chunk: int, sub: int = 16):
-    """Least time for wkv6 on these inputs in the tensor-core design's form:
-    per chunk of c steps, the pairwise decay only inside sub-chunks of
-    ``sub`` steps (4 operations and one exponential each pair and channel)
-    and the other strictly causal pairs as a product of factored operands
-    (one more exponential, scale and subtraction per operand element); the
-    products (the factored scores, scores @ v, r_dec @ state and the state
-    update) on the tensor cores in 3xTF32 (three TF32 products each, 495
-    TFLOP/s / 3), the rest of the work, exponentials included, at the f32
-    rate, as ``ssd_tc_bound_ms`` does; bytes as ``wkv6_bound_ms``. Returns
-    (ms, bound_by)."""
-    b, h, t, kk = r.shape
-    prods = rest = exps = 0
-    for c in _chunks(t, chunk):
-        diag = sum(n * (n - 1) // 2 for n in _chunks(c, sub))
-        off = c * (c - 1) // 2 - diag
-        prods += 2 * off * kk + c * (c + 1) * kk + 4 * c * kk * kk
+        prods += 2 * (pairs - diag) * kk + c * (c + 1) * kk + 4 * c * kk * kk
         rest += 4 * diag * kk + 3 * c * kk + 4 * c * kk + 2 * kk * kk + 3 * c * kk
-        exps += diag * kk + 2 * c * kk + kk + c * kk
-    prods, rest, exps = prods * b * h, rest * b * h, exps * b * h
+        tc_exps += diag * kk + 2 * c * kk + kk + c * kk
+    flops, exps, prods, rest, tc_exps = (n * b * h for n in (flops, exps, prods,
+                                                             rest, tc_exps))
     nbytes = 4 * r.nbytes + logw.nbytes + u.nbytes
-    t_ops = prods / (PEAK_TF32 / 3) + (rest + exps) / PEAK_FLOPS[torch.float32]
+    return (*_least_ms((flops + exps) / F32_RATE, nbytes / PEAK_BYTES_S),
+            *_least_ms(prods / TC_RATE + (rest + tc_exps) / F32_RATE,
+                       nbytes / PEAK_BYTES_S), flops, exps, nbytes)
+
+
+def ssd_bounds(x, bmat, chunk: int):
+    """Least times for ssd on x [B, H, T, P] with b (and c) [B, T, N] or
+    [B, T, G, N], counted by the benchmark's ``ssd_work``: all of its
+    arithmetic at the f32 CUDA-core rate, then with the four products on the
+    tensor cores and the rest at the f32 rate. Returns (ms, bound_by,
+    tensor-core ms, bound_by, flops, exps, bytes)."""
+    prods, rest, exps, nbytes = ssd_work(*x.shape, bmat.shape[-1], chunk,
+                                         x.element_size(), ssd_k.groups(bmat))
     t_bytes = nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    return (*_least_ms((prods + rest + exps) / F32_RATE, t_bytes),
+            *_least_ms(prods / TC_RATE + (rest + exps) / F32_RATE, t_bytes),
+            prods + rest, exps, nbytes)
 
 
-def _ssd_work(x, a, bmat, chunk: int):
-    """The chunked ssd's arithmetic on these inputs, per chunk of c steps:
-    C B^T once per batch row and group (the group's heads share it), and per head W @ x,
-    C @ state^T and the state update (the four products), the decay of the
-    c(c+1)/2 kept pairs (one exponential each) and the rescalings.
-    Returns (product flops, other flops, exponentials, bytes): x, a, b, c
-    read once and y written once."""
-    bb, h, t, p = x.shape
-    n = bmat.shape[-1]
-    g = bmat.shape[2] if bmat.dim() == 4 else 1   # b [B, T, G, N]: C B^T a group
-    prods = rest = exps = 0
-    for c in _chunks(t, chunk):
-        pairs = c * (c + 1) // 2
-        prods += bb * g * 2 * pairs * n + bb * h * (2 * pairs * p + 4 * c * n * p)
-        rest += bb * h * (2 * pairs + 3 * c * p + 2 * c + 2 * p * n)
-        exps += bb * h * (pairs + 2 * c + 1)
-    nbytes = 2 * x.nbytes + a.nbytes + 2 * bmat.nbytes
-    return prods, rest, exps, nbytes
-
-
-def ssd_bound_ms(x, a, bmat, chunk: int):
-    """Least time for ssd on these inputs with all of its arithmetic at the
-    f32 CUDA-core rate (``_ssd_work``). Returns (ms, bound_by, flops, exps,
-    bytes)."""
-    prods, rest, exps, nbytes = _ssd_work(x, a, bmat, chunk)
-    ms, bound_by = _bound(prods + rest, exps, nbytes)
-    return ms, bound_by, prods + rest, exps, nbytes
-
-
-def ssd_tc_bound_ms(x, a, bmat, chunk: int):
-    """Least time for ssd on these inputs with the four products on the
-    tensor cores in 3xTF32 (three TF32 products each, 495 TFLOP/s / 3) and
-    the rest of its arithmetic at the f32 rate. Returns (ms, bound_by)."""
-    prods, rest, exps, nbytes = _ssd_work(x, a, bmat, chunk)
-    t_ops = prods / (PEAK_TF32 / 3) + (rest + exps) / PEAK_FLOPS[torch.float32]
-    t_bytes = nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+def matmul_bound_ms(m, n, k, dtype, n_weights=1):
+    """Least time for x [m, k] times ``n_weights`` weights [k, n] (the gated
+    form has two): the larger of 2mnk operations per weight over the peak
+    rate for the input type and the bytes of x, the weights and the output
+    (each read or written once) over the memory rate. Returns (ms,
+    bound_by, flops, bytes)."""
+    size = torch.finfo(dtype).bits // 8
+    flops = 2 * m * n * k * n_weights
+    nbytes = size * (m * k + n_weights * k * n + m * n)
+    return (*_least_ms(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S),
+            flops, nbytes)
 
 
 def device_events(fn, attempts: int = 3):
@@ -645,6 +525,58 @@ def kernel_ms(fn, n: int = 20, attempts: int = 3):
         if kernels and len(kernels) % n == 0:
             return sum(kernels) / n / 1e3
     return None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def time_kernel(label, call, plain, iters, bound, work, tol, library=None,
+                plain_device=False, plain_iters=None, note="", **fields):
+    """One kernel's timing at one shape: CUDA-event ms (back-to-back calls;
+    at small shapes the host's issue rate) and the profiler's device ms of
+    ``call`` over ``iters`` calls, the CUDA-event ms of its plain version
+    (and its device ms where ``plain_device``) and, where ``library`` is the
+    PyTorch call that computes the same (the port never calls it), its ms
+    both ways; ``bound`` is (ms, bound_by), ``work`` (flops or None, bytes)
+    of a call. First one output of ``call`` is held against one of
+    ``plain``: bit for bit where ``tol`` is None, else finite, within ``tol``
+    = (rtol, atol) elementwise and within REL_TOL in relative norm. Printed
+    on one ``[kernel]`` line with the achieved rate and ``note``; returns the
+    numbers line's fields, ``fields`` added."""
+    for got, want in zip(*(o if isinstance(o, tuple) else (o,)
+                           for o in (call(), plain()))):
+        torch.cuda.synchronize()
+        if tol is None:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: not bit for bit the plain version")
+            continue
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite output")
+        torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+        rel = _rel(got, want)
+        if not rel < REL_TOL:
+            raise AssertionError(f"{label}: relative error {rel} >= {REL_TOL}")
+    del got, want
+    plain_iters = plain_iters or iters
+    out = dict(ms=time_ms(call, iters), device_ms=kernel_ms(call, iters),
+               plain_ms=time_ms(plain, plain_iters, warmup=1))
+    if plain_device:
+        out["plain_device_ms"] = kernel_ms(plain, plain_iters)
+    if library:
+        out.update(library_ms=time_ms(library, iters),
+                   library_device_ms=kernel_ms(library, iters))
+    out.update(bound_ms=bound[0], bound_by=bound[1], **fields)
+    (flops, nbytes), s = work, (out["device_ms"] or out["ms"]) / 1e3
+    rate = (f"{flops / 1e9:.3f} GFLOP, {flops / s / 1e12:.1f} TFLOP/s" if flops
+            else f"{nbytes / s / 1e9:.0f} GB/s")
+    print(f"[kernel] {label}: " + ", ".join(
+        f"{k[:-3] or 'events'} {_fmt(v)}" for k, v in out.items()
+        if k.endswith("ms") and not isinstance(v, dict))
+        + f" (bound by {bound[1]}); {rate}, {nbytes / 1e6:.2f} MB"
+        + (f"; {note}" if note else ""))
+    return out
 
 
 def device_profile(fn, label: str):
@@ -697,24 +629,6 @@ def _qkv(gen, b, s, h, kv, d, dtype, device, sk=None):
     return mk(h, s), mk(kv, sk or s), mk(kv, sk or s)
 
 
-def check_kernel(fn, gen, shape, dtype, causal, device, sk=None, scale=None):
-    """One flash design (``fn``: ``flash_attention_wgmma`` or
-    ``flash_attention_fma``) against the plain version on one seeded input
-    of ``shape`` (b, s, h, kv, d), kv length ``sk`` (default s), at softmax
-    scale ``scale`` (default d ** -0.5): finite, elementwise at the test
-    tolerance and in relative norm. Returns the inputs and the largest
-    absolute difference."""
-    b, s, h, kv, d = shape
-    q, k, v = _qkv(gen, b, s, h, kv, d, dtype, device, sk)
-    got = fn(q, k, v, causal=causal, scale=scale)
-    want = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    err = _hold(f"{fn.__name__} b{b} s{s}{f' sk{sk}' if sk else ''} h{h} "
-                f"kv{kv} d{d} causal={causal}"
-                f"{'' if scale is None else f' scale={scale:.6g}'}", got, want,
-                TOL[dtype], TOL[dtype])
-    return (q, k, v), err
-
-
 def _launched(counter: str, n: int, fn, label: str):
     """Run ``fn``; ``fa.<counter>`` must rise by exactly ``n``."""
     before = getattr(fa, counter)
@@ -747,241 +661,68 @@ def _calls(*targets):
             setattr(mod, name, fn)
 
 
-def time_flash(label, q, k, v, iters, causal=True, scale=None):
-    """The wgmma design at one bf16 shape beside the CUDA-core kernel, the
-    plain version, SDPA (the library yardstick, kv heads repeated outside
-    the timed call; the port never calls it) and the bound, all at softmax
-    scale ``scale`` (default D ** -0.5): CUDA-event times of back-to-back
-    calls (at small shapes the host's issue rate) and the profiler's device
-    times. Returns the numbers as one dict."""
-    h, kv = q.shape[1], k.shape[1]
-    k_rep = torch.repeat_interleave(k, h // kv, dim=1)
-    v_rep = torch.repeat_interleave(v, h // kv, dim=1)
-    ms = time_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=causal,
-                                                  scale=scale), iters)
-    fma_ms = time_ms(lambda: fa.flash_attention_fma(q, k, v, causal=causal,
-                                                    scale=scale),
-                     max(iters // 4, 3))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal,
-                                                        scale=scale),
-                       max(iters // 4, 3))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k_rep, v_rep, is_causal=causal, scale=scale), iters)
-    device_ms = kernel_ms(lambda: fa.flash_attention_wgmma(q, k, v, causal=causal,
-                                                           scale=scale))
-    library_device_ms = kernel_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k_rep, v_rep, is_causal=causal, scale=scale))
-    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, causal)
+def _sdpa(q, k, v, causal, scale=None):
+    """SDPA on kv heads repeated to q's (outside the timed call)."""
+    k, v = (torch.repeat_interleave(t, q.shape[1] // k.shape[1], dim=1)
+            for t in (k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=scale)
+
+
+def time_flash(label, q, k, v, iters, causal=True, scale=None, **fields):
+    """The wgmma design at one bf16 shape beside the CUDA-core kernel
+    (``fma_ms``), the plain version, SDPA (the library yardstick) and the
+    bound, all at softmax scale ``scale`` (default D ** -0.5)."""
+    kw = dict(causal=causal, scale=scale)
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, causal)
     shape = (f"q{list(q.shape)} kv{list(k.shape)} bf16 "
              f"{'causal' if causal else 'non-causal'}")
-    tflops = flops / (device_ms or ms) / 1e9
-
-    def fmt(x):
-        return "not measured" if x is None else f"{x:.4f} ms"
-    print(f"[kernel] {label} {shape}: wgmma {ms:.4f} ms (device "
-          f"{fmt(device_ms)}, {tflops:.1f} TFLOP/s), CUDA-core kernel "
-          f"{fma_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
-          f"(device {fmt(library_device_ms)}); bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB)")
-    return dict(shape=shape, ms=ms, device_ms=device_ms, fma_ms=fma_ms,
-                plain_ms=plain_ms, library_ms=library_ms,
-                library_device_ms=library_device_ms, bound_ms=bound_ms,
-                bound_by=bound_by, tflops=tflops)
+    if scale:
+        fields["scale"] = scale
+    out = time_kernel(f"{label} {shape}",
+                      lambda: fa.flash_attention_wgmma(q, k, v, **kw),
+                      lambda: fa.flash_attention_plain(q, k, v, **kw), iters,
+                      (bound_ms, bound_by), (flops, nbytes),
+                      (TOL[q.dtype], TOL[q.dtype]),
+                      library=_sdpa(q, k, v, causal, scale),
+                      plain_iters=max(iters // 4, 3), shape=shape,
+                      fma_ms=time_ms(lambda: fa.flash_attention_fma(q, k, v, **kw),
+                                     max(iters // 4, 3)), **fields)
+    out["tflops"] = flops / (out["device_ms"] or out["ms"]) / 1e9
+    return out
 
 
 def time_fma(q, k, v):
-    """The CUDA-core kernel at one causal shape beside the plain version,
-    SDPA (the library yardstick, kv heads repeated outside the timed call)
-    and the bound; returns the numbers as one dict."""
-    h, kv = q.shape[1], k.shape[1]
-    k_rep = torch.repeat_interleave(k, h // kv, dim=1)
-    v_rep = torch.repeat_interleave(v, h // kv, dim=1)
-    ms = time_ms(lambda: fa.flash_attention_fma(q, k, v, causal=True), 10)
-    device_ms = kernel_ms(lambda: fa.flash_attention_fma(q, k, v, causal=True), 10)
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
-    library_ms = kernel_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k_rep, v_rep, is_causal=True), 10)
-    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, True)
+    """The CUDA-core kernel at one causal shape; ``library_ms``: SDPA's device ms."""
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, True)
     shape = f"q{list(q.shape)} kv{list(k.shape)} {str(q.dtype)[6:]} causal"
-    dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
-    lib = "not measured" if library_ms is None else f"{library_ms:.4f} ms"
-    print(f"[kernel] CUDA-core flash {shape}: {ms:.4f} ms (device {dev}), "
-          f"plain {plain_ms:.4f} ms, sdpa device {lib}; bound {bound_ms:.4f} "
-          f"ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    return dict(shape=shape, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return time_kernel(f"CUDA-core flash {shape}",
+                       lambda: fa.flash_attention_fma(q, k, v, causal=True),
+                       lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                       10, (bound_ms, bound_by), (flops, nbytes),
+                       (TOL[q.dtype], TOL[q.dtype]), plain_iters=5,
+                       shape=shape, library_ms=kernel_ms(_sdpa(q, k, v, True), 10))
 
 
 def phase_kernel(device):
+    """Flash attention's timings: the CUDA-core kernel at head_dim 48 to 512
+    and the wgmma design at 96 and 256 on [2, 8, 1024, d], then the wgmma
+    design at each of FLASH_TIMED's shapes. Returns the kernel's entry of
+    the numbers line (its numbers at relic_tiny's [4, 2048])."""
     gen = torch.Generator().manual_seed(0)
-    dtype = torch.bfloat16
-    # The CUDA-core kernel keeps f32, head_dims 16/32/128 and layouts TMA
-    # cannot describe: held on the test shapes in both dtypes.
-    for shape in KERNEL_SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
-            for causal in (True, False):
-                check_kernel(fa.flash_attention_fma, gen, shape, dt, causal, device)
-
-    # The wgmma design: MHA, GQA 3:1 and 4:1, MQA at ragged lengths, Sq != Sk.
-    for h, kv in WGMMA_HEADS:
-        for s in WGMMA_LENGTHS:
-            for causal in (True, False):
-                check_kernel(fa.flash_attention_wgmma, gen, (2, s, h, kv, 64),
-                             dtype, causal, device)
-    b, sq, h, kv, d, sk = WGMMA_CROSS
-    check_kernel(fa.flash_attention_wgmma, gen, (b, sq, h, kv, d), dtype, False,
-                 device, sk=sk)
-
-    # Its head_dim-128 instance: MHA, GQA 4:1 and 7:1 at ragged S, causal
-    # and not; Sq != Sk.
-    for b, s, h, kv in WGMMA_128_SHAPES:
-        for causal in (True, False):
-            check_kernel(fa.flash_attention_wgmma, gen, (b, s, h, kv, 128),
-                         dtype, causal, device)
-    b, sq, h, kv, d, sk = WGMMA_128_CROSS
-    for causal in (True, False):
-        check_kernel(fa.flash_attention_wgmma, gen, (b, sq, h, kv, d), dtype,
-                     causal, device, sk=sk)
-
-    # Its head_dim-96 and -256 instances: MHA, GQA 4:1 and MQA at ragged S,
-    # causal and not; Sq != Sk.
-    for d, shapes in WGMMA_WIDE_SHAPES.items():
-        for b, s, h, kv in shapes:
-            for causal in (True, False):
-                check_kernel(fa.flash_attention_wgmma, gen, (b, s, h, kv, d),
-                             dtype, causal, device)
-        b, sq, h, kv, sk = WGMMA_WIDE_CROSS
-        for causal in (True, False):
-            check_kernel(fa.flash_attention_wgmma, gen, (b, sq, h, kv, d),
-                         dtype, causal, device, sk=sk)
-
-    # The dispatch: bf16 at every head_dim of the wgmma design goes there;
-    # f32 and bf16 at other head sizes (32, 80) do not.
-    for dt, d, n in ((torch.bfloat16, 64, 1), (torch.bfloat16, 96, 1),
-                     (torch.bfloat16, 128, 1), (torch.bfloat16, 224, 1),
-                     (torch.bfloat16, 256, 1),
-                     (torch.float32, 64, 0), (torch.float32, 96, 0),
-                     (torch.float32, 128, 0), (torch.float32, 224, 0),
-                     (torch.float32, 256, 0),
-                     (torch.bfloat16, 32, 0), (torch.bfloat16, 80, 0)):
-        q, k, v = _qkv(gen, 1, 96, 4, 2, d, dt, device)
-        got = _launched("wgmma_launches", n, lambda: _launched(
-            "launches", 1, lambda: fa.flash_attention_cuda(q, k, v),
-            "flash_attention_cuda"), f"flash_attention_cuda {dt} d{d}")
-        _hold(f"flash_attention_cuda d{d}", got,
-              fa.flash_attention_plain(q, k, v), TOL[dt], TOL[dt])
-
-    # The CUDA-core kernel at head sizes beyond the models' 64, called
-    # directly (bf16 at 96 and 256 goes to the wgmma design through
-    # flash_attention_cuda): 48 on the next instance up (columns
-    # zero-filled on chip), 96 and 256 on their own, 320 and 512 in slabs
-    # of 128 columns. At 96 and 256 the wgmma design is timed at the same
-    # shape.
-    head_dims, wide = [], []
+    head_dims, other = [], []
     for d in FMA_HEAD_DIMS:
-        for dt in (torch.float32, torch.bfloat16):
-            for causal in (True, False):
-                q, k, v = _qkv(gen, *FMA_HEAD_SHAPE, d, dt, device)
-                got = _launched("wgmma_launches", 0, lambda: _launched(
-                    "launches", 1, lambda: fa.flash_attention_fma(
-                        q, k, v, causal=causal), "flash_attention_fma"),
-                    f"flash_attention_fma d{d}")
-                _hold(f"flash_attention_fma q{list(q.shape)} kv{list(k.shape)} "
-                      f"causal={causal} (CUDA-core kernel)", got,
-                      fa.flash_attention_plain(q, k, v, causal=causal),
-                      TOL[dt], TOL[dt])
+        q, k, v = _qkv(gen, *FMA_HEAD_TIMED, d, torch.bfloat16, device)
         if d in fa.WGMMA_HEAD_DIMS:
-            (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen,
-                                          (*FMA_HEAD_TIMED, d), dtype, True,
-                                          device)
-            wide.append({**time_flash(f"head_dim {d} shape", q, k, v, 20),
-                         "max_abs_err": err})
-        else:
-            q, k, v = _qkv(gen, *FMA_HEAD_TIMED, d, dtype, device)
+            other.append(time_flash(f"head_dim {d} shape", q, k, v, 20))
         head_dims.append(time_fma(q, k, v))
-
-    # ops.flash_attention hands the model layout [B, S, H, D] to the wgmma
-    # design as it is, at lengths no multiple of its tiles, at every head
-    # size, causal and not.
-    for d in fa.WGMMA_HEAD_DIMS:
-        for s in (96, 300):
-            for causal in (True, False):
-                q, k, v = (x.transpose(1, 2).contiguous()
-                           for x in _qkv(gen, 1, s, 4, 2, d, dtype, device))
-                got = _launched("wgmma_launches", 1, lambda: ops.flash_attention(
-                    q, k, v, causal=causal),
-                    f"ops.flash_attention at S={s} d{d} causal={causal}")
-                want = fa.flash_attention_plain(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    causal=causal).transpose(1, 2)
-                _hold(f"ops.flash_attention model layout S={s} d{d} "
-                      f"causal={causal}", got, want, TOL[dtype], TOL[dtype])
-
-    (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, TEACHER_SHAPE,
-                                  dtype, True, device)
-    teacher = {**time_flash("teacher-forced shape", q, k, v, 50),
-               "max_abs_err": err}
-    (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen,
-                                  ZAMBA_ATTN_SHAPE, dtype, True, device)
-    zamba = {**time_flash("zamba2 shared-attention shape", q, k, v, 50),
-             "max_abs_err": err}
-    # The head_dim-128 configs' attention (the wgmma design's second
-    # instance; granite_8b GQA 4:1, arctic_480b 7:1, qwen3_14b 5:1,
-    # llama3_405b 16:1) and whisper_large_v3's (20 heads, 1500 frames, Sq
-    # 192 against Sk 1500), each held against the plain version before a
-    # path relies on it, and timed beside the CUDA-core kernel.
-    d128 = []
-    for path, shape in ((GRANITE, GRANITE_ATTN_SHAPE), (ARCTIC, ARCTIC_ATTN_SHAPE),
-                        *HEAD_DIM_128_SHAPES):
-        (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
-                                      dtype, True, device)
-        d128.append({**time_flash(f"{path} attention", q, k, v, 20),
-                     "max_abs_err": err, "path": path})
-    (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, LONG_128_SHAPE,
-                                  dtype, True, device)
-    d128.append({**time_flash("long head_dim-128 shape", q, k, v, 20),
-                 "max_abs_err": err})
-    # phi3_mini's MHA at head_dim 96 and paligemma's MQA at head_dim 256
-    # (the design's third and fourth instances), held and timed before
-    # their paths rely on them.
-    for path, shape in ((PHI3, PHI3_ATTN_SHAPE), (PALIGEMMA, PALIGEMMA_ATTN_SHAPE)):
-        (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
-                                      dtype, True, device)
-        wide.append({**time_flash(f"{path} attention", q, k, v, 20),
-                     "max_abs_err": err, "path": path})
-    # Zamba2-7B's shared attention at head_dim 224 (the fifth instance) at
-    # its scoring cell's shape and softmax scale, held and timed before its
-    # path relies on it.
     del q, k, v
-    (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen,
-                                  ZAMBA2_7B_ATTN_SHAPE, dtype, True, device,
-                                  scale=ZAMBA2_7B_SCALE)
-    wide.append({**time_flash(f"{ZAMBA2_7B} attention", q, k, v, 20,
-                              scale=ZAMBA2_7B_SCALE),
-                 "max_abs_err": err, "path": ZAMBA2_7B,
-                 "scale": ZAMBA2_7B_SCALE})
-    del q, k, v
-    torch.cuda.empty_cache()
-    whisper = []
-    for label, shape, causal, sk in WHISPER_ATTN:
-        (q, k, v), err = check_kernel(fa.flash_attention_wgmma, gen, shape,
-                                      dtype, causal, device, sk=sk)
-        whisper.append({**time_flash(f"{WHISPER} {label}", q, k, v, 20,
-                                     causal=causal),
-                        "max_abs_err": err, "path": WHISPER})
-    del q, k, v
-    (q, k, v), max_err = check_kernel(fa.flash_attention_wgmma, gen, MAIN_SHAPE,
-                                      dtype, True, device)
-    main = time_flash("main shape", q, k, v, 20)
-
-    # One ops.flash_attention call in the model layout at [4, 2048]: exactly
-    # one device operation, the wgmma kernel (no layout copy, no cast).
-    qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    _one_kernel(lambda: ops.flash_attention(qm, km, vm, causal=True),
-                f"ops.flash_attention at q{list(qm.shape)} (model layout)",
-                "fa_wgmma_kernel")
+    for label, shape, causal, sk, scale, path, iters in FLASH_TIMED:
+        q, k, v = _qkv(gen, *shape, torch.bfloat16, device, sk)
+        other.append(time_flash(label, q, k, v, iters, causal, scale,
+                                **({"path": path} if path else {})))
+        del q, k, v
+        torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention.py:27",
@@ -1000,27 +741,8 @@ def phase_kernel(device):
                        "any other up to 256, slabs of 128 columns above) and "
                        "non-TMA layouts: "
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
-            "launches": None, "max_abs_err": max_err, **main,
-            "other_shapes": [teacher, zamba, *d128, *wide, *whisper],
+            "launches": None, **other[-1], "other_shapes": other[:-1],
             "head_dims": head_dims}
-
-
-def _hold(name, got, want, rtol, atol):
-    """A kernel's output against its plain version: finite, elementwise at
-    the test tolerance and in relative norm. Returns the largest absolute
-    difference."""
-    torch.cuda.synchronize()
-    if not torch.isfinite(got.float()).all():
-        raise AssertionError(f"{name}: non-finite output")
-    diff = got.float() - want.float()
-    err = diff.abs().max().item()
-    rel = (diff.norm() / want.float().norm()).item()
-    print(f"[kernel] {name} {str(got.dtype)[6:]}: max|err| {err:.3g} (rtol "
-          f"{rtol}, atol {atol}), relative {rel:.3g} (tol {REL_TOL})")
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
-    if not rel < REL_TOL:
-        raise AssertionError(f"{name}: relative error {rel} >= {REL_TOL}")
-    return err
 
 
 def _wkv6_inputs(gen, b, h, t, k, dtype, device):
@@ -1043,67 +765,27 @@ def _ssd_inputs(gen, b, h, t, p, n, dtype, device, groups=1):
     return x, a, mk(*bc).to(device), mk(*bc).to(device)
 
 
-def _ulps(got, want) -> int:
-    """The largest gap between two tensors of one float dtype in units in
-    the last place: their bit patterns as integers in the order of the
-    values."""
-    it, mag = ((torch.int16, 0x7FFF) if got.dtype == torch.bfloat16
-               else (torch.int32, 0x7FFFFFFF))
-
-    def ordered(t):
-        i = t.contiguous().view(it).long()
-        return torch.where(i < 0, -(i & mag), i)
-    return int((ordered(got) - ordered(want)).abs().max().item())
-
-
 @torch.no_grad()
 def phase_rope(device):
-    """The RoPE kernel against apply_rope, its plain version, at each of
-    ROPE_SHAPES in f32 and bf16: one launch a call and the same bits (the
-    largest gap in units in the last place printed; it must be 0). In bf16
-    its device time beside the plain chain's and the bound: q and k read
-    once and written once. Returns the kernel's entry of the numbers line
-    (its numbers at phi3's scoring shape first)."""
+    """The RoPE kernel's timings at each of ROPE_SHAPES in bf16 beside the
+    plain chain and the bound: q and k read once and written once. Returns
+    the kernel's entry of the numbers line (its numbers at phi3's scoring
+    shape first)."""
     gen = torch.Generator().manual_seed(5)
     timed = []
     for label, (b, s, h, kv, d, at) in ROPE_SHAPES:
         theta = get_config(label.split()[0]).rope_theta
         pos = (torch.arange(s, device=device)[None, :] if at is None
                else torch.full((b, 1), at, device=device))
-        for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn((b, s, h, d), generator=gen).to(device, dtype)
-            k = torch.randn((b, s, kv, d), generator=gen).to(device, dtype)
-            before = rope_k.launches
-            got = rope_k.rope_cuda(q, k, pos, theta)
-            want = rope_k.rope_plain(q, k, pos, theta)
-            torch.cuda.synchronize()
-            gap = max(_ulps(g, w) for g, w in zip(got, want))
-            print(f"[kernel] rope {label} q{list(q.shape)} k{list(k.shape)} "
-                  f"{str(dtype)[6:]}: {rope_k.launches - before} launch, "
-                  f"largest gap from apply_rope {gap} ulps")
-            if rope_k.launches - before != 1 or gap:
-                raise AssertionError(f"rope {label} {dtype}: "
-                                     f"{rope_k.launches - before} launches, "
-                                     f"{gap} ulps from apply_rope")
-        ms = time_ms(lambda: rope_k.rope_cuda(q, k, pos, theta), 20)
-        device_ms = kernel_ms(lambda: rope_k.rope_cuda(q, k, pos, theta))
-        plain_ms = time_ms(lambda: rope_k.rope_plain(q, k, pos, theta), 5)
-        plain_device_ms = kernel_ms(lambda: rope_k.rope_plain(q, k, pos, theta), 5)
+        q = torch.randn((b, s, h, d), generator=gen).to(device, torch.bfloat16)
+        k = torch.randn((b, s, kv, d), generator=gen).to(device, torch.bfloat16)
         nbytes = 2 * (q.nbytes + k.nbytes)
-        bound_ms = nbytes / PEAK_BYTES_S * 1e3
-
-        def fmt(x):
-            return "not measured" if x is None else f"{x:.4f} ms"
         shape = f"q{list(q.shape)} k{list(k.shape)} bf16"
-        rate = "" if device_ms is None else \
-            f", {nbytes / device_ms / 1e6:.0f} GB/s"
-        print(f"[kernel] rope {label} {shape}: kernel {ms:.4f} ms (device "
-              f"{fmt(device_ms)}{rate}), plain chain {plain_ms:.4f} ms "
-              f"(device {fmt(plain_device_ms)}); bound {bound_ms:.4f} ms by "
-              f"bytes ({nbytes / 1e6:.2f} MB)")
-        timed.append(dict(shape=shape, path=label, ms=ms, device_ms=device_ms,
-                          plain_ms=plain_ms, plain_device_ms=plain_device_ms,
-                          bound_ms=bound_ms, bound_by="bytes"))
+        timed.append(time_kernel(
+            f"rope {label} {shape}", lambda: rope_k.rope_cuda(q, k, pos, theta),
+            lambda: rope_k.rope_plain(q, k, pos, theta), 20,
+            (nbytes / PEAK_BYTES_S * 1e3, "bytes"), (None, nbytes), None,
+            plain_device=True, plain_iters=5, shape=shape, path=label))
     return {"name": "rope", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rope.cu",
             "replaces": None,
@@ -1113,69 +795,36 @@ def phase_rope(device):
                        "of q and k with 16-byte loads and stores, f32 in "
                        "registers, each product and sum rounded on its own "
                        "(apply_rope's bits)"),
-            "launches": None, "max_ulps": 0, **timed[0],
+            "launches": None, **timed[0],
             "other_shapes": timed[1:], "library_ms": None}
 
 
 def phase_conv(device):
-    """The conv kernel against _causal_conv, its plain version, at each of
-    CONV_SHAPES in f32 and bf16, x read from the strided view: one launch a
-    call and the same bits (the largest gap in units in the last place
-    printed; it must be 0). In bf16 its device time beside the eager
-    chain's and the bound: x read once and the output written once, the
-    taps and the bias once. Returns the kernel's entry of the numbers line
-    (its numbers at zamba2_7b's cell shape first)."""
+    """The conv kernel's timings at each of CONV_SHAPES in bf16, x read from
+    the strided view, beside the eager chain and the bound: its bytes (the
+    benchmark's ``conv_work``) over the memory rate. Returns the kernel's
+    entry of the numbers line (its numbers at zamba2_7b's cell shape
+    first)."""
     gen = torch.Generator(device=device).manual_seed(6)
 
-    def rnd(*shape, dtype, scale=1.0):
-        return (scale * torch.randn(shape, generator=gen, device=device)).to(dtype)
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=device)).to(
+            torch.bfloat16)
 
     timed = []
     for label, (b, s, c, width, col, k, has_bias) in CONV_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = rnd(b, s, width, dtype=dtype)[:, :, col:col + c]
-            w = rnd(k, c, dtype=dtype, scale=0.5)
-            bias = rnd(c, dtype=dtype, scale=0.1) if has_bias else None
-            before = conv_k.launches
-            got = conv_k.causal_conv_silu_cuda(x, w, bias)
-            want = conv_k.causal_conv_silu_plain(x, w, bias)
-            torch.cuda.synchronize()
-            gap = _ulps(got, want)
-            shape = (f"x{list(x.shape)} of [{b}, {s}, {width}] at column {col}, "
-                     f"{k} taps{', bias' if has_bias else ''}")
-            print(f"[kernel] conv {label} {shape} {str(dtype)[6:]}: "
-                  f"{conv_k.launches - before} launch, largest gap from "
-                  f"_causal_conv {gap} ulps")
-            if conv_k.launches - before != 1 or gap:
-                raise AssertionError(f"conv {label} {dtype}: "
-                                     f"{conv_k.launches - before} launches, "
-                                     f"{gap} ulps from _causal_conv")
-            del got, want
-
-        def call():
-            return conv_k.causal_conv_silu_cuda(x, w, bias)
-
-        def plain():
-            return conv_k.causal_conv_silu_plain(x, w, bias)
-        ms = time_ms(call, 20)
-        device_ms = kernel_ms(call)
-        plain_ms = time_ms(plain, 5)
-        plain_device_ms = kernel_ms(plain, 5)
-        nbytes = (2 * x.numel() + w.numel() + c * has_bias) * x.element_size()
-        bound_ms = nbytes / PEAK_BYTES_S * 1e3
-
-        def fmt(v):
-            return "not measured" if v is None else f"{v:.4f} ms"
-        rate = "" if device_ms is None else \
-            f", {nbytes / device_ms / 1e6:.0f} GB/s"
-        print(f"[kernel] conv {label} {shape} bf16: kernel {ms:.4f} ms (device "
-              f"{fmt(device_ms)}{rate}), eager chain {plain_ms:.4f} ms (device "
-              f"{fmt(plain_device_ms)}); bound {bound_ms:.4f} ms by bytes "
-              f"({nbytes / 1e6:.2f} MB)")
-        timed.append(dict(shape=f"{shape} bf16", path=label, ms=ms,
-                          device_ms=device_ms, plain_ms=plain_ms,
-                          plain_device_ms=plain_device_ms, bound_ms=bound_ms,
-                          bound_by="bytes"))
+        x = rnd(b, s, width)[:, :, col:col + c]
+        w = rnd(k, c, scale=0.5)
+        bias = rnd(c, scale=0.1) if has_bias else None
+        nbytes = conv_work(b, s, c, k, x.element_size(), has_bias)[1]
+        shape = (f"x{list(x.shape)} of [{b}, {s}, {width}] at column {col}, "
+                 f"{k} taps{', bias' if has_bias else ''} bf16")
+        timed.append(time_kernel(
+            f"conv {label} {shape}",
+            lambda: conv_k.causal_conv_silu_cuda(x, w, bias),
+            lambda: conv_k.causal_conv_silu_plain(x, w, bias), 20,
+            (nbytes / PEAK_BYTES_S * 1e3, "bytes"), (None, nbytes), None,
+            plain_device=True, plain_iters=5, shape=shape, path=label))
         del x, w, bias
     return {"name": "conv", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/conv.cu",
@@ -1189,154 +838,51 @@ def phase_conv(device):
                        "product and sum rounded on its own (bf16x2 "
                        "instructions in bf16), SiLU in f32 (_causal_conv's "
                        "bits)"),
-            "launches": None, "max_ulps": 0, **timed[0],
+            "launches": None, **timed[0],
             "other_shapes": timed[1:], "library_ms": None}
 
 
-def phase_recurrence(name, mod, replaces, make_inputs, bound, test_shapes,
-                     served, long_, main_dtype, seed, device, redesign=None,
-                     tc_bound=None):
-    """Hold a recurrent kernel (``mod``: wkv6 or ssd) against its plain
-    version at the test shapes in f32 and bf16, then at the served path's
-    shape and a long one in ``main_dtype``, timing kernel and plain version
-    there (CUDA events, and the profiler's device time for the kernel).
-    Shapes end with the chunk length. ``redesign``: (counter, predicate) of
-    a kernel with two designs; every call must go through the redesigned
-    one exactly when the predicate holds on its inputs. ``tc_bound``: a
-    second bound, with the products at the tensor cores' rate. Returns the
-    kernel's entry of the numbers line (its numbers at the served shape)."""
-    cuda_fn, plain_fn = getattr(mod, f"{name}_cuda"), getattr(mod, f"{name}_plain")
+def _time_recurrence(label, mod, name, ins, bounds, chunk, iters, **fields):
+    """wkv6 or ssd (``mod``) at one shape beside its two ``bounds``."""
+    ms, by, tc_ms, tc_by, flops, exps, nbytes = bounds
+    return time_kernel(
+        label, lambda: getattr(mod, f"{name}_cuda")(*ins, chunk=chunk),
+        lambda: getattr(mod, f"{name}_plain")(*ins), iters, (ms, by),
+        (flops, nbytes), REC_TOL[ins[0].dtype], tc_bound_ms=tc_ms, tc_bound_by=tc_by, **fields,
+        note=f"tensor-core bound by {tc_by}; {exps / 1e9:.4f} G exponentials")
+
+
+def phase_recurrence(name, mod, replaces, make_inputs, bounds, served, long_,
+                     dtype, seed, device):
+    """A recurrent kernel's timings (``mod``: wkv6 or ssd) at the served
+    path's shape and a long one in ``dtype``. Shapes end with the chunk
+    length. Returns the kernel's entry of the numbers line (its numbers at
+    the served shape)."""
     gen = torch.Generator().manual_seed(seed)
-
-    def call(ins, chunk, label):
-        before = getattr(mod, redesign[0]) if redesign else 0
-        out = cuda_fn(*ins, chunk=chunk)
-        if redesign:
-            want = int(redesign[1](*ins))
-            if getattr(mod, redesign[0]) - before != want:
-                raise AssertionError(f"{label}: {redesign[0]} rose by "
-                                     f"{getattr(mod, redesign[0]) - before}, "
-                                     f"want {want}")
-        return out
-
-    for *shape, chunk in test_shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            ins = make_inputs(gen, *shape, dtype, device)
-            label = f"{name} {shape} chunk {chunk}"
-            _hold(label, call(ins, chunk, label), plain_fn(*ins), *REC_TOL[dtype])
     timed = {}
     for label, (*shape, chunk), iters in (("served", served, 20),
                                           ("long", long_, 3)):
-        ins = make_inputs(gen, *shape, main_dtype, device)
-        err = _hold(f"{name} {shape} chunk {chunk} ({label})",
-                    call(ins, chunk, label), plain_fn(*ins),
-                    *REC_TOL[main_dtype])
-        ms = time_ms(lambda: cuda_fn(*ins, chunk=chunk), iters)
-        device_ms = kernel_ms(lambda: cuda_fn(*ins, chunk=chunk), iters)
-        plain_ms = time_ms(lambda: plain_fn(*ins), iters, warmup=1)
-        bound_ms, bound_by, flops, exps, nbytes = bound(ins, chunk)
-        desc = f"{shape} {str(main_dtype)[6:]} chunk {chunk}"
-        dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
-        print(f"[kernel] {name} {label} shape {desc}: kernel {ms:.4f} ms "
-              f"(device {dev}), plain {plain_ms:.4f} ms; bound {bound_ms:.4f} "
-              f"ms by {bound_by}")
-        print(f"[kernel]   {name} {label}: {flops / 1e9:.3f} GFLOP of f32 "
-              f"arithmetic, {nbytes / 1e6:.2f} MB; "
-              f"{flops / (device_ms or ms) / 1e9:.1f} TFLOP/s achieved")
-        print(f"[kernel]   {name} {label}: {exps / 1e9:.4f} G exponentials")
-        timed[label] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, shape=desc)
-        if tc_bound:
-            tc_ms, tc_by = tc_bound(ins, chunk)
-            print(f"[kernel]   {name} {label}: bound with the products on the "
-                  f"tensor cores in 3xTF32 {tc_ms:.4f} ms by {tc_by}")
-            timed[label].update(tc_bound_ms=tc_ms, tc_bound_by=tc_by)
+        ins = make_inputs(gen, *shape, dtype, device)
+        desc = f"{shape} {str(dtype)[6:]} chunk {chunk}"
+        timed[label] = _time_recurrence(f"{name} {label} shape {desc}", mod,
+                                        name, ins, bounds(ins, chunk), chunk,
+                                        iters, shape=desc)
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": None, **timed["served"],
             "library_ms": None, "long": timed["long"]}
 
 
-@torch.no_grad()
 def phase_ssd_grouped(device):
     """The ssd with B and C in groups at Zamba2-7B's Mamba layer
-    (``SSD_GROUPED``: x [4, 112, 4096, 64], 2 groups of 56 heads, f32): one
-    launch through the tensor-core design, held against ``ssd_ref`` and bit
-    for bit against a call per group on its heads; timed beside the plain
-    version and both bounds. Returns its numbers."""
+    (``SSD_GROUPED``: x [4, 112, 4096, 64], 2 groups of 56 heads, f32)."""
     b, h, t, p, n, g, chunk = SSD_GROUPED
-    gen = torch.Generator().manual_seed(3)
-    ins = _ssd_inputs(gen, b, h, t, p, n, torch.float32, device, groups=g)
-    x, a, bm, cm = ins
-    before = (ssd_k.launches, ssd_k.tc_launches)
-    got = ssd_k.ssd_cuda(*ins, chunk=chunk)
-    rose = (ssd_k.launches - before[0], ssd_k.tc_launches - before[1])
-    if rose != (1, 1):
-        raise AssertionError(f"grouped ssd: (launches, tc_launches) rose by "
-                             f"{rose}, want (1, 1)")
-    shape = f"x{list(x.shape)} b/c{list(bm.shape)} f32 chunk {chunk}"
-    err = _hold(f"ssd grouped {shape}", got, ssd_k.ssd_plain(*ins),
-                *REC_TOL[torch.float32])
-    hg = h // g
-    for i in range(g):
-        hs = slice(i * hg, (i + 1) * hg)
-        one = ssd_k.ssd_cuda(x[:, hs], a[:, hs], bm[:, :, i], cm[:, :, i],
-                             chunk=chunk)
-        if not torch.equal(one, got[:, hs]):
-            raise AssertionError(f"grouped ssd: group {i} differs from a call "
-                                 f"on its heads alone")
-    ms = time_ms(lambda: ssd_k.ssd_cuda(*ins, chunk=chunk), 10)
-    device_ms = kernel_ms(lambda: ssd_k.ssd_cuda(*ins, chunk=chunk), 10)
-    plain_ms = time_ms(lambda: ssd_k.ssd_plain(*ins), 1, warmup=1)
-    bound_ms, bound_by, flops, exps, nbytes = ssd_bound_ms(x, a, bm, chunk)
-    tc_ms, tc_by = ssd_tc_bound_ms(x, a, bm, chunk)
-    dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
-    print(f"[kernel] ssd grouped {shape} ({ZAMBA2_7B}): kernel {ms:.4f} ms "
-          f"(device {dev}), plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"by {bound_by}, with the products on the tensor cores in 3xTF32 "
-          f"{tc_ms:.4f} ms by {tc_by} ({flops / 1e9:.3f} GFLOP, "
-          f"{exps / 1e9:.4f} G exponentials, {nbytes / 1e6:.2f} MB); each "
-          f"group bit for bit a call on its heads")
-    return dict(shape=shape, max_abs_err=err, ms=ms, device_ms=device_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                tc_bound_ms=tc_ms, tc_bound_by=tc_by, path=ZAMBA2_7B)
-
-
-def phase_wkv6_layout(device):
-    """``ops.wkv6`` on the model's [B, T, H, K] layout, as rwkv6 calls it:
-    the tensor-core design reads and writes that layout as it lies, so one
-    call is exactly one device kernel (no copy, no cast), held against the
-    plain version."""
-    gen = torch.Generator().manual_seed(4)
-    b, h, t, kk = WKV6_LAYOUT
-    r, k, v, logw, u = _wkv6_inputs(gen, b, h, t, kk, torch.bfloat16, device)
-    model = [x.transpose(1, 2).contiguous() for x in (r, k, v, logw)]
-    before = wkv6_k.tc_launches
-    got = ops.wkv6(*model, u, chunk=64)
-    if wkv6_k.tc_launches - before != 1:
-        raise AssertionError("ops.wkv6 in the model layout did not take the "
-                             "tensor-core design")
-    _hold(f"ops.wkv6 model layout [{b}, {t}, {h}, {kk}]", got,
-          wkv6_k.wkv6_plain(r, k, v, logw, u).transpose(1, 2),
-          *REC_TOL[torch.bfloat16])
-    _one_kernel(lambda: ops.wkv6(*model, u, chunk=64),
-                f"ops.wkv6 at [{b}, {t}, {h}, {kk}] (model layout)", "wkv6_tc_kernel")
-
-
-def matmul_bound_ms(m, n, k, dtype, n_weights=1):
-    """Least time for x [m, k] times ``n_weights`` weights [k, n] (the gated
-    form has two): the larger of 2mnk operations per weight over the peak
-    rate for the input type and the bytes of x, the weights and the output
-    (each read or written once) over the memory rate. Returns (ms,
-    bound_by, flops, bytes)."""
-    size = torch.finfo(dtype).bits // 8
-    flops = 2 * m * n * k * n_weights
-    nbytes = size * (m * k + n_weights * k * n + m * n)
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_S
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes) * 1e3, bound_by, flops, nbytes
+    ins = _ssd_inputs(torch.Generator().manual_seed(3), b, h, t, p, n,
+                      torch.float32, device, groups=g)
+    shape = f"x{list(ins[0].shape)} b/c{list(ins[2].shape)} f32 chunk {chunk}"
+    return _time_recurrence(f"ssd grouped {shape} ({ZAMBA2_7B})", ssd_k, "ssd",
+                            ins, ssd_bounds(ins[0], ins[2], chunk), chunk, 10,
+                            plain_iters=1, shape=shape, path=ZAMBA2_7B)
 
 
 def _mm_inputs(gen, m, n, k, dtype, n_weights, device):
@@ -1345,156 +891,57 @@ def _mm_inputs(gen, m, n, k, dtype, n_weights, device):
     return mk(m, k), [mk(k, n) for _ in range(n_weights)]
 
 
-def _mm_label(name, m, n, k, act=None):
-    return f"{name} [{m}, {k}] @ [{k}, {n}]" + (f" act={act}" if act else "")
-
-
-def _mm_call(x, w, out_dtype=None):
-    """relic_matmul_cuda; returns (out, the design that ran)."""
-    before = rm.wgmma_launches
-    out = rm.relic_matmul_cuda(x, w, out_dtype=out_dtype)
+def _mm_design(x, w):
+    """The design relic_matmul_cuda takes for x @ w, with its tile."""
     (m, _), n, n_sm = x.shape, w.shape[1], rm.sm_count(x.device)
-    if rm.wgmma_launches - before:
-        design = f"wgmma, 128 x {rm.wgmma_tile_n(m, n, n_sm)} tiles"
-    elif x.dtype == torch.float32:
+    if rm.wgmma_eligible(x, w):
+        return f"wgmma, 128 x {rm.wgmma_tile_n(m, n, n_sm)} tiles"
+    if x.dtype == torch.float32:
         bm, bn = rm.F32_TILES[rm.f32_tile(m, n, n_sm)]
-        design = f"f32 FMA, {bm} x {bn} tiles"
-    else:
-        design = "mma.sync"
-    return out, design
-
-
-def _one_kernel(fn, label, name):
-    """One call of ``fn`` must run exactly one device operation, the kernel
-    ``name``: no copy, no memset, no second kernel."""
-    fn()   # built and warm
-    _, events = device_events(fn)
-    names = [e["name"] for e in events]
-    print(f"[kernel] one {label} call ran {len(names)} device operation(s): "
-          f"{names}")
-    if len(names) != 1 or name not in names[0]:
-        raise AssertionError(f"{label} ran {names}, want the one {name}")
+        return f"f32 FMA, {bm} x {bn} tiles"
+    return "mma.sync"
 
 
 def phase_matmul(device):
-    """relic_matmul and relic_matmul_gated against their plain versions on
-    the card: the test shapes in f32 and bf16 (the ragged one takes the
-    mma.sync kernel, the others in bf16 the wgmma design), ragged bf16 shapes
-    the wgmma design takes, an f32 output of bf16 inputs and the reverse,
-    the gated form with silu, gelu and an unknown name (no activation) on
-    both of its routes, then timing at the quickstart's shape, relic_tiny's MLP shapes and a square
-    one beside the bound, the plain version and torch.matmul (CUDA events
-    and the profiler's device times). One call at 4096^3 bf16 must run one
-    device kernel, the wgmma design's. Returns the two kernels' entries of
-    the numbers line (relic_matmul's at the quickstart's shape, the gated
-    form's at relic_tiny's MLP shape)."""
+    """relic_matmul's timings at the quickstart's shape, relic_tiny's MLP
+    shapes and a square one beside the bound, the plain version and
+    torch.matmul (cuBLAS; TF32 is off, so f32 stays f32), and the gated
+    form's at relic_tiny's MLP shape with each activation. Returns the two
+    kernels' entries of the numbers line (relic_matmul's at the
+    quickstart's shape, the gated form's at relic_tiny's MLP shape)."""
     gen = torch.Generator(device=device).manual_seed(3)
-    shapes = [(m, n, k, dt) for m, n, k in MM_TEST_SHAPES
-              for dt in (torch.float32, torch.bfloat16)]
-    shapes += [(m, n, k, torch.bfloat16) for m, n, k in MM_WGMMA_RAGGED]
-    for m, n, k, dtype in shapes:
-        x, (w,) = _mm_inputs(gen, m, n, k, dtype, 1, device)
-        want_wgmma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
-        for od in (None, torch.float32 if dtype == torch.bfloat16 else torch.bfloat16):
-            got, design = _mm_call(x, w, od)
-            if design.startswith("wgmma") != want_wgmma:
-                raise AssertionError(f"relic_matmul [{m}, {k}] @ [{k}, {n}] "
-                                     f"{dtype} ran {design}")
-            tol = MM_TOL[od or dtype]
-            _hold(f"{_mm_label('relic_matmul', m, n, k)} ({design}, out "
-                  f"{str(od or dtype)[6:]})", got,
-                  rm.relic_matmul_plain(x, w, od), *tol)
-    # The gated form: the wgmma ring where the predicate holds for x with
-    # each weight (bf16, K and N multiples of 8), relic_matmul.cu elsewhere.
-    gated_shapes = [(*GATED_TEST, dt) for dt in (torch.float32, torch.bfloat16)]
-    gated_shapes += [(m, n, k, torch.bfloat16) for m, n, k in MM_WGMMA_RAGGED]
-    gated_shapes += [(100, 60, 36, torch.bfloat16), (*GATED_MLP, torch.bfloat16)]
-    for m, n, k, dtype in gated_shapes:
-        x, (wg, wu) = _mm_inputs(gen, m, n, k, dtype, 2, device)
-        want_wgmma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
-        for act in ("silu", "gelu", "none"):
-            before = rm.gated_wgmma_launches
-            got = rm.relic_matmul_gated_cuda(x, wg, wu, act=act)
-            if (rm.gated_wgmma_launches - before == 1) != want_wgmma:
-                raise AssertionError(f"relic_matmul_gated [{m}, {k}] @ [{k}, {n}] "
-                                     f"{dtype}: wgmma launches "
-                                     f"{rm.gated_wgmma_launches - before}")
-            _hold(f"{_mm_label('relic_matmul_gated', m, n, k, act)} "
-                  f"({'wgmma' if want_wgmma else 'relic_matmul.cu'})", got,
-                  rm.relic_matmul_gated_plain(x, wg, wu, act), *GATED_TOL[dtype])
-
-    # ops.matmul keeps no tile predicate: a ragged shape goes to the kernel.
-    x, (w,) = _mm_inputs(gen, 100, 60, 36, torch.float32, 1, device)
-    before = rm.launches
-    got = ops.matmul(x, w, bm=128, bn=128, bk=128)
-    if rm.launches != before + 1:
-        raise AssertionError(f"ops.matmul at [100, 36] @ [36, 60] launched the "
-                             f"kernel {rm.launches - before} times")
-    _hold("ops.matmul [100, 36] @ [36, 60]", got, rm.relic_matmul_plain(x, w),
-          *MM_TOL[torch.float32])
-
-    def fmt(v):
-        return "not measured" if v is None else f"{v:.4f} ms"
-
     timed = []
     for label, m, n, k, dtype, iters in MM_TIMED:
         x, (w,) = _mm_inputs(gen, m, n, k, dtype, 1, device)
-        desc = f"{_mm_label(label, m, n, k)} {str(dtype)[6:]}"
-        got, design = _mm_call(x, w)
-        err = _hold(f"{_mm_label(label, m, n, k)} ({design})", got,
-                    rm.relic_matmul_plain(x, w), *MM_TOL[dtype])
-        ms = time_ms(lambda: rm.relic_matmul_cuda(x, w), iters)
-        device_ms = kernel_ms(lambda: rm.relic_matmul_cuda(x, w), iters)
-        plain_ms = time_ms(lambda: rm.relic_matmul_plain(x, w), iters)
-        # The library yardstick: torch.matmul in the input type (cuBLAS; TF32
-        # is off, so f32 stays f32). The port never calls it.
-        library_ms = time_ms(lambda: torch.matmul(x, w), iters)
-        library_device_ms = kernel_ms(lambda: torch.matmul(x, w), iters)
+        design = _mm_design(x, w)
+        desc = f"{label} [{m}, {k}] @ [{k}, {n}] {str(dtype)[6:]}"
         bound_ms, bound_by, flops, nbytes = matmul_bound_ms(m, n, k, dtype)
-        print(f"[kernel] {desc}: kernel ({design}) {ms:.4f} ms (device "
-              f"{fmt(device_ms)}), plain {plain_ms:.4f} ms, torch.matmul "
-              f"{library_ms:.4f} ms (device {fmt(library_device_ms)}); bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB); {flops / (device_ms or ms) / 1e9:.1f} "
-              f"TFLOP/s achieved")
-        timed.append(dict(shape=desc, design=design, max_abs_err=err, ms=ms,
-                          device_ms=device_ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms,
-                          library_device_ms=library_device_ms))
-
-    x, (w,) = _mm_inputs(gen, 4096, 4096, 4096, torch.bfloat16, 1, device)
-    _one_kernel(lambda: rm.relic_matmul_cuda(x, w), "relic_matmul_cuda at "
-                "4096^3 bf16", "mm_wgmma_kernel")
+        timed.append(time_kernel(
+            f"{desc} ({design})", lambda: rm.relic_matmul_cuda(x, w),
+            lambda: rm.relic_matmul_plain(x, w), iters, (bound_ms, bound_by),
+            (flops, nbytes), MM_TOL[dtype], library=lambda: torch.matmul(x, w),
+            shape=desc,
+            design=design))
 
     m, n, k = GATED_MLP
-    dtype = torch.bfloat16
-    x, (wg, wu) = _mm_inputs(gen, m, n, k, dtype, 2, device)
+    x, (wg, wu) = _mm_inputs(gen, m, n, k, torch.bfloat16, 2, device)
     bn = rm.wgmma_tile_n(m, n, rm.sm_count(device), rm.GATED_WGMMA_TILES_N)
-    desc = (f"{_mm_label('relic_matmul_gated', m, n, k, 'silu')} "
-            f"{str(dtype)[6:]} (wgmma, 128 x {bn} tiles per weight)")
-    err = _hold(_mm_label("relic_matmul_gated", m, n, k, "silu"),
-                rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"),
-                rm.relic_matmul_gated_plain(x, wg, wu, "silu"), *GATED_TOL[dtype])
-    ms = time_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"), 50)
-    device_ms = kernel_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"))
-    plain_ms = time_ms(lambda: rm.relic_matmul_gated_plain(x, wg, wu, "silu"), 50)
+    desc = (f"relic_matmul_gated [{m}, {k}] @ [{k}, {n}] act=silu bfloat16 "
+            f"(wgmma, 128 x {bn} tiles per weight)")
+    bound_ms, bound_by, flops, nbytes = matmul_bound_ms(m, n, k, torch.bfloat16, 2)
     # For information only: no single PyTorch call computes the gated form;
-    # three do (two torch.matmul, then silu(g) * u). Their summed device time.
-    calls_ms = kernel_ms(lambda: torch.nn.functional.silu(x @ wg) * (x @ wu))
-    bound_ms, bound_by, flops, nbytes = matmul_bound_ms(m, n, k, dtype, 2)
-    print(f"[kernel] {desc}: kernel {ms:.4f} ms (device {fmt(device_ms)}), "
-          f"plain {plain_ms:.4f} ms, three library calls (x @ Wg, x @ Wu, "
-          f"silu(g) * u) device {fmt(calls_ms)}; bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
-          f"{flops / (device_ms or ms) / 1e9:.1f} TFLOP/s achieved")
-    _one_kernel(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"),
-                "relic_matmul_gated_cuda at relic_tiny's MLP shape", "mm_wgmma_kernel")
-    # What the epilogue's activation costs: the same call with each one.
-    acts_ms = {act: kernel_ms(lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act=act))
-               for act in ("none", "silu", "gelu")}
-    print(f"[kernel] {desc}: device time by activation "
-          + ", ".join(f"{a} {fmt(v)}" for a, v in acts_ms.items()))
+    # three do (two torch.matmul, then silu(g) * u). Their summed device
+    # time; and what the epilogue's activation costs.
+    gated = time_kernel(
+        desc, lambda: rm.relic_matmul_gated_cuda(x, wg, wu, act="silu"),
+        lambda: rm.relic_matmul_gated_plain(x, wg, wu, "silu"), 50,
+        (bound_ms, bound_by), (flops, nbytes), GATED_TOL[torch.bfloat16],
+        shape=desc, library_calls_device_ms=kernel_ms(
+            lambda: torch.nn.functional.silu(x @ wg) * (x @ wu)),
+        device_ms_by_act={act: kernel_ms(lambda: rm.relic_matmul_gated_cuda(
+            x, wg, wu, act=act)) for act in ("none", "silu", "gelu")})
+    print(f"[kernel]   {desc}: device time by activation " + ", ".join(
+        f"{a} {_fmt(v)}" for a, v in gated["device_ms_by_act"].items()))
     return (
         {"name": "relic_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/relic_matmul.cu",
@@ -1511,10 +958,7 @@ def phase_matmul(device):
         {"name": "relic_matmul_gated", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/relic_matmul_wgmma.cu",
          "replaces": "src/repro/kernels/relic_matmul.py:73", "launches": None,
-         "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": None, "library_calls_device_ms": calls_ms, "shape": desc,
-         "device_ms_by_act": acts_ms,
+         **gated, "library_ms": None,
          "design": ("bf16 that TMA can describe: the wgmma ring of "
                     "relic_matmul_wgmma.cu with a tile of each weight per "
                     "stage (one expect_tx), two f32 accumulators per "
@@ -1658,16 +1102,6 @@ def _forward(cfg, params, tokens, extra=None):
         params, tokens, *(() if extra is None else (extra,)))
 
 
-def _timed_forward(cfg, params, tokens, extra=None):
-    """(logits, ms): one warm call, then one timed on the host clock."""
-    _forward(cfg, params, tokens, extra)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, _ = _forward(cfg, params, tokens, extra)
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
 def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
@@ -1772,21 +1206,6 @@ def check_layers(cfg, params, tokens):
           f"worst max|err| {worst[0]:.3g}, relative {worst[1]:.3g}")
 
 
-@torch.no_grad()
-def time_forwards(cfg, params, tokens, extra=None):
-    """The teacher-forced forward with the kernels and the plain one, timed
-    outside the counted main path, and the kernel forward's device time
-    under the profiler."""
-    cfg_k = cfg.replace(use_kernels=True)
-    _, ms_k = _timed_forward(cfg_k, params, tokens, extra)
-    _, ms_p = _timed_forward(cfg, params, tokens, extra)
-    print(f"[forward] {cfg.name} tokens {list(tokens.shape)}: forward with "
-          f"kernels {ms_k:.2f} ms, plain {ms_p:.2f} ms")
-    device_profile(lambda: _forward(cfg_k, params, tokens, extra),
-                   f"{cfg.name} forward {list(tokens.shape)} with the kernels")
-    return {"forward_ms": ms_k, "plain_forward_ms": ms_p}
-
-
 def phase_recurrent(arch, gen, device):
     """Serve a recurrent family at full width; returns (cfg, params, served
     tokens)."""
@@ -1830,23 +1249,12 @@ def phase_long(cfg, params, device):
         raise AssertionError(f"{launched} launches in the loss, want "
                              f"{cfg.n_layers} through the wgmma design")
 
-    def timed(c):
-        lm_forward(c, params, batch["tokens"])  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, _ = lm_forward(c, params, batch["tokens"])
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    logits_k, ms_k = timed(cfg_k)
-    logits_p, ms_p = timed(cfg)
+    logits_k, _ = lm_forward(cfg_k, params, batch["tokens"])
+    logits_p, _ = lm_forward(cfg, params, batch["tokens"])
     err = (logits_k - logits_p).abs().max().item()
     torch.testing.assert_close(logits_k, logits_p, rtol=MODEL_TOL, atol=MODEL_TOL)
-    print(f"[long] tokens [{b}, {s}]: loss {loss.item():.4f}; forward with "
-          f"kernel {ms_k:.2f} ms, plain (chunked attention) {ms_p:.2f} ms; "
-          f"max|logits diff| {err:.3g} (tol {MODEL_TOL})")
-    device_profile(lambda: lm_forward(cfg_k, params, batch["tokens"]),
-                   f"forward [{b}, {s}] with the kernel")
+    print(f"[long] tokens [{b}, {s}]: loss {loss.item():.4f}; max|logits "
+          f"kernel - plain (chunked attention)| {err:.3g} (tol {MODEL_TOL})")
 
 
 def phase_quickstart(device):
@@ -2918,13 +2326,12 @@ def _dense_path(arch, launches, device, entries, n_layers=None):
     gen_toks, (cfg, model, params), served = serve_main(arch, GEN, device,
                                                         n_layers)
     want = {"flash_attention": launches, "rope": launches}
-    tokens, logits_k, logits_p = phase_forward(cfg, params, gen_toks, want,
-                                               True, device)
+    _, logits_k, logits_p = phase_forward(cfg, params, gen_toks, want, True,
+                                          device)
     _count_path(arch, want, entries)
     del logits_k, logits_p
     return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
-                                                            device),
-            **time_forwards(cfg, params, tokens)}
+                                                            device)}
 
 
 def phase_granite(device, entries):
@@ -2949,21 +2356,16 @@ def phase_zamba2_7b(device, entries):
     in bf16 with the kernels): one forward over ``ZAMBA2_7B_TOKENS`` from
     launch counts of 0, exactly 81 ssd launches through the tensor-core
     design, 81 conv launches, 13 flash launches through the wgmma design
-    (head_dim 224) and 13 RoPE launches, with finite logits; then the
-    forward timed."""
+    (head_dim 224) and 13 RoPE launches, with finite logits."""
     from portbench.harness import program
     from portbench.reference import zamba2 as z2_ref
 
     doc = json.loads((Path(ROOT) / "portbench" / "configs"
                       / f"{ZAMBA2_7B}.json").read_text())
     m = {**doc["model"], **doc["serve"]}
-    t0 = time.perf_counter()
     model, params, flat, _ = program.build(m, z2_ref, 2**31 + 7, device, False,
                                            doc["init_rules"])
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    b, s = ZAMBA2_7B_TOKENS
-    tokens = torch.randint(0, m["vocab_size"], (b, s), device=device,
+    tokens = torch.randint(0, m["vocab_size"], ZAMBA2_7B_TOKENS, device=device,
                            generator=torch.Generator(device=device).manual_seed(2))
     _reset_launches()
     logits, _ = model.forward(params, tokens)
@@ -2971,16 +2373,9 @@ def phase_zamba2_7b(device, entries):
     _count_path(ZAMBA2_7B, ZAMBA2_7B_LAUNCHES, entries)
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{ZAMBA2_7B}: non-finite logits")
-    del logits
-    t0 = time.perf_counter()
-    model.forward(params, tokens)
-    torch.cuda.synchronize()
-    forward_ms = (time.perf_counter() - t0) * 1e3
     n_params = flat.numel()
-    print(f"[forward] {ZAMBA2_7B} tokens {[b, s]} bf16: {n_params} "
-          f"parameters drawn in {init_s:.1f} s, forward {forward_ms:.1f} ms")
-    del model, params, flat
-    return {"params": n_params, "forward_ms": forward_ms}
+    del model, params, flat, logits
+    return {"params": n_params}
 
 
 def _ce(logits, tokens):
@@ -3023,8 +2418,7 @@ def phase_whisper(device, entries):
     if not (np.isfinite(loss_k) and abs(loss_k - loss_p) <= MODEL_TOL):
         raise AssertionError(f"{cfg.name}: loss {loss_k} against {loss_p}")
     return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
-                                                            device),
-            **time_forwards(cfg, params, tokens, frames)}
+                                                            device)}
 
 
 def _check_init(cfg, params):
@@ -3186,8 +2580,7 @@ def phase_arctic(device, entries):
         raise AssertionError(f"{cfg.name}: decode agreement {agree} <= 0.9")
     _count_path(ARCTIC, {"flash_attention": cfg.n_layers, "rope": cfg.n_layers},
                 entries)
-    return {"init_s": init_s, "decode_ms_per_step": step_ms,
-            **time_forwards(cfg, params, tokens)}
+    return {"init_s": init_s, "decode_ms_per_step": step_ms}
 
 
 @torch.no_grad()
@@ -3234,12 +2627,8 @@ def phase_paligemma(device, entries):
                                           device)
     _count_path(PALIGEMMA, {**text, "rope": 2 * cfg.n_layers}, entries)
     del logits_k, logits_p
-    prefix = time_forwards(cfg, params, tokens, patches)
-    text_ms = time_forwards(cfg, params, tokens)
     return {**served, "outside_ms_per_step": decode_outside(cfg, model, params,
-                                                            device),
-            **prefix, "text_forward_ms": text_ms["forward_ms"],
-            "plain_text_forward_ms": text_ms["plain_forward_ms"]}
+                                                            device)}
 
 
 def _remat_batch(cfg, batch, seed, device):
@@ -3557,23 +2946,16 @@ def main() -> int:
         "flash_attention": phase_kernel(device),
         "wkv6": phase_recurrence(
             "wkv6", wkv6_k, "src/repro/kernels/wkv6.py:21", _wkv6_inputs,
-            lambda ins, chunk: wkv6_bound_ms(ins[0], ins[3], ins[4], chunk),
-            WKV6_TEST_SHAPES, WKV6_SERVED, WKV6_LONG, torch.bfloat16, 1, device,
-            redesign=("tc_launches", lambda r, k, v, w, u: wkv6_k.tc_eligible(r)),
-            tc_bound=lambda ins, chunk: wkv6_tc_bound_ms(ins[0], ins[3], ins[4],
-                                                         chunk)),
+            lambda ins, chunk: wkv6_bounds(ins[0], ins[3], ins[4], chunk),
+            WKV6_SERVED, WKV6_LONG, torch.bfloat16, 1, device),
         "ssd": phase_recurrence(
             "ssd", ssd_k, "src/repro/kernels/ssd.py:19", _ssd_inputs,
-            lambda ins, chunk: ssd_bound_ms(ins[0], ins[1], ins[2], chunk),
-            SSD_TEST_SHAPES, SSD_SERVED, SSD_LONG, torch.float32, 2, device,
-            redesign=("tc_launches", lambda x, a, b, c: ssd_k.tc_eligible(x, b)),
-            tc_bound=lambda ins, chunk: ssd_tc_bound_ms(ins[0], ins[1], ins[2],
-                                                        chunk)),
+            lambda ins, chunk: ssd_bounds(ins[0], ins[2], chunk),
+            SSD_SERVED, SSD_LONG, torch.float32, 2, device),
         "relic_matmul": mm_entry,
         "relic_matmul_gated": gated_entry,
     }
     entries["ssd"]["grouped"] = phase_ssd_grouped(device)
-    phase_wkv6_layout(device)
     entries["rope"] = phase_rope(device)
     entries["conv"] = phase_conv(device)
     print(f"[main] build and kernel phases {time.perf_counter() - t_start:.1f} s")
@@ -3610,7 +2992,6 @@ def main() -> int:
         del logits_k, logits_p
         if cfg.family in ("ssm", "hybrid"):
             check_layers(cfg, params, tokens)
-        time_forwards(cfg, params, tokens)
         if arch == ARCH:
             relic = (cfg, params)
         del params
@@ -3618,14 +2999,6 @@ def main() -> int:
 
     # The other families, each from launch counts of 0 (each phase resets
     # them and counts its own path).
-    flash_at = {}   # each path's first timed flash shape (phase_kernel)
-    for o in entries["flash_attention"]["other_shapes"]:
-        if o.get("path"):
-            flash_at.setdefault(o["path"], o)
-
-    def ms(x):
-        return "not measured" if x is None else f"{x:.4f} ms"
-
     for arch, phase in ((GRANITE, phase_granite), (PHI3, phase_phi3),
                         (WHISPER, phase_whisper), (ARCTIC, phase_arctic),
                         (PALIGEMMA, phase_paligemma),
@@ -3633,13 +3006,8 @@ def main() -> int:
         t0 = time.perf_counter()
         summary = phase(device, entries)
         torch.cuda.empty_cache()
-        fl = flash_at.get(arch)
         print(f"[path] {arch} on {card}: "
               + ", ".join(f"{k} {v:.2f}" for k, v in summary.items())
-              + (f"; flash {fl['shape']} device {ms(fl['device_ms'])}, bound "
-                 f"{ms(fl['bound_ms'])} by {fl['bound_by']}, sdpa device "
-                 f"{ms(fl.get('library_device_ms', fl['library_ms']))}"
-                 if fl else "")
               + f"; phase {time.perf_counter() - t0:.1f} s")
 
     # The quickstart path, from launch counts of 0.

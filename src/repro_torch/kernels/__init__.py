@@ -4,9 +4,11 @@ a plain-torch version beside it and an independent oracle in ``ref``:
   relic_matmul       — the paper's pipeline as a tiled matmul (CUDA C++, sm_90a:
                        TMA ring + wgmma for bf16 that TMA can describe,
                        mma.sync for other bf16, FMA tiled by shape for f32)
-  relic_matmul_gated — its fused act(x@Wg)*(x@Wu) form (mma.sync / FMA)
+  relic_matmul_gated — its fused act(x@Wg)*(x@Wu) form (the same three
+                       designs: the wgmma ring with two accumulators for bf16
+                       that TMA can describe, mma.sync, FMA)
   flash_attention    — GQA causal/full streaming attention (CUDA C++, sm_90a:
-                       wgmma + TMA for bf16 head_dim 64, 96, 128 or 256,
+                       wgmma + TMA for bf16 head_dim 64, 96, 128, 224 or 256,
                        CUDA-core kernel else)
   wkv6               — RWKV-6 chunked WKV recurrence (CUDA C++, sm_90a)
   ssd                — Mamba-2 chunked SSD recurrence (CUDA C++, sm_90a:

@@ -1,24 +1,22 @@
 """The conv kernel (``repro_torch.kernels.conv``, ``csrc/conv.cu``) on the
 card: bit for bit ``_causal_conv`` on every case, in f32 and bf16, one
 launch a call, among them zamba2_7b's cell shape read from a strided view of
-the in-projection's output; what it refuses, before any launch; and one
-launch a Mamba layer in a Zamba2-7B-Instruct forward at its published width
-and depth. Skips where there is no card; run on the card: ``PYTHONPATH=src
-python -m pytest -m card tests/test_torch_conv_card.py``.
+the in-projection's output; and what it refuses, before any launch. Its
+launches in a Zamba2-7B-Instruct forward are counted with the other
+kernels' in ``tests/test_torch_zamba2_card.py``. Skips where there is no
+card; run on the card: ``PYTHONPATH=src python -m pytest -m card
+tests/test_torch_conv_card.py``.
 
 ``CASES`` and ``case_inputs`` serve the CPU tests too
 (``tests/test_torch_conv.py``), so this file imports no JAX."""
 
-import json
-from pathlib import Path
-
 import pytest
 import torch
 
+from card_holds import card  # noqa: F401
 from repro_torch.kernels import conv, ops
 from repro_torch.models.mamba2 import _causal_conv
 
-ROOT = Path(__file__).resolve().parents[1]
 # name -> (B, S, C, in-projection width, xBC's first column, K, bias): x is
 # the view [:, :, col:col + C] of a [B, S, width] tensor, as ``_split_in``
 # cuts xBC from the in-projection's output (width C and column 0: x is
@@ -54,14 +52,6 @@ def case_inputs(name, dtype, device="cpu", bias=None):
     w = rnd(k, c, scale=0.5)
     keep = has_bias if bias is None else bias
     return x, w, (rnd(c, scale=0.1) if keep else None)
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run on the card: PYTHONPATH=src python "
-                    "-m pytest -m card tests/test_torch_conv_card.py")
-    return torch.device("cuda")
 
 
 @pytest.mark.card
@@ -116,24 +106,3 @@ def test_kernel_refuses_a_gradient_and_a_dtensor(card):
         with pytest.raises(RuntimeError, match="takes no DTensor"):
             ops.causal_conv_silu(dx, w, bias)
     assert conv.launches == before
-
-
-@pytest.mark.card
-def test_published_forward_launches_once_a_mamba_layer(card):
-    from portbench.harness import program
-    from portbench.reference import zamba2 as ref
-
-    doc = json.loads((ROOT / "portbench" / "configs" / "zamba2_7b.json").read_text())
-    m = {**doc["model"], **doc["serve"]}
-    model, params, flat, _ = program.build(m, ref, 2**31 + 7, card, False,
-                                           doc["init_rules"])
-    toks = torch.randint(0, m["vocab_size"], (2, 1024), device=card,
-                         generator=torch.Generator(device=card).manual_seed(2))
-    conv.launches = 0
-    with torch.no_grad():
-        logits, _ = model.forward(params, toks)
-    torch.cuda.synchronize()
-    assert conv.launches == m["n_layers"] == 81
-    assert torch.isfinite(logits).all()
-    del model, params, flat, logits
-    torch.cuda.empty_cache()

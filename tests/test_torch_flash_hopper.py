@@ -3,7 +3,8 @@ plain Python and hold without a card, and the port's flash attention held
 against the JAX package's kernel (interpret-mode Pallas) and its oracle at
 the shapes that design takes (bf16, head_dim 64, 96, 128 and 256, GQA, ragged
 and unequal lengths, the model layout). On the CPU the wrappers take the plain version;
-the CUDA kernels are held against it on the card by ``chip_smoke.py``."""
+the CUDA kernels are held against it on the card by
+``tests/test_torch_flash_card.py``, whose cases are checked here first."""
 
 import contextlib
 from pathlib import Path
@@ -17,6 +18,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+
+import test_torch_flash_card as flash_card
 
 CSRC = Path(fa.__file__).resolve().parent / "csrc"
 TOL = 2e-2   # bf16: tests/test_kernels.py:70-71
@@ -56,6 +59,20 @@ def test_predicate_takes_bf16_head_dims_64_and_128_in_both_layouts(layout, h, kv
 
 def test_wgmma_head_dims_are_the_kernels_instances():
     assert fa.WGMMA_HEAD_DIMS == (64, 96, 128, 224, 256)
+
+
+def test_card_cases_take_the_design_they_name():
+    # The card test's case table: every case valid for the wrappers, each
+    # one that leaves the design to the dispatch predicate naming its choice.
+    for name, (entry, (b, s, h, kv, d), dtype, _, sk, design) in flash_card.CASES.items():
+        q, k, v = flash_card.case_inputs(name)
+        if entry == "ops":
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        assert q.shape == (b, h, s, d), name
+        assert k.shape == v.shape == (b, kv, sk or s, d), name
+        assert q.dtype == k.dtype == v.dtype == dtype, name
+        fa._check(q, k, v)
+        assert (design == "wgmma") == (entry != "fma" and fa.wgmma_eligible(q, k, v)), name
 
 
 def _strided_last_dim():
@@ -207,19 +224,6 @@ def test_wgmma_source_uses_tma_ring_and_wgmma_for_both_products():
     assert stages >= 2
 
 
-def test_d96_ab_rewrites_the_committed_source():
-    # flash_d96_ab.py builds the D = 96 instance's n128 route from a text
-    # rewrite of the source; every piece it rewrites must be there once.
-    import sys
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import flash_d96_ab
-
-    src = (CSRC / "flash_attention_wgmma.cu").read_text()
-    out = flash_d96_ab.n128_source(src)
-    assert "wgmma_m64n96k16_rs_tb(" not in out
-    assert out.count(flash_d96_ab.N128) == 3
-
-
 def _c_params(src, name):
     """The parameter list of the C entry ``name`` in ``src``."""
     sig = src.split(f'extern "C" int {name}(')[1].split(")")[0]
@@ -317,7 +321,7 @@ def test_ragged_lengths_match_jax(rng, h, kv, d, s, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_unequal_lengths_match_jax_kernel(rng, causal):
-    # Sq 128 against Sk 320 (top-left aligned when causal), as chip_smoke
-    # holds the kernel; the Pallas kernel runs at bq 128, bk 64.
+    # Sq 128 against Sk 320 (top-left aligned when causal), as the card
+    # test holds the kernel; the Pallas kernel runs at bq 128, bk 64.
     jax_in, torch_in = _model_inputs(rng, 1, 128, 320, 6, 2)
     _hold_against_jax(jax_in, torch_in, causal, 128, 64)

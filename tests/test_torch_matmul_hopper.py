@@ -1,11 +1,13 @@
 """relic_matmul's designs on the card, as far as they hold without one: the
 dispatch predicate and the tile choices (plain Python), the shape of the
 CUDA sources, and the plain version held against the JAX package's kernel
-(interpret-mode Pallas) and oracle at the ragged shapes ``chip_smoke.py``
-sends to the wgmma design. The CUDA kernels themselves are held against the
-plain version on the card by ``chip_smoke.py``."""
+(interpret-mode Pallas) and oracle at the ragged shapes the wgmma design
+takes. The CUDA kernels themselves are held against the plain version on
+the card by ``tests/test_torch_matmul_card.py``, whose cases are checked
+here first."""
 
 import ast
+import importlib.util
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -15,8 +17,12 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from portbench.work.flash import attention_work
+from portbench.work.ssd import ssd_work
 from repro_torch.kernels import ops
 from repro_torch.kernels import relic_matmul as rm
+
+import test_torch_matmul_card as mm_card
 
 CSRC = Path(rm.__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parents[1]
@@ -138,6 +144,67 @@ def test_chip_smoke_builds_every_source():
                    if isinstance(node, ast.Assign)
                    and any(getattr(t, "id", None) == "SOURCES" for t in node.targets))
     assert sorted(sources) == sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+@pytest.fixture(scope="module")
+def cs():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _least_ms(t_ops, t_bytes):
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,sk,causal,dtype", [
+    (8, 192, 32, 32, 96, 192, True, torch.bfloat16),     # phi3's [8, 192]
+    (8, 192, 20, 20, 64, 1500, False, torch.bfloat16),   # whisper's cross
+    (1, 96, 4, 2, 16, 96, True, torch.float32)])         # ragged, GQA
+def test_chip_smoke_attention_bound_is_the_benchmarks_work(cs, b, s, h, kv, d,
+                                                            sk, causal, dtype):
+    # chip_smoke.py's attention bound: portbench/work's count over its own
+    # peaks.
+    q, k = _meta(b, h, s, d, dtype=dtype), _meta(b, kv, sk, d, dtype=dtype)
+    flops, nbytes = attention_work(b, h, kv, s, sk, d, causal, q.element_size())
+    want = _least_ms(flops / cs.PEAK_FLOPS[dtype], nbytes / cs.PEAK_BYTES_S)
+    assert cs.attention_bound_ms(q, k, causal) == (*want, flops, nbytes)
+
+
+@pytest.mark.parametrize("b,h,t,p,n,g,chunk", [
+    (4, 112, 4096, 64, 64, 2, 256),   # zamba2_7b's grouped Mamba layer
+    (8, 64, 256, 64, 64, 1, 128),     # zamba2_1p2b served
+    (1, 3, 45, 64, 64, 1, 32)])       # ragged T, odd H
+def test_chip_smoke_ssd_bounds_are_the_benchmarks_work(cs, b, h, t, p, n, g,
+                                                       chunk):
+    # chip_smoke.py's ssd bounds: portbench/work's count over its own
+    # peaks, all on the f32 CUDA cores, then the products on 3xTF32.
+    x = _meta(b, h, t, p)
+    bmat = _meta(b, t, g, n) if g > 1 else _meta(b, t, n)
+    prods, rest, exps, nbytes = ssd_work(b, h, t, p, n, chunk, 4, g)
+    f32, t_bytes = cs.PEAK_FLOPS[torch.float32], nbytes / cs.PEAK_BYTES_S
+    want = _least_ms((prods + rest + exps) / f32, t_bytes)
+    want_tc = _least_ms(prods / (cs.PEAK_TF32 / 3) + (rest + exps) / f32, t_bytes)
+    assert cs.ssd_bounds(x, bmat, chunk) == (*want, *want_tc, prods + rest,
+                                             exps, nbytes)
+
+
+def test_card_cases_take_the_design_they_name():
+    # The card test's case table: every case valid for the wrapper, its
+    # design the one the dispatch predicate and the dtype give.
+    for name, (entry, (m, n, k), dtype, out, _, design) in mm_card.CASES.items():
+        x, ws = mm_card.case_inputs(name)
+        assert x.shape == (m, k) and all(w.shape == (k, n) for w in ws), name
+        assert len(ws) == (2 if entry == "gated" else 1), name
+        rm._check(entry, x, ws, out)
+        assert all(rm.wgmma_eligible(x, w) for w in ws) == (design == "wgmma"), name
+        assert (dtype == torch.float32) == (design == "fma"), name
 
 
 # ---- against the JAX package, at the ragged shapes of the wgmma design ------

@@ -10,6 +10,7 @@ so this file imports no JAX."""
 import pytest
 import torch
 
+from card_holds import card  # noqa: F401
 from repro_torch.kernels import ops, rope
 from repro_torch.models.layers import apply_rope
 
@@ -35,14 +36,6 @@ def case_inputs(d, heads, pos, dtype, device="cpu"):
     else:
         p = torch.full((B, 1), 8191)
     return q.to(device), k.to(device), p.to(device)
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run on the card: python -m pytest -m "
-                    "card tests/test_torch_rope_card.py")
-    return torch.device("cuda")
 
 
 @pytest.mark.card

@@ -1,10 +1,11 @@
 """ssd's tensor-core design, as far as it holds without a card: the dispatch
 predicate, the geometry and the layouts it reads as they lie (plain Python),
 the shape of the CUDA source, and the plain version held against the JAX
-package's kernel (interpret-mode Pallas) and oracle at the shapes
-``chip_smoke.py`` sends to that design: P = N = 64, a head count that is no
-multiple of its head group, ragged T. The CUDA kernel itself is held against
-the plain version on the card by ``chip_smoke.py``."""
+package's kernel (interpret-mode Pallas) and oracle at the shapes the card
+test sends to that design: P = N = 64, a head count that is no multiple of
+its head group, ragged T. The CUDA kernel itself is held against the plain
+version on the card by ``tests/test_torch_recurrence_card.py``, whose cases
+(wkv6's too) are checked here first."""
 
 from pathlib import Path
 
@@ -17,6 +18,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd as ssd_mod
+from repro_torch.kernels import wkv6 as wk
+
+import test_torch_recurrence_card as rec_card
 
 CSRC = Path(ssd_mod.__file__).resolve().parent / "csrc"
 
@@ -227,3 +231,14 @@ def test_sizes_6_run_the_first_design_zero_padded_to_8(monkeypatch, rng, dtype):
     assert got.shape == (b, h, t, 6) and got.dtype == dtype
     rtol, atol = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-1)}[dtype]
     np.testing.assert_allclose(_np(got), _np(ssd_mod.ssd_plain(x, a, bm, cm)), rtol=rtol, atol=atol)
+
+
+def test_recurrence_card_cases_take_the_design_they_name():
+    # The card test's case table (wkv6 and ssd): every case valid for the
+    # wrapper, the predicate taking the design the case names.
+    for name, (kernel, shape, dtype, tc) in rec_card.CASES.items():
+        ins = rec_card.case_inputs(name)
+        assert tuple(ins[0].shape) == tuple(shape[:4]), name
+        assert ins[0].dtype == dtype, name
+        (wk if kernel == "wkv6" else ssd_mod)._check(*ins)
+        assert rec_card.tc_eligible(kernel, ins) == tc, name

@@ -5,7 +5,7 @@ its factored arithmetic (sub-chunk decays, chunks of 32 steps) held against
 the JAX package's kernel (interpret-mode Pallas) and oracle with aggressive
 decays, at the served head size K = 64 and ragged T. The model lives here,
 not in the package: the wrapper's plain version stays the oracle, and the
-CUDA kernel is held against it on the card by ``chip_smoke.py``."""
+CUDA kernel is held against it on the card (test_torch_recurrence_card.py)."""
 
 from pathlib import Path
 

@@ -3,8 +3,8 @@ head_dim 224 (the wgmma design's instance) against its plain version at
 Zamba2's softmax scale, causal and not; the grouped tensor-core SSD against
 its oracle at the cell's shape, and bit for bit against a call per group;
 and one forward of Zamba2-7B-Instruct at its published width and depth,
-its launches counted. Skips where there is no card; run on the card:
-``PYTHONPATH=src python -m pytest -m card
+its launches counted (ssd, conv, flash and RoPE). Skips where there is no
+card; run on the card: ``PYTHONPATH=src python -m pytest -m card
 tests/test_torch_zamba2_card.py``.
 
 This file imports no JAX."""
@@ -15,6 +15,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from card_holds import card  # noqa: F401
+from repro_torch.kernels import conv
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
@@ -25,14 +27,6 @@ ROOT = Path(__file__).resolve().parents[1]
 SCALE = 112 ** -0.5      # (224 / 2) ** -0.5
 TOL = 2e-2               # bf16: tests/test_kernels.py:70-71
 KTOL = 1e-3              # f32 on 3xTF32: tests/test_kernels.py:108-111
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run on the card: PYTHONPATH=src python "
-                    "-m pytest -m card tests/test_torch_zamba2_card.py")
-    return torch.device("cuda")
 
 
 def _qkv(card, b, h, kv, s, d=224, seed=0):
@@ -109,13 +103,14 @@ def test_published_forward_launches_each_kernel_as_counted(card):
                          generator=torch.Generator(device=card).manual_seed(2))
     fa.launches = fa.wgmma_launches = 0
     ssd_k.launches = ssd_k.tc_launches = 0
-    rope.launches = 0
+    rope.launches = conv.launches = 0
     with torch.no_grad():
         logits, _ = model.forward(params, toks)
     torch.cuda.synchronize()
     assert (ssd_k.tc_launches, ssd_k.launches) == (81, 81)
     assert (fa.wgmma_launches, fa.launches) == (13, 13)   # none on the CUDA cores
     assert rope.launches == 13
+    assert conv.launches == m["n_layers"] == 81   # one a Mamba layer
     assert logits.shape == (2, 1024, 32000) and torch.isfinite(logits).all()
     del model, params, flat, logits
     torch.cuda.empty_cache()
